@@ -1,0 +1,128 @@
+"""Isolation of the port: ``theanompi_tpu_torch`` and ``chip_smoke.py``
+import neither ``jax`` nor anything of ``theanompi_tpu``, and every
+entry point refuses to run without a CUDA device unless the caller asks
+for the CPU.
+
+The import check runs in a subprocess: ``tests/conftest.py`` has
+already imported jax into this one."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from theanompi_tpu_torch import resolve_device
+from theanompi_tpu_torch.models import Llama, params_from_jax
+from theanompi_tpu_torch.serving import decoder_from_checkpoint
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "theanompi_tpu_torch"
+CFG = dict(dim=32, n_layers=1, n_heads=4, n_kv_heads=2, ffn_dim=64,
+           vocab=64, seq_len=64, compute_dtype="float32")
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'theanompi_tpu'\n"
+        "             or m.startswith('theanompi_tpu.'))\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert len(MODULES) >= 15
+
+
+def imported_names(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_file_imports_jax_or_the_jax_package(path):
+    for name in imported_names(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "theanompi_tpu"), (path, name)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_defaults_to_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Llama(CFG)
+    model = Llama(CFG, device="cpu")
+    assert model.params["embed"].device.type == "cpu"
+    from theanompi_tpu_torch.models.llama import params_to_jax
+
+    tree = params_to_jax(model.params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree, CFG)
+    with pytest.raises((RuntimeError, FileNotFoundError)):
+        decoder_from_checkpoint(CFG, str(tmp_path))
+    # the decoders and the engine take the model's device
+    dec = model.make_decoder(max_slots=2, max_seq=16)
+    assert dec.cache[0]["k"].device.type == "cpu"
+
+
+def test_decoder_from_checkpoint_needs_the_card(no_cuda, tmp_path):
+    """With a checkpoint present, loading onto the default device is
+    refused for want of a card, not served on the CPU."""
+    import numpy as np
+
+    from theanompi_tpu_torch.models.llama import params_to_jax
+    from theanompi_tpu_torch.utils.checkpoint import array_digest
+
+    tree = params_to_jax(Llama(CFG, device="cpu").params)
+    flat = {"params:['embed']": tree["embed"],
+            "params:['final_norm']": tree["final_norm"],
+            "params:['lm_head']": tree["lm_head"]}
+    for i, lp in enumerate(tree["layers"]):
+        for k, v in lp.items():
+            flat[f"params:['layers'][{i}]['{k}']"] = v
+    np.savez(tmp_path / "ckpt_3.npz", **flat)
+    import json
+
+    (tmp_path / "ckpt_3.json").write_text(json.dumps(
+        {"_digests": {k: array_digest(v) for k, v in flat.items()}}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decoder_from_checkpoint(CFG, str(tmp_path))
+    dec = decoder_from_checkpoint(CFG, str(tmp_path), device="cpu",
+                                  max_slots=2, max_seq=16)
+    assert torch.equal(dec.model.params["lm_head"],
+                       torch.from_numpy(tree["lm_head"]))

@@ -1,0 +1,169 @@
+"""The hand-written CUDA kernels against their plain versions, on the
+card, at shapes the serving path does not reach (ragged and tiny T,
+every supported head dim, full attention, multi-row query windows).
+Marked ``cuda``; each test skips where no CUDA device is present.  Run
+on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
+
+Tolerances: the plain version is evaluated in fp32 on the same inputs;
+fp32 kernels differ from it by summation order (atol 1e-4), bf16
+kernels also by rounding the output to bf16 (atol 1e-2, rtol 1e-2)."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+       torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,d", [(1, 16), (15, 32), (64, 64), (65, 128),
+                                 (130, 128), (333, 64)])
+def test_flash_fwd_matches_reference(dev, dtype, causal, t, d):
+    from theanompi_tpu_torch.ops.attention import (
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(t * d)
+    q, k, v = (torch.randn((2, 3, t, d), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    before = flash_fwd_cuda.launches
+    o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+    assert flash_fwd_cuda.launches == before + 1
+    o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
+                                       causal=causal)
+    torch.testing.assert_close(o.float(), o_ref, **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+    assert o.dtype == dtype and lse.dtype == torch.float32
+
+
+def test_flash_fwd_cross_lengths_full_attention(dev):
+    from theanompi_tpu_torch.ops.attention import (
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 2, 40, 64), generator=gen, device=dev)
+    k, v = (torch.randn((1, 2, 100, 64), generator=gen, device=dev)
+            for _ in range(2))
+    o, lse = flash_fwd_cuda(q, k, v, False, 0.125)
+    o_ref, lse_ref = mha_reference_fwd(q, k, v, causal=False,
+                                       sm_scale=0.125)
+    torch.testing.assert_close(o, o_ref, **TOL[torch.float32])
+    torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+
+
+def test_flash_fwd_refuses_bad_inputs(dev):
+    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+
+    x = torch.zeros((1, 2, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd_cuda(x, x, x, True, 1.0)
+    y = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_fwd_cuda(y, y, y, True, 1.0)
+    z = torch.zeros((1, 8, 2, 64), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_cuda(z, z, z, True, 1.0)
+
+
+def paged_inputs(dev, dtype, *, s, nq, hkv, rep, hd, bs, mb, seed):
+    rng = np.random.default_rng(seed)
+    n_blocks = s * mb + 3
+    pos = rng.integers(0, mb * bs, size=(s, nq)).astype(np.int32)
+    pos[0, 0] = bs - 1          # on a block edge
+    perm = rng.permutation(n_blocks)
+    tables = np.full((s, mb), n_blocks, np.int32)          # trash id
+    used = 0
+    for i in range(s):
+        n = int(pos[i].max()) // bs + 1
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return (rnd(s, nq, hkv, rep, hd), rnd(n_blocks + 1, hkv, bs, hd),
+            rnd(n_blocks + 1, hkv, bs, hd),
+            torch.as_tensor(tables, device=dev),
+            torch.as_tensor(pos, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,rep,hkv,hd,bs,mb", [
+    (1, 4, 8, 128, 16, 8),      # decode, the 8B grouping
+    (1, 1, 2, 64, 4, 5),        # one row per (slot, kv head)
+    (3, 2, 2, 32, 8, 4),        # verify-shaped window, Q > 1
+    (4, 4, 1, 128, 16, 16),     # 16 rows: the kernel's widest group
+])
+def test_paged_attend_matches_gather_path(dev, dtype, nq, rep, hkv, hd,
+                                          bs, mb):
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+        paged_attend_reference,
+    )
+
+    q, kp, vp, tables, pos = paged_inputs(
+        dev, dtype, s=3, nq=nq, hkv=hkv, rep=rep, hd=hd, bs=bs, mb=mb,
+        seed=nq * 100 + hd,
+    )
+    before = paged_attend_cuda.launches
+    out = paged_attend_cuda(q, kp, vp, tables, pos)
+    assert paged_attend_cuda.launches == before + 1
+    ref = paged_attend_reference(q.float(), kp.float(), vp.float(),
+                                 tables, pos)
+    torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+
+
+def test_paged_attend_refuses_too_many_rows(dev):
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+    )
+
+    q, kp, vp, tables, pos = paged_inputs(
+        dev, torch.float32, s=1, nq=5, hkv=1, rep=4, hd=32, bs=4, mb=2,
+        seed=0,
+    )
+    with pytest.raises(ValueError, match="at most 16"):
+        paged_attend_cuda(q, kp, vp, tables, pos)
+
+
+def test_paged_decoder_on_the_card_matches_the_cpu(dev):
+    """A small fp32 model: the paged decoder's greedy ids through K4 on
+    the card equal the gather path's on the CPU."""
+    from theanompi_tpu_torch.models import Llama
+    from theanompi_tpu_torch.serving import Engine
+
+    cfg = dict(dim=128, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256,
+               vocab=128, seq_len=128, compute_dtype="float32", seed=3)
+    gpu = Llama(cfg, device=dev)
+    cpu = Llama(cfg, device="cpu", params={
+        "embed": gpu.params["embed"].cpu(),
+        "layers": [{k: t.cpu() for k, t in lp.items()}
+                   for lp in gpu.params["layers"]],
+        "final_norm": gpu.params["final_norm"].cpu(),
+        "lm_head": gpu.params["lm_head"].cpu(),
+    })
+    prompts = [[1, 2, 3, 4, 5], list(range(7, 40)), [9] * 20]
+    ids = []
+    for model in (gpu, cpu):
+        eng = Engine(model.make_decoder(paged=True, max_slots=2,
+                                        max_seq=96, block_size=8,
+                                        prefill_chunk=16))
+        futs = [eng.submit(p, max_tokens=10) for p in prompts]
+        eng.run_until_idle()
+        ids.append([f.result(timeout=0).tokens for f in futs])
+    assert ids[0] == ids[1]

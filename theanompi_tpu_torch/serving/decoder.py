@@ -1,0 +1,494 @@
+"""Model layer of the serving engine: GQA KV-cache decode for
+``models/llama.py`` at one card and tp=1.
+
+Port of ``theanompi_tpu/serving/decoder.py``.  Two cache organisations:
+
+- ``LlamaDecoder`` (v1) — slot-contiguous cache per layer,
+  ``[slots, kv_heads, max_seq, hd]``.  The prompt runs through the
+  causal forward in one go (bucketed lengths) with attention through
+  ``flash_attention`` — kernel K1 on the card — after the K/V heads
+  are repeated to the query heads; decode attends with plain einsum
+  attention over the slot's cache.
+- ``PagedLlamaDecoder`` (v2) — per-layer block pools ``[n_blocks + 1,
+  kv_heads, block_size, hd]`` (the extra row is the trash block that
+  padding and inactive slots write to) plus per-slot block tables
+  (``serving/blocks.py``) and the radix prefix cache.  Prompts prefill
+  in fixed-size chunks (gather plus plain attention, as in the JAX
+  package); decode attends through ``paged_attend`` — kernel K4 on the
+  card — which reads the pools through the tables.
+
+PyTorch runs eagerly, so the JAX package's jit/shard_map scaffolding
+(compiled variants, donation, compile counters) has no counterpart:
+the device bodies are plain methods and the caches are updated in
+place.  The guarantees carry over: a slot's rows depend only on its
+own tokens, positions and blocks, and decode always runs all
+``max_slots`` rows, so a request decoded in a full batch gives the
+same ids as decoded alone; a prefix-cache hit gives the same ids as a
+cold prefill.  Sampling at temperature > 0 seeds each token's Gumbel
+draw with (request seed, position) — see ``parallel/tp.py``.
+
+Not ported yet (ROADMAP.md): the speculative ``verify`` step,
+``export_blocks``/``import_blocks`` (disaggregation) and tp > 1.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from theanompi_tpu_torch.models.llama import (
+    Llama,
+    _heads,
+    _unheads,
+    params_from_jax,
+    rms_norm,
+    rope,
+    rope_at,
+)
+from theanompi_tpu_torch.ops.attention import NEG_INF, flash_attention
+from theanompi_tpu_torch.parallel import tp as tp_lib
+from theanompi_tpu_torch.serving.blocks import BlockManager
+from theanompi_tpu_torch.serving.paged_attention import (
+    gather_blocks,
+    paged_attend,
+)
+from theanompi_tpu_torch.serving.prefix_cache import PrefixCache
+
+
+def default_prefill_buckets(max_prefill: int, base: int = 16) -> tuple:
+    """Power-of-two bucket ladder ``base, 2*base, ...`` capped at
+    ``max_prefill`` (always included)."""
+    out = []
+    b = base
+    while b < max_prefill:
+        out.append(b)
+        b *= 2
+    out.append(max_prefill)
+    return tuple(out)
+
+
+class LlamaDecoder:
+    """KV-cache decoder over a ``Llama`` (see module docstring).
+
+    Host API (the engine's two scheduling primitives):
+
+    - ``prefill(slot, prompt_ids, seed, temperature) -> first token``
+    - ``decode(tokens, lengths, seeds, temps) -> next tokens [S]``
+    """
+
+    paged = False
+
+    def __init__(self, model: Llama, *, max_slots: int = 8,
+                 max_seq: int | None = None,
+                 prefill_buckets: tuple | None = None):
+        self._init_common(model, max_slots, max_seq)
+        self.prefill_buckets = tuple(
+            sorted(prefill_buckets)
+            if prefill_buckets else default_prefill_buckets(self.max_prefill)
+        )
+        if self.prefill_buckets[-1] != self.max_prefill:
+            raise ValueError(
+                f"largest prefill bucket {self.prefill_buckets[-1]} must "
+                f"equal max_prefill {self.max_prefill}"
+            )
+        shape = (self.max_slots, model.n_kv_heads, self.max_seq, self._hd)
+        self.cache = self._zeros_cache(shape)
+
+    def _init_common(self, model: Llama, max_slots, max_seq) -> None:
+        if model.params is None:
+            raise ValueError("LlamaDecoder needs a Llama with parameters")
+        self.model = model
+        self.device = model.device
+        self.max_slots = int(max_slots)
+        self.max_seq = int(max_seq or model.seq_len)
+        # decode appends one position past the prompt per token, so
+        # the longest servable prompt leaves room for >= 1 new token
+        self.max_prefill = self.max_seq - 1
+        self._h = model.n_heads
+        self._hkv = model.n_kv_heads
+        self._rep = self._h // self._hkv
+        self._hd = model.head_dim
+        self._cdtype = model.compute_dtype
+        self._scale = self._hd ** -0.5
+
+    def _zeros_cache(self, shape):
+        """Per-layer {k, v} zeros of ``shape`` (the contiguous cache and
+        the paged block pools differ only in shape)."""
+        return [
+            {"k": torch.zeros(shape, dtype=self._cdtype, device=self.device),
+             "v": torch.zeros(shape, dtype=self._cdtype, device=self.device)}
+            for _ in range(self.model.n_layers)
+        ]
+
+    def _tensor(self, a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+    # -- device bodies ---------------------------------------------------
+
+    def _mlp(self, p, x):
+        xn = rms_norm(x, p["mlp_norm"])
+        gate = F.silu(tp_lib.col_parallel(xn, p["w_gate"]))
+        up = tp_lib.col_parallel(xn, p["w_up"])
+        return x + tp_lib.row_parallel(gate * up, p["w_down"]).to(x.dtype)
+
+    def _qkv(self, p, x, n):
+        """Normed input projected to q [n, H, hd], k/v [n, Hkv, hd]."""
+        xn = rms_norm(x, p["attn_norm"])
+        q = tp_lib.col_parallel(xn, p["wq"]).reshape(n, self._h, self._hd)
+        k = tp_lib.col_parallel(xn, p["wk"]).reshape(n, self._hkv, self._hd)
+        v = tp_lib.col_parallel(xn, p["wv"]).reshape(n, self._hkv, self._hd)
+        return q, k, v
+
+    def _logits(self, x):
+        xf = rms_norm(x, self.model.params["final_norm"])
+        return tp_lib.col_parallel(xf, self.model.params["lm_head"])
+
+    def _sample(self, logits, seeds, pos, temps, greedy: bool):
+        """Token ids from [N, V] logits.  ``greedy`` is the all-greedy
+        fast path (no Gumbel draw).  Otherwise the token that will sit
+        at position pos+1 draws its noise from (seed, pos+1), so
+        batched and single-request decodes draw identical noise.
+        ``seeds``/``pos`` are host sequences, ``temps`` [N] f32."""
+        if greedy:
+            return tp_lib.sharded_argmax(logits.float(), self.model.vocab)
+        folded = [tp_lib.fold_seed(s, int(p) + 1) for s, p in zip(seeds, pos)]
+        return tp_lib.sharded_sample(logits, self.model.vocab, folded, temps)
+
+    def _decode_body(self, tokens, lengths, seeds, host_lengths, temps,
+                     greedy: bool):
+        """One token for all slots.  tokens/lengths [S] int64 on the
+        device, ``seeds``/``host_lengths`` host arrays, temps [S] f32
+        -> next tokens [S]."""
+        m = self.model
+        s, hd, rep = self.max_slots, self._hd, self._rep
+        x = tp_lib.embed_lookup(tokens, m.params["embed"], m.vocab).to(
+            self._cdtype)                                         # [S, D]
+        pos = lengths                          # write position per slot
+        rows = torch.arange(s, device=self.device)
+        valid = (
+            torch.arange(self.max_seq, device=self.device)[None, :]
+            <= pos[:, None]
+        )[:, None, None, :]                                 # [S, 1, 1, T]
+        for cache, p in zip(self.cache, m.params["layers"]):
+            q, k, v = self._qkv(p, x, s)
+            q = rope_at(q, pos)
+            k = rope_at(k, pos)
+            # append this token's K/V at each slot's own position
+            cache["k"][rows, :, pos] = k.to(self._cdtype)
+            cache["v"][rows, :, pos] = v.to(self._cdtype)
+            # GQA: group the query heads by their KV head
+            qg = q.reshape(s, self._hkv, rep, hd)
+            scores = torch.einsum("skrd,sktd->skrt", qg, cache["k"]).float()
+            scores = torch.where(valid, scores * self._scale, NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            o = torch.einsum(
+                "skrt,sktd->skrd", probs.to(self._cdtype), cache["v"]
+            ).reshape(s, self._h * hd)
+            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = self._mlp(p, x)
+        return self._sample(self._logits(x), seeds, host_lengths, temps,
+                            greedy)
+
+    def _prefill_body(self, ids, slot: int, length: int, seed: int, temp,
+                      greedy: bool):
+        """Prompt forward for ONE request: ids [t_bucket] (zero-padded
+        past ``length``).  Writes K/V rows [0, t_bucket) of ``slot``
+        (rows >= length hold padding garbage, overwritten by decode
+        before any token attends to them) and samples the first output
+        token, which sits at position ``length``."""
+        m = self.model
+        hd, rep = self._hd, self._rep
+        t = ids.shape[0]
+        x = tp_lib.embed_lookup(ids[None, :], m.params["embed"], m.vocab).to(
+            self._cdtype)                                      # [1, t, D]
+        pos = torch.arange(t, device=self.device)
+        for cache, p in zip(self.cache, m.params["layers"]):
+            xn = rms_norm(x, p["attn_norm"])
+            q = _heads(tp_lib.col_parallel(xn, p["wq"]), self._h, hd)
+            k = _heads(tp_lib.col_parallel(xn, p["wk"]), self._hkv, hd)
+            v = _heads(tp_lib.col_parallel(xn, p["wv"]), self._hkv, hd)
+            q = rope(q, pos)
+            k = rope(k, pos)
+            cache["k"][slot, :, :t] = k[0].to(self._cdtype)
+            cache["v"][slot, :, :t] = v[0].to(self._cdtype)
+            if rep != 1:
+                k = k.repeat_interleave(rep, dim=1)
+                v = v.repeat_interleave(rep, dim=1)
+            o = flash_attention(q, k, v, causal=True)
+            x = x + tp_lib.row_parallel(_unheads(o), p["wo"]).to(
+                self._cdtype)
+            x = self._mlp(p, x)
+        # only the last prompt token's logits matter
+        logits = self._logits(x[:, length - 1])                  # [1, V]
+        return self._sample(logits, [seed], [length - 1], temp[None],
+                            greedy)[0]
+
+    # -- host API ---------------------------------------------------------
+
+    def bucket_for(self, prompt_len: int) -> int:
+        """Smallest bucket covering ``prompt_len``."""
+        if not 1 <= prompt_len <= self.max_prefill:
+            raise ValueError(
+                f"prompt length {prompt_len} outside servable range "
+                f"[1, {self.max_prefill}] (max_seq {self.max_seq} "
+                f"leaves one position for generation)"
+            )
+        for b in self.prefill_buckets:
+            if b >= prompt_len:
+                return b
+        raise AssertionError("unreachable: last bucket == max_prefill")
+
+    @torch.no_grad()
+    def prefill(self, slot: int, prompt_ids, seed: int,
+                temperature: float) -> int:
+        """Run one prompt into ``slot``; returns the first sampled token
+        (a host int — reading it is the TTFT fence)."""
+        ids = np.asarray(prompt_ids, np.int64)
+        padded = np.zeros((self.bucket_for(ids.shape[0]),), np.int64)
+        padded[: ids.shape[0]] = ids
+        tok = self._prefill_body(
+            self._tensor(padded), int(slot), int(ids.shape[0]), int(seed),
+            self._tensor(temperature, torch.float32), temperature <= 0,
+        )
+        return int(tok)
+
+    @torch.no_grad()
+    def decode(self, tokens, lengths, seeds, temps) -> np.ndarray:
+        """One decode step for all slots: host arrays in, host token ids
+        [S] out (the read fences the step)."""
+        temps = np.asarray(temps, np.float32)
+        nxt = self._decode_body(
+            self._tensor(tokens), self._tensor(lengths), np.asarray(seeds),
+            np.asarray(lengths), self._tensor(temps, torch.float32),
+            bool(np.all(temps <= 0.0)),
+        )
+        return nxt.cpu().numpy()
+
+    def kv_cache_bytes(self) -> int:
+        """Device memory the KV cache occupies (all layers)."""
+        m = self.model
+        return (2 * m.n_layers * self.max_slots * m.n_kv_heads
+                * self.max_seq * self._hd * _itemsize(self._cdtype))
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+class PagedLlamaDecoder(LlamaDecoder):
+    """Paged-KV-cache decoder (serving v2): block pools + per-slot block
+    tables instead of a slot-contiguous cache.
+
+    - Decode writes each slot's K/V through its table (inactive slots
+      write to the trash block) and attends through ``paged_attend``.
+    - Prefill runs in fixed-size chunks of ``prefill_chunk`` positions:
+      ``prefill(table_row, ids, start, q_len, seed, temp)`` processes
+      the prompt span ``[start, start + q_len)`` against the history
+      already cached (adopted prefix blocks included); a row's compute
+      depends only on its own token, position and cached prefix, so
+      chunked equals monolithic and a prefix hit equals a cold prefill.
+
+    Block bookkeeping (``self.manager``) and the radix prefix cache
+    (``self.prefix_cache``) are host-side; the engine drives admission,
+    copy-on-write, growth and eviction through them.
+    """
+
+    paged = True
+
+    def __init__(self, model: Llama, *, max_slots: int = 8,
+                 max_seq: int | None = None, block_size: int = 16,
+                 n_blocks: int | None = None,
+                 prefill_chunk: int | None = None,
+                 prefix_cache: bool = True):
+        self._init_common(model, max_slots, max_seq)
+        self.block_size = int(block_size)
+        self.manager = BlockManager(
+            n_blocks=None if n_blocks is None else int(n_blocks),
+            block_size=self.block_size,
+            max_slots=self.max_slots, max_seq=self.max_seq,
+        )
+        self.max_blocks = self.manager.max_blocks
+        self.trash_id = self.manager.trash_id
+        self.prefix_cache = (
+            PrefixCache(self.manager.allocator) if prefix_cache else None
+        )
+        self.prefill_chunk = int(
+            prefill_chunk if prefill_chunk is not None
+            else min(64, self.max_prefill)
+        )
+        if not 1 <= self.prefill_chunk <= self.max_prefill:
+            raise ValueError(
+                f"prefill_chunk {self.prefill_chunk} outside "
+                f"[1, {self.max_prefill}]"
+            )
+        shape = (self.manager.allocator.n_blocks + 1, model.n_kv_heads,
+                 self.block_size, self._hd)
+        self.pools = self._zeros_cache(shape)
+
+    # -- device bodies -----------------------------------------------------
+
+    def _write_kv(self, pool, k, v, bids, offs):
+        """Scatter per-row K/V [N, Hkv, hd] into the pools at (block id,
+        offset).  Only rows routed to the trash block may collide, and
+        its content is never read unmasked."""
+        pool["k"][bids, :, offs] = k.to(self._cdtype)
+        pool["v"][bids, :, offs] = v.to(self._cdtype)
+
+    def _decode_body(self, tables, tokens, lengths, seeds, host_lengths,
+                     temps, active, greedy: bool):
+        """One token for all slots through the block tables.  tables
+        [S, MB] int32, active [S] bool (False: writes go to the trash
+        block and the engine ignores the output)."""
+        m = self.model
+        s, bs, hd, rep = self.max_slots, self.block_size, self._hd, self._rep
+        x = tp_lib.embed_lookup(tokens, m.params["embed"], m.vocab).to(
+            self._cdtype)                                         # [S, D]
+        pos = lengths                          # write position per slot
+        rows = torch.arange(s, device=self.device)
+        bidx = (pos // bs).clamp(0, self.max_blocks - 1)
+        wbid = torch.where(active, tables[rows, bidx].long(), self.trash_id)
+        woff = pos % bs
+        pos_q = pos.to(torch.int32)[:, None].contiguous()        # [S, 1]
+        for pool, p in zip(self.pools, m.params["layers"]):
+            q, k, v = self._qkv(p, x, s)
+            q = rope_at(q, pos)
+            k = rope_at(k, pos)
+            self._write_kv(pool, k, v, wbid, woff)
+            o = paged_attend(
+                q.reshape(s, 1, self._hkv, rep, hd), pool["k"], pool["v"],
+                tables, pos_q,
+            ).reshape(s, self._h * hd)
+            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = self._mlp(p, x)
+        return self._sample(self._logits(x), seeds, host_lengths, temps,
+                            greedy)
+
+    def _prefill_body(self, table_row, ids, start: int, q_len: int,
+                      seed: int, temp, greedy: bool):
+        """One prefill chunk for one request: ids [C] (zero-padded past
+        ``q_len``) at absolute positions ``[start, start + q_len)``; K/V
+        rows scatter through ``table_row`` [MB]; attention reads the
+        gathered history under an absolute-position causal mask.
+        Samples the token that follows position ``start + q_len - 1``
+        (meaningful only on the final chunk)."""
+        m = self.model
+        bs, hd, rep = self.block_size, self._hd, self._rep
+        t_pad = self.max_blocks * bs
+        c = ids.shape[0]
+        x = tp_lib.embed_lookup(ids, m.params["embed"], m.vocab).to(
+            self._cdtype)                                         # [C, D]
+        idx = torch.arange(c, device=self.device)
+        pos = start + idx
+        bidx = (pos // bs).clamp(0, self.max_blocks - 1)
+        wbid = torch.where(idx < q_len, table_row[bidx].long(), self.trash_id)
+        woff = pos % bs
+        valid = (
+            torch.arange(t_pad, device=self.device)[None, :] <= pos[:, None]
+        ).reshape(c, 1, 1, t_pad)
+        for pool, p in zip(self.pools, m.params["layers"]):
+            q, k, v = self._qkv(p, x, c)
+            q = rope_at(q, pos)
+            k = rope_at(k, pos)
+            self._write_kv(pool, k, v, wbid, woff)
+            kg = gather_blocks(pool["k"], table_row)          # [Hkv, T, hd]
+            vg = gather_blocks(pool["v"], table_row)
+            qg = q.reshape(c, self._hkv, rep, hd)
+            scores = torch.einsum("ckrd,ktd->ckrt", qg, kg).float()
+            scores = torch.where(valid, scores * self._scale, NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            o = torch.einsum(
+                "ckrt,ktd->ckrd", probs.to(vg.dtype), vg
+            ).reshape(c, self._h * hd)
+            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = self._mlp(p, x)
+        # only the chunk's last valid row matters for sampling
+        logits = self._logits(x[q_len - 1: q_len])                # [1, V]
+        return self._sample(logits, [seed], [start + q_len - 1], temp[None],
+                            greedy)[0]
+
+    # -- host API -----------------------------------------------------------
+
+    def bucket_for(self, prompt_len: int) -> int:
+        """Servability check (same refusal as v1); paged prefill has one
+        chunk shape, so the 'bucket' is always ``prefill_chunk``."""
+        if not 1 <= prompt_len <= self.max_prefill:
+            raise ValueError(
+                f"prompt length {prompt_len} outside servable range "
+                f"[1, {self.max_prefill}] (max_seq {self.max_seq} "
+                f"leaves one position for generation)"
+            )
+        return self.prefill_chunk
+
+    @torch.no_grad()
+    def copy_block(self, src: int, dst: int) -> None:
+        """Device-side copy of one physical block (all layers, K and V)
+        — the copy-on-write primitive ``BlockManager.ensure_writable``
+        calls."""
+        for pool in self.pools:
+            pool["k"][dst] = pool["k"][src]
+            pool["v"][dst] = pool["v"][src]
+
+    @torch.no_grad()
+    def prefill(self, table_row, chunk_ids, start: int, q_len: int,
+                seed: int, temperature: float):
+        """Run one prefill chunk; returns the sampled follow-on token as
+        an unread 0-d device tensor (meaningful on the final chunk —
+        the caller's ``int()`` is the TTFT fence, and skipping it on
+        non-final chunks keeps a long prompt's chunks asynchronous)."""
+        if not 1 <= q_len <= self.prefill_chunk:
+            raise ValueError(
+                f"q_len {q_len} outside [1, {self.prefill_chunk}]"
+            )
+        padded = np.zeros((self.prefill_chunk,), np.int64)
+        padded[:q_len] = np.asarray(chunk_ids, np.int64)[:q_len]
+        return self._prefill_body(
+            self._tensor(table_row), self._tensor(padded), int(start),
+            int(q_len), int(seed),
+            self._tensor(temperature, torch.float32), temperature <= 0,
+        )
+
+    @torch.no_grad()
+    def decode(self, tokens, lengths, seeds, temps, tables=None,
+               active=None) -> np.ndarray:
+        """One decode step for all slots through the block tables (host
+        arrays in, host token ids [S] out)."""
+        if tables is None or active is None:
+            raise ValueError(
+                "paged decode needs the block tables and the active mask"
+            )
+        temps = np.asarray(temps, np.float32)
+        nxt = self._decode_body(
+            self._tensor(tables, torch.int32), self._tensor(tokens),
+            self._tensor(lengths), np.asarray(seeds), np.asarray(lengths),
+            self._tensor(temps, torch.float32),
+            self._tensor(active, torch.bool), bool(np.all(temps <= 0.0)),
+        )
+        return nxt.cpu().numpy()
+
+    # -- accounting -----------------------------------------------------------
+
+    def kv_cache_bytes(self) -> int:
+        """Device memory the block pools occupy (trash block included)."""
+        m = self.model
+        return (2 * m.n_layers * (self.manager.allocator.n_blocks + 1)
+                * m.n_kv_heads * self.block_size * self._hd
+                * _itemsize(self._cdtype))
+
+
+def decoder_from_checkpoint(config: dict, directory: str, *, device=None,
+                            paged: bool = False,
+                            **decoder_kw) -> LlamaDecoder:
+    """The train → checkpoint → serve path: read the newest JAX npz
+    checkpoint under ``directory`` whose digests verify, build a
+    ``Llama`` from its ``params`` group and wrap it in a decoder
+    (``paged=True`` → :class:`PagedLlamaDecoder`)."""
+    from theanompi_tpu_torch.utils.checkpoint import load_latest_params
+
+    tree = load_latest_params(Path(directory))
+    params = params_from_jax(tree, config, device)
+    model = Llama(config, device, params=params)
+    cls = PagedLlamaDecoder if paged else LlamaDecoder
+    return cls(model, **decoder_kw)

@@ -1,0 +1,160 @@
+"""Block-table attention for the paged KV cache (kernel K4).
+
+Port of ``theanompi_tpu/serving/paged_attention.py``.  Shapes:
+
+- ``q``      ``[S, Q, Hkv, rep, hd]`` — Q query rows per slot (1 for
+  plain decode);
+- ``k_pool``/``v_pool`` ``[n_blocks + 1, Hkv, bs, hd]`` (last row =
+  trash block);
+- ``tables`` ``[S, MB]`` int32 (trash-padded past the owned prefix);
+- ``pos``    ``[S, Q]`` int32 — row (s, q) attends positions
+  ``<= pos[s, q]``.
+
+``paged_attend_reference`` is the decoder's gather path: read the
+slot's blocks into a contiguous ``[S, Hkv, MB*bs, hd]`` window, then
+masked softmax attention.  ``paged_attend`` dispatches by device: CPU
+tensors take the reference, CUDA tensors launch the hand-written
+kernel ``csrc/paged_attend.cu``, which streams the blocks from the
+pools and never builds the gathered window.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from theanompi_tpu_torch.ops.attention import KERNEL_DTYPES, NEG_INF
+
+PAGED_HEAD_DIMS = (32, 64, 128)
+MAX_KERNEL_ROWS = 16           # nq * rep per CTA
+MAX_SMEM_BYTES = 232448        # a Hopper CTA's dynamic shared memory
+
+
+def gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Block-table read: ``tables`` [S, MB] → [S, Hkv, MB*bs, hd], or a
+    single row [MB] → [Hkv, MB*bs, hd], in position order."""
+    g = pool[tables.long()]                 # [..., MB, Hkv, bs, hd]
+    if tables.dim() == 2:
+        s, mb, hkv, bs, hd = g.shape
+        return g.permute(0, 2, 1, 3, 4).reshape(s, hkv, mb * bs, hd)
+    mb, hkv, bs, hd = g.shape
+    return g.permute(1, 0, 2, 3).reshape(hkv, mb * bs, hd)
+
+
+def paged_attend_reference(q, k_pool, v_pool, tables, pos):
+    """The gather path, the plain version of kernel K4.  Returns
+    [S, Q, Hkv, rep, hd] in the pool dtype."""
+    hd = q.shape[-1]
+    t_pad = tables.shape[1] * k_pool.shape[2]
+    kg = gather_blocks(k_pool, tables)
+    vg = gather_blocks(v_pool, tables)
+    scores = torch.einsum("sjkrd,sktd->sjkrt", q, kg).float() * (hd ** -0.5)
+    valid = (
+        torch.arange(t_pad, device=q.device)[None, None, :]
+        <= pos[:, :, None].long()
+    )[:, :, None, None, :]                  # [S, Q, 1, 1, T]
+    probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+    return torch.einsum("sjkrt,sktd->sjkrd", probs.to(vg.dtype), vg)
+
+
+def paged_attend_cuda(q, k_pool, v_pool, tables, pos):
+    """Launch ``csrc/paged_attend.cu`` on contiguous CUDA tensors (q and
+    pools f32 or bf16 of one dtype; tables/pos int32).
+    ``paged_attend_cuda.launches`` counts its launches."""
+    from theanompi_tpu_torch.kernels import _build
+
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_attend_cuda needs CUDA tensors, got {q.device}"
+        )
+    if not (q.dtype == k_pool.dtype == v_pool.dtype) \
+            or q.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"paged_attend_cuda takes float32 or bfloat16 q/pools of one "
+            f"dtype, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
+        )
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError("paged_attend_cuda: tables and pos must be int32")
+    if q.dim() != 5 or k_pool.dim() != 4:
+        raise ValueError(
+            f"paged_attend_cuda shapes: q [S,Q,Hkv,rep,hd], pools "
+            f"[NB+1,Hkv,bs,hd]; got {tuple(q.shape)}, "
+            f"{tuple(k_pool.shape)}"
+        )
+    s, nq, hkv, rep, hd = q.shape
+    _, hkv_p, bs, hd_p = k_pool.shape
+    mb = tables.shape[-1]
+    if (hkv, hd) != (hkv_p, hd_p) or k_pool.shape != v_pool.shape \
+            or tuple(tables.shape) != (s, mb) \
+            or tuple(pos.shape) != (s, nq):
+        raise ValueError(
+            f"paged_attend_cuda shape mismatch: q {tuple(q.shape)}, "
+            f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
+            f"{tuple(tables.shape)}, pos {tuple(pos.shape)}"
+        )
+    if hd not in PAGED_HEAD_DIMS:
+        raise ValueError(
+            f"paged_attend_cuda supports head dims {PAGED_HEAD_DIMS}, "
+            f"got {hd}"
+        )
+    if nq * rep > MAX_KERNEL_ROWS:
+        raise ValueError(
+            f"paged_attend_cuda takes at most {MAX_KERNEL_ROWS} query "
+            f"rows per (slot, kv head), got nq*rep = {nq * rep}"
+        )
+    tensors = (q, k_pool, v_pool, tables, pos)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attend_cuda needs contiguous inputs")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_attend_cuda: inputs on different devices")
+    lib = _paged_lib()
+    smem = lib.tm_paged_attend_smem(nq, rep, hd, bs, mb)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"paged_attend_cuda: the score rows of a {mb * bs}-position "
+            f"window need {smem} B of shared memory, over the "
+            f"{MAX_SMEM_BYTES} B a CTA has"
+        )
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tm_paged_attend(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            s, nq, hkv, rep, hd, bs, mb, float(hd ** -0.5),
+            KERNEL_DTYPES[q.dtype], stream,
+        )
+    _build.check(lib, err, "paged_attend")
+    paged_attend_cuda.launches += 1
+    return out
+
+
+paged_attend_cuda.launches = 0
+
+
+def _paged_lib():
+    from theanompi_tpu_torch.kernels import _build
+
+    lib = _build.load("paged_attend")
+    fn = lib.tm_paged_attend
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = i
+        sm = lib.tm_paged_attend_smem
+        sm.argtypes = [i, i, i, i, i]
+        sm.restype = ctypes.c_longlong
+    return lib
+
+
+def paged_attend(q, k_pool, v_pool, tables, pos):
+    """Block-table attention (see module docstring).  CPU tensors take
+    the gather path; CUDA tensors launch kernel K4."""
+    if q.device.type == "cpu":
+        return paged_attend_reference(q, k_pool, v_pool, tables, pos)
+    return paged_attend_cuda(
+        q.contiguous(), k_pool, v_pool, tables.contiguous(),
+        pos.contiguous(),
+    )

@@ -1,0 +1,506 @@
+"""Serving telemetry: per-request TTFT/TPOT, tokens/s, slot occupancy,
+queue depth and KV-block gauges.
+
+A copy of the serving section of ``theanompi_tpu/utils/recorder.py``
+(``Reservoir`` and ``ServingRecorder``, numpy only).  Left out: the
+training ``Recorder``, ``FleetRecorder`` and ``ServingRecorder
+.metrics_txt`` (its exposition lives in the JAX package's ``obs``
+layer, not ported yet).
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from collections import Counter, deque
+
+import numpy as np
+
+
+def _percentile(xs: list[float], q: float) -> float | None:
+    """p-th percentile or None on empty input (shed-only runs must
+    not crash the summary)."""
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs \
+        else None
+
+
+class Reservoir:
+    """Bounded uniform sample of an unbounded stream (Vitter's
+    algorithm R) — the fix for the ServingRecorder's per-request
+    latency lists growing without limit over a long-running fleet.
+    Exact (= the full sample) below ``cap``; past it, each stream
+    element survives with probability cap/n, so percentiles stay
+    unbiased estimates.  ``merge`` folds another reservoir in with
+    draws weighted by the two streams' true counts, so merged fleet
+    percentiles track the pooled distribution (tolerance asserted in
+    the JAX package's tests/test_tracing.py).  Deterministic: seeded
+    ``random.Random``, no global RNG."""
+
+    __slots__ = ("cap", "n", "xs", "_rng")
+
+    def __init__(self, cap: int = 2048, seed: int = 0):
+        self.cap = max(1, int(cap))
+        self.n = 0
+        self.xs: list[float] = []
+        self._rng = random.Random(seed)
+
+    def add(self, x: float) -> None:
+        self.n += 1
+        if len(self.xs) < self.cap:
+            self.xs.append(float(x))
+        else:
+            j = self._rng.randrange(self.n)
+            if j < self.cap:
+                self.xs[j] = float(x)
+
+    def merge(self, other_xs, other_n: int) -> None:
+        """Fold a foreign sample of a stream of ``other_n`` items."""
+        b_xs = [float(x) for x in other_xs]
+        b_n = int(other_n)
+        if b_n <= 0 or not b_xs:
+            return
+        if not self.xs:
+            keep = b_xs if len(b_xs) <= self.cap else \
+                self._rng.sample(b_xs, self.cap)
+            self.xs = list(keep)
+            self.n = b_n
+            return
+        a_xs, a_n = self.xs, self.n
+        if len(a_xs) + len(b_xs) <= self.cap:
+            self.xs = a_xs + b_xs
+            self.n = a_n + b_n
+            return
+        a_sh = a_xs[:]
+        b_sh = b_xs[:]
+        self._rng.shuffle(a_sh)
+        self._rng.shuffle(b_sh)
+        out: list[float] = []
+        ai = bi = 0
+        p_a = a_n / (a_n + b_n)
+        while len(out) < self.cap and (ai < len(a_sh) or bi < len(b_sh)):
+            take_a = (
+                ai < len(a_sh)
+                and (bi >= len(b_sh) or self._rng.random() < p_a)
+            )
+            if take_a:
+                out.append(a_sh[ai])
+                ai += 1
+            else:
+                out.append(b_sh[bi])
+                bi += 1
+        self.xs = out
+        self.n = a_n + b_n
+
+    def percentile(self, q: float) -> float | None:
+        return _percentile(self.xs, q)
+
+    def state(self) -> dict:
+        return {"cap": self.cap, "n": self.n, "xs": list(self.xs)}
+
+    @classmethod
+    def from_state(cls, d: dict, seed: int = 0) -> "Reservoir":
+        r = cls(cap=d["cap"], seed=seed)
+        r.n = int(d["n"])
+        r.xs = [float(x) for x in d["xs"]]
+        return r
+
+
+class ServingRecorder:
+    """Telemetry sink for the continuous-batching engine: per-request
+    TTFT/TPOT, aggregate tokens/s over decode time, slot occupancy,
+    and queue depth.  The training ``Recorder`` measures a step loop;
+    this measures a request loop — separate class, same module, so
+    every wall-clock datum in the repo lives in one place.
+
+    Per-request fields (``record_request``): ``status`` "ok"/"shed",
+    ``finish_reason``, prompt/generated token counts, ``ttft_s``
+    (submit → first token), ``tpot_s`` (mean inter-token seconds
+    after the first), ``queued_s``, ``e2e_s``, ``n_prefix_hit``
+    (prompt tokens adopted from the radix prefix cache — 0 over the
+    v1 slot-contiguous decoder).
+
+    Per-step fields (``record_step``): slots that decoded, queue
+    depth at the step, step seconds, tokens emitted, and — paged
+    serving only — the block gauges ``blocks_in_use``/``blocks_free``
+    at the step.
+
+    **Bounded memory** (a long-running fleet must not grow without
+    limit): the raw ``requests``/``steps`` lists are rolling windows
+    of the last ``max_samples`` entries, every aggregate the summary
+    reports is maintained EXACTLY in incremental counters, and the
+    TTFT/TPOT percentiles come from seeded :class:`Reservoir`
+    samples — exact below ``max_samples``, unbiased estimates past
+    it, and mergeable fleet-wide with count-weighted draws.
+    """
+
+    def __init__(self, max_slots: int = 1, *,
+                 max_samples: int = 4096, seed: int = 0):
+        self.max_slots = int(max_slots)
+        self.max_samples = int(max_samples)
+        self.requests: deque = deque(maxlen=self.max_samples)
+        self.steps: deque = deque(maxlen=self.max_samples)
+        self.blocks_in_use_max: int | None = None
+        self.blocks_free_min: int | None = None
+        self._ttft = Reservoir(self.max_samples, seed)
+        self._tpot = Reservoir(self.max_samples, seed + 1)
+        self._agg = self._zero_agg()
+
+    @staticmethod
+    def _zero_agg() -> dict:
+        return {
+            "n_ok": 0, "n_shed": 0,
+            "shed_reasons": Counter(), "finish_reasons": Counter(),
+            "tokens_completed": 0, "hit_tokens": 0, "prompt_tokens": 0,
+            "decode_s": 0.0, "tokens": 0,
+            "cap_slot_s": 0.0, "act_slot_s": 0.0,
+            "depth_sum": 0, "depth_n": 0, "depth_max": None,
+            "drafted": 0, "accepted": 0, "slot_steps": 0,
+            # batched tokenize/detokenize front door (the JAX
+            # package's serving/tokenize.py): sweeps = worker drains,
+            # items = requests encoded/decoded, wait = summed queue
+            # seconds
+            "tok_sweeps": 0, "tok_items": 0, "tok_tokens": 0,
+            "tok_wait_s": 0.0,
+        }
+
+    def record_request(
+        self,
+        *,
+        status: str,
+        finish_reason: str,
+        n_prompt: int,
+        n_generated: int,
+        ttft_s: float | None = None,
+        tpot_s: float | None = None,
+        queued_s: float | None = None,
+        e2e_s: float | None = None,
+        n_prefix_hit: int = 0,
+    ) -> None:
+        r = {
+            "status": status,
+            "finish_reason": finish_reason,
+            "n_prompt": int(n_prompt),
+            "n_generated": int(n_generated),
+            "ttft_s": ttft_s,
+            "tpot_s": tpot_s,
+            "queued_s": queued_s,
+            "e2e_s": e2e_s,
+            "n_prefix_hit": int(n_prefix_hit),
+        }
+        self.requests.append(r)
+        self._fold_request(r)
+
+    def _fold_request(self, r: dict) -> None:
+        a = self._agg
+        if r["status"] == "ok":
+            a["n_ok"] += 1
+            a["finish_reasons"][r["finish_reason"]] += 1
+            a["tokens_completed"] += int(r["n_generated"])
+            a["hit_tokens"] += int(r.get("n_prefix_hit", 0) or 0)
+            a["prompt_tokens"] += int(r["n_prompt"])
+            if r.get("ttft_s") is not None:
+                self._ttft.add(r["ttft_s"])
+            if r.get("tpot_s") is not None:
+                self._tpot.add(r["tpot_s"])
+        else:
+            a["n_shed"] += 1
+            a["shed_reasons"][r["finish_reason"]] += 1
+
+    def record_tokenize(
+        self,
+        *,
+        n_items: int,
+        n_tokens: int,
+        wait_s: float = 0.0,
+    ) -> None:
+        """Fold one tokenize-service sweep (``serving/tokenize.py``):
+        how many encode/decode requests the worker drained in one
+        codec call, the tokens they produced/consumed, and their
+        summed queue wait.  items/sweeps is the amortization factor
+        the batching exists for."""
+        a = self._agg
+        a["tok_sweeps"] += 1
+        a["tok_items"] += int(n_items)
+        a["tok_tokens"] += int(n_tokens)
+        a["tok_wait_s"] += float(wait_s)
+
+    def record_step(
+        self,
+        *,
+        active_slots: int,
+        queue_depth: int,
+        dt_s: float,
+        tokens: int,
+        blocks_in_use: int | None = None,
+        blocks_free: int | None = None,
+        drafted: int | None = None,
+        accepted: int | None = None,
+    ) -> None:
+        s = {
+            # wall stamp: what anchors this step's gauges on the
+            # Perfetto counter tracks (counter_tracks below) — the
+            # tracer's span stamps are wall-shifted monotonic, so
+            # time.time() lands the gauges on the same timeline
+            "t": time.time(),
+            "active_slots": int(active_slots),
+            "queue_depth": int(queue_depth),
+            "dt_s": float(dt_s),
+            "tokens": int(tokens),
+            "blocks_in_use": blocks_in_use,
+            "blocks_free": blocks_free,
+            # speculative decoding (serving v5): draft tokens offered
+            # to / reproduced by this verify step — None on the
+            # non-speculative path
+            "drafted": drafted,
+            "accepted": accepted,
+        }
+        self.steps.append(s)
+        self._fold_step(s)
+        self.record_block_gauges(
+            blocks_in_use=blocks_in_use, blocks_free=blocks_free
+        )
+
+    def _fold_step(self, s: dict) -> None:
+        a = self._agg
+        dt = float(s["dt_s"])
+        a["decode_s"] += dt
+        a["tokens"] += int(s["tokens"])
+        # merged steps carry their OWN recorder's max_slots stamp
+        # (see merge()); local steps use ours
+        a["cap_slot_s"] += s.get("max_slots", self.max_slots) * dt
+        a["act_slot_s"] += int(s["active_slots"]) * dt
+        a["depth_sum"] += int(s["queue_depth"])
+        a["depth_n"] += 1
+        a["depth_max"] = (
+            int(s["queue_depth"]) if a["depth_max"] is None
+            else max(a["depth_max"], int(s["queue_depth"]))
+        )
+        a["drafted"] += int(s.get("drafted") or 0)
+        a["accepted"] += int(s.get("accepted") or 0)
+        if s["tokens"] > 0:
+            a["slot_steps"] += int(s["active_slots"])
+
+    def record_block_gauges(
+        self,
+        *,
+        blocks_in_use: int | None = None,
+        blocks_free: int | None = None,
+    ) -> None:
+        """Fold one pool observation into the running extremes —
+        callable OUTSIDE decode steps too, because a prefill-only
+        engine iteration (large admit, CoW burst, mid-prefill abort)
+        can hit the allocation peak with no decode step to attach
+        it to."""
+        if blocks_in_use is not None:
+            self.blocks_in_use_max = (
+                int(blocks_in_use) if self.blocks_in_use_max is None
+                else max(self.blocks_in_use_max, int(blocks_in_use))
+            )
+        if blocks_free is not None:
+            self.blocks_free_min = (
+                int(blocks_free) if self.blocks_free_min is None
+                else min(self.blocks_free_min, int(blocks_free))
+            )
+
+    # -- aggregation (fleet serving, utils/recorder.FleetRecorder) ---------
+
+    def state_dict(self) -> dict:
+        """JSON-able state — what a TCP replica ships to the router's
+        ``FleetRecorder``: exact aggregates + reservoir samples (and
+        the rolling raw windows for inspection), so fleet percentiles
+        merge from count-weighted samples, never from re-aggregated
+        per-replica medians."""
+        agg = dict(self._agg)
+        agg["shed_reasons"] = dict(agg["shed_reasons"])
+        agg["finish_reasons"] = dict(agg["finish_reasons"])
+        return {
+            "max_slots": self.max_slots,
+            "requests": [dict(r) for r in self.requests],
+            "steps": [dict(s) for s in self.steps],
+            "blocks_in_use_max": self.blocks_in_use_max,
+            "blocks_free_min": self.blocks_free_min,
+            "agg": agg,
+            "ttft_res": self._ttft.state(),
+            "tpot_res": self._tpot.state(),
+        }
+
+    def _adopt_agg(self, d: dict) -> None:
+        a = self._zero_agg()
+        for k, v in d.items():
+            if k in ("shed_reasons", "finish_reasons"):
+                a[k] = Counter(v)
+            else:
+                a[k] = v
+        self._agg = a
+
+    def load_state_dict(self, d: dict) -> None:
+        self.max_slots = int(d["max_slots"])
+        self.requests = deque(
+            (dict(r) for r in d["requests"]), maxlen=self.max_samples
+        )
+        self.steps = deque(
+            (dict(s) for s in d["steps"]), maxlen=self.max_samples
+        )
+        self.blocks_in_use_max = d.get("blocks_in_use_max")
+        self.blocks_free_min = d.get("blocks_free_min")
+        self._ttft = Reservoir(self.max_samples, 0)
+        self._tpot = Reservoir(self.max_samples, 1)
+        self._agg = self._zero_agg()
+        if "agg" in d:
+            self._adopt_agg(d["agg"])
+            self._ttft.merge(d["ttft_res"]["xs"], d["ttft_res"]["n"])
+            self._tpot.merge(d["tpot_res"]["xs"], d["tpot_res"]["n"])
+        else:
+            # pre-bounding state (old checkpoints/peers): the lists
+            # ARE the full sample — rebuild the aggregates exactly
+            # from the SOURCE lists, not the bounded deques (a state
+            # larger than max_samples already lost its head there)
+            for r in d["requests"]:
+                self._fold_request(dict(r))
+            for s in d["steps"]:
+                self._fold_step(dict(s))
+
+    def merge(self, other) -> "ServingRecorder":
+        """Fold another recorder (or its ``state_dict()``) into this
+        one: aggregates add exactly, reservoirs merge count-weighted,
+        raw windows append (bounded), block gauges take the extremes.
+        Merged steps are stamped with THEIR recorder's ``max_slots``
+        so the combined ``slot_occupancy`` stays a slot-seconds-
+        weighted mean even when replicas differ in slot count.
+        Returns ``self`` (chainable)."""
+        d = other.state_dict() if isinstance(other, ServingRecorder) \
+            else other
+        slots = int(d["max_slots"])
+        stamped = []
+        for s in d["steps"]:
+            s = dict(s)
+            s.setdefault("max_slots", slots)
+            stamped.append(s)
+        self.requests.extend(dict(r) for r in d["requests"])
+        self.steps.extend(stamped)
+        if "agg" in d:
+            a, b = self._agg, d["agg"]
+            for k in ("n_ok", "n_shed", "tokens_completed",
+                      "hit_tokens", "prompt_tokens", "decode_s",
+                      "tokens", "cap_slot_s", "act_slot_s",
+                      "depth_sum", "depth_n", "drafted", "accepted",
+                      "slot_steps", "tok_sweeps", "tok_items",
+                      "tok_tokens", "tok_wait_s"):
+                # .get: a peer snapshotted before a counter existed
+                # (older replica build) contributes zero, not a crash
+                a[k] += b.get(k, 0)
+            a["shed_reasons"].update(b["shed_reasons"])
+            a["finish_reasons"].update(b["finish_reasons"])
+            if b.get("depth_max") is not None:
+                a["depth_max"] = (
+                    b["depth_max"] if a["depth_max"] is None
+                    else max(a["depth_max"], b["depth_max"])
+                )
+            self._ttft.merge(d["ttft_res"]["xs"], d["ttft_res"]["n"])
+            self._tpot.merge(d["tpot_res"]["xs"], d["tpot_res"]["n"])
+        else:
+            # old-format peer: its lists are the full sample
+            for r in d["requests"]:
+                self._fold_request(dict(r))
+            for s in stamped:
+                self._fold_step(s)
+        self.record_block_gauges(
+            blocks_in_use=d.get("blocks_in_use_max"),
+            blocks_free=d.get("blocks_free_min"),
+        )
+        return self
+
+    def summary(self) -> dict:
+        """One dict the bench row emits: throughput, latency
+        percentiles, occupancy, queue pressure, shed accounting.
+        Every counter is exact (incremental aggregates); the
+        TTFT/TPOT percentiles come from the bounded reservoirs."""
+        a = self._agg
+        decode_s = a["decode_s"]
+        tokens = a["tokens"]
+        occ = (
+            a["act_slot_s"] / a["cap_slot_s"] if a["cap_slot_s"]
+            else None
+        )
+        # speculative decoding: accept-rate over offered drafts and
+        # tokens committed per SLOT-STEP (one slot, one decode/verify
+        # dispatch) — exactly 1.0 when speculation is off or every
+        # draft missed, > 1 when verify windows land; dividing by
+        # slot-steps rather than steps keeps batch width out of the
+        # speculation datum
+        drafted, accepted = a["drafted"], a["accepted"]
+        return {
+            "n_requests": a["n_ok"] + a["n_shed"],
+            "n_completed": a["n_ok"],
+            "n_shed": a["n_shed"],
+            "shed_reasons": dict(a["shed_reasons"]),
+            "tokens_generated": tokens,   # decode-step tokens only
+            # all tokens delivered to completed requests (includes
+            # each request's prefill-sampled first token)
+            "tokens_completed": a["tokens_completed"],
+            "decode_s": decode_s,
+            "tokens_per_sec": tokens / decode_s if decode_s else None,
+            "ttft_p50_s": self._ttft.percentile(50),
+            "ttft_p95_s": self._ttft.percentile(95),
+            "tpot_p50_s": self._tpot.percentile(50),
+            "tpot_p95_s": self._tpot.percentile(95),
+            "slot_occupancy": occ,
+            "queue_depth_mean": (
+                a["depth_sum"] / a["depth_n"] if a["depth_n"] else None
+            ),
+            "queue_depth_max": a["depth_max"],
+            "finish_reasons": dict(a["finish_reasons"]),
+            "drafted_tokens": drafted,
+            "accepted_tokens": accepted,
+            "accept_rate": accepted / drafted if drafted else None,
+            "tokens_per_step": (
+                tokens / a["slot_steps"] if a["slot_steps"] else None
+            ),
+            "prefix_hit_tokens": a["hit_tokens"],
+            "prefix_hit_rate": (
+                a["hit_tokens"] / a["prompt_tokens"]
+                if a["prompt_tokens"] else None
+            ),
+            "blocks_in_use_max": self.blocks_in_use_max,
+            "blocks_free_min": self.blocks_free_min,
+            # tokenize front door (serving/tokenize.py): items per
+            # sweep is the batching amortization — 1.0 means the
+            # service degenerated to per-request encoding
+            "tokenize_items": a.get("tok_items", 0),
+            "tokenize_tokens": a.get("tok_tokens", 0),
+            "tokenize_wait_s": a.get("tok_wait_s", 0.0),
+            "tokenize_items_per_sweep": (
+                a["tok_items"] / a["tok_sweeps"]
+                if a.get("tok_sweeps") else None
+            ),
+        }
+
+    def counter_tracks(self, process: str = "serving") -> list:
+        """Chrome-trace counter samples from the rolling step window
+        (``obs/export.chrome_trace``'s ``counters=``): queue depth +
+        active slots on one track, KV block gauges on another — the
+        lanes that open in the SAME Perfetto view as the request
+        spans and a StepProfile's phase tracks.  Steps recorded by a
+        pre-stamp peer (no ``t``) are skipped."""
+        out = []
+        for s in list(self.steps):
+            t = s.get("t")
+            if t is None:
+                continue
+            out.append({
+                "process": process, "name": "slots", "t": t,
+                "values": {
+                    "active_slots": s["active_slots"],
+                    "queue_depth": s["queue_depth"],
+                },
+            })
+            if s.get("blocks_in_use") is not None \
+                    or s.get("blocks_free") is not None:
+                out.append({
+                    "process": process, "name": "kv_blocks", "t": t,
+                    "values": {
+                        "in_use": s.get("blocks_in_use"),
+                        "free": s.get("blocks_free"),
+                    },
+                })
+        return out
