@@ -2,27 +2,38 @@
 """Smoke run of the PyTorch/CUDA port (``theanompi_tpu_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --phases kernels     # build + kernel checks only
+    python3 chip_smoke.py --layers 2           # shallower full-width models
 
-Phases:
+Phases (``--phases`` takes a comma list of kernels, serving, training;
+the card-and-build phase always runs):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
    source, all at once), with the build time;
 2. kernels — each kernel against its plain PyTorch version on the
-   card, at the shapes the serving path gives it, with its error,
-   tolerance and times (kernel, plain version, and the one PyTorch
-   call computing the same function, where there is one); then a small
-   fp32 model served on the card and on the CPU, greedy ids compared;
+   card, at the shapes the serving and training paths give it, with
+   its error, tolerance and times (kernel, plain version, and the one
+   PyTorch call computing the same function, where there is one); then
+   a small fp32 model served on the card and on the CPU (greedy ids
+   compared) and trained 3 BSP steps on each (losses compared);
 3. v1 serving — a Llama at Llama-3-8B width (random weights from a
-   seed, bf16) under ``LlamaDecoder`` and ``Engine``: 12 greedy
-   requests batched, 3 of them again alone, ids compared; kernel K1's
-   launches counted over the batched run; a decode-only profile;
+   seed, bf16, ``--layers`` deep, 32 by default) under ``LlamaDecoder``
+   and ``Engine``: 12 greedy requests batched, 3 of them again alone,
+   ids compared; kernel K1's launches counted over the batched run; a
+   decode-only profile;
 4. paged serving — the same model under ``PagedLlamaDecoder`` with
    chunked prefill, the same requests plus 4 sharing a system prompt:
    prefix-cache hits, batched == alone, K4's launches counted; a
    decode-only profile;
-5. the kernels line — one JSON object with every kernel's numbers.
+5. training — ``BSP().init`` on the card with the port's Llama at
+   Llama-3-8B widths, ``--layers`` deep (8 by default), seq 2048,
+   batch 2, bf16, Adam, remat, the chunked head, ``ici32``: one epoch
+   of 8 steps and 2 val batches, with each step's loss, the step time,
+   tokens/s, peak memory and K1/K2/K3 launches (checked against
+   2L/L/L per step); then a 2-step profile;
+6. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
 Any failure raises and the exit code is not 0.  Without a CUDA device,
@@ -32,11 +43,15 @@ no result.
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,7 +67,16 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 
 REDUCED = {
     "max_seq": "2048 (LLAMA3_8B.seq_len 8192): the run's time limit",
+    "n_layers (training)": "8 (32): fp32 master weights, gradients and "
+    "Adam moments of 8.03 B parameters come to 128.5 GB, over the "
+    "card's 80 GB",
+    "seq_len (training)": "2048 (8192): the run's time limit",
 }
+# per-step losses of the small fp32 model trained on the card and on
+# the CPU from one initial state: fp32 summation order differs between
+# the devices and Adam carries it on (measured ~1e-6 relative)
+TRAIN_REF_RTOL = 1e-4
+PHASES = ("kernels", "serving", "training")
 
 
 def log(*a):
@@ -166,7 +190,133 @@ def check_flash(dev, flush) -> dict:
                 log(f"K1 times bf16 T={t}: kernel {ms:.4f} ms, plain "
                     f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound "
                     f"{record['bound_ms']:.4f} ms ({record['bound_by']})")
+    # the training path's shape: two sequences of 2048, bf16, causal
+    q, k, v = (torch.randn((2, h, 2048, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = flash_fwd_cuda(q, k, v, True, hd ** -0.5)
+    o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
+                                       causal=True)
+    err, ok_o = compare(o, o_ref, "bfloat16")
+    lerr, ok_l = compare(lse, lse_ref, "float32")
+    ms = time_ms(lambda: flash_fwd_cuda(q, k, v, True, hd ** -0.5),
+                 flush=flush)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), flush=flush)
+    bound = 4 * hd * 2 * h * 2048 * 2049 / 2 / PEAK_OPS["bfloat16"] * 1e3
+    log(f"K1 flash_fwd bfloat16 [2,{h},2048,{hd}] causal (training): "
+        f"max_abs_err o {err:.3e}, lse {lerr:.3e}, kernel {ms:.4f} ms, "
+        f"sdpa {lib:.4f} ms, bound {bound:.4f} ms (operations) -> "
+        f"{'ok' if ok_o and ok_l else 'FAIL'}")
+    if not (ok_o and ok_l):
+        raise AssertionError("K1 disagrees with mha_reference at the "
+                             "training shape")
+    record["training_shape"] = {"shape": f"[2,{h},2048,{hd}] bfloat16 "
+                                "causal", "max_abs_err": max(err, lerr),
+                                "ms": ms, "library_ms": lib,
+                                "bound_ms": bound}
     return record
+
+
+def bwd_bound(name, q, dtype_name, causal=True):
+    """(bound ms, what bounds it) of K2 or K3 on q-shaped inputs: 8·D
+    (K2: 4 products) or 6·D (K3: 3) operations per live (q, k) pair,
+    against q, k, v, dO, lse, delta read once and the outputs written
+    once."""
+    b, h, t, d = q.shape
+    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
+    ops = (8 if name == "dkv" else 6) * d * pairs
+    isz = q.element_size()
+    n_out = 2 if name == "dkv" else 1
+    nbytes = (4 + n_out) * q.numel() * isz + 2 * b * h * t * 4
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_flash_bwd(dev, flush) -> list:
+    """K2 (dK, dV) and K3 (dQ) against ``flash_bwd_reference`` evaluated
+    in fp32 on the same inputs and residuals; then times at the
+    training shape [2, 32, 2048, 128] bf16 causal."""
+    import torch
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def case(shape, dtype, causal):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        o, lse = flash_fwd_cuda(q, k, v, causal, shape[-1] ** -0.5)
+        delta = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, lse, delta
+
+    def check(shape, dtype, causal):
+        name = str(dtype).split(".")[1]
+        args = case(shape, dtype, causal)
+        dk, dv = flash_bwd_dkv_cuda(*args, causal, shape[-1] ** -0.5)
+        dq = flash_bwd_dq_cuda(*args, causal, shape[-1] ** -0.5)
+        q, k, v, do, lse, delta = args
+        ref = flash_bwd_reference(q.float(), k.float(), v.float(),
+                                  do.float(), lse, delta, causal=causal)
+        torch.cuda.synchronize()
+        errs = {}
+        for kname, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                                 ("dv", dv, ref[2])):
+            errs[kname] = compare(got, want, name)
+        ok = all(e[1] for e in errs.values())
+        log(f"K2/K3 flash_bwd {name} {list(shape)} "
+            f"{'causal' if causal else 'full'}: max_abs_err "
+            + ", ".join(f"{k} {e[0]:.3e}" for k, e in errs.items())
+            + f" (atol, rtol {TOL[name]}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2/K3 disagree with flash_bwd_reference "
+                                 f"at {name} {shape} causal={causal}")
+        return args, errs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for t in (16, 512, 2047):
+                check((1, 32, t, 128), dtype, causal)
+    shape = (2, 32, 2048, 128)
+    args, errs = check(shape, torch.bfloat16, True)
+    scale = shape[-1] ** -0.5
+    dkv_ms = time_ms(lambda: flash_bwd_dkv_cuda(*args, True, scale),
+                     flush=flush)
+    dq_ms = time_ms(lambda: flash_bwd_dq_cuda(*args, True, scale),
+                    flush=flush)
+    plain = time_ms(lambda: flash_bwd_reference(*args, causal=True),
+                    reps=5, flush=flush)
+    q, k, v, do = (x.detach().clone().requires_grad_() for x in args[:4])
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    lib = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
+                                              retain_graph=True),
+                  flush=flush)
+    records = []
+    for name, ms, err in (("dkv", dkv_ms, max(errs["dk"][0], errs["dv"][0])),
+                          ("dq", dq_ms, errs["dq"][0])):
+        bound, by = bwd_bound(name, args[0], "bfloat16")
+        records.append({
+            "name": f"flash_bwd_{name}", "route": "cuda",
+            "source": "theanompi_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": ("theanompi_tpu/ops/attention.py:239" if name == "dkv"
+                         else "theanompi_tpu/ops/attention.py:292"),
+            "shape": "[2,32,2048,128] bfloat16 causal",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            # the plain version computes dq, dk and dv together; the
+            # library call is the SDPA backward of the K2 + K3 pair
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib,
+        })
+        log(f"{'K2' if name == 'dkv' else 'K3'} times bf16 {list(shape)}: "
+            f"kernel {ms:.4f} ms, plain (dq+dk+dv) {plain:.4f} ms, sdpa "
+            f"backward (pair) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return records
 
 
 def paged_case(dev, dtype, gen, *, s=8, hkv=8, rep=4, hd=128, bs=16,
@@ -371,33 +521,25 @@ def run_serving(name, dec, prompts, alone_idx, counter) -> dict:
             "wall_s": wall}
 
 
-def profile_decode(name, dec, prompts, steps: int = 8) -> dict:
-    """Where a decode step's time goes: fill every slot, run engine
-    steps until no slot is prefilling, then trace ``steps`` decode-only
-    steps with ``torch.profiler``.  Reports wall ms per step, device
-    kernel ms per step (busy share = kernel / wall) and the kernels
-    with the most device time."""
+def trace_steps(step, steps: int, top: int) -> tuple[dict, list]:
+    """Run ``step(i)`` for ``steps`` steps twice: once timed on the wall
+    clock alone (the profiler's own cost excluded), once under
+    ``torch.profiler``.  Returns (wall ms per step, device kernel ms per
+    step, busy share = device / wall and the ``top`` kernels with the
+    most device time; every kernel's (name, device ms per step),
+    largest first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from theanompi_tpu_torch.serving import Engine
-
-    eng = Engine(dec, prefix_caching=False)
-    for i, p in enumerate(prompts[:dec.max_slots]):
-        eng.submit(p[:1024], max_tokens=dec.max_seq, seed=i)
-    eng.step()
-    while eng.n_prefilling():
-        eng.step()
 
     def timed_steps() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+        for i in range(steps):
+            step(i)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / steps
 
-    wall_ms = timed_steps()          # the profiler's own cost excluded
+    wall_ms = timed_steps()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed_steps()
@@ -409,20 +551,201 @@ def profile_decode(name, dec, prompts, steps: int = 8) -> dict:
     ]
     kernels.sort(key=lambda kv: -kv[1])
     dev_ms = sum(ms for _, ms in kernels)
-    out = {
-        "decoder": name, "steps": steps, "wall_ms_per_step": wall_ms,
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": profiled_ms,
         "device_ms_per_step": dev_ms,
         "busy_share": dev_ms / wall_ms if wall_ms else None,
-        "top_kernels_ms_per_step": {k[:80]: ms for k, ms in kernels[:6]},
-    }
+        "top_kernels_ms_per_step": {k[:80]: ms for k, ms in kernels[:top]},
+    }, kernels
+
+
+def profile_decode(name, dec, prompts, steps: int = 8) -> dict:
+    """Where a decode step's time goes: fill every slot, run engine
+    steps until no slot is prefilling, then trace ``steps`` decode-only
+    steps as ``trace_steps`` does."""
+    from theanompi_tpu_torch.serving import Engine
+
+    eng = Engine(dec, prefix_caching=False)
+    for i, p in enumerate(prompts[:dec.max_slots]):
+        eng.submit(p[:1024], max_tokens=dec.max_seq, seed=i)
+    eng.step()
+    while eng.n_prefilling():
+        eng.step()
+
+    out = {"decoder": name,
+           **trace_steps(lambda i: eng.step(), steps, top=6)[0]}
     log(f"[{name}] decode profile {json.dumps(out)} on {card_line()}")
+    return out
+
+
+# -- training ----------------------------------------------------------------
+
+TRAIN_SMALL = dict(SMALL, batch_size=2, n_train=6, n_val=2, lr=1e-3)
+LLAMA = dict(modelfile="theanompi_tpu_torch.models.llama", modelclass="Llama")
+
+
+def bsp(devices, config, **kw) -> dict:
+    """One in-process BSP run through the rule API; its summary."""
+    from theanompi_tpu_torch import BSP
+
+    rule = BSP()
+    rule.init(devices=devices, launch="inprocess", config=config,
+              n_epochs=1, **LLAMA, **kw)
+    return rule.wait()
+
+
+def check_training_reference(dev) -> None:
+    """A small fp32 Llama trained 3 BSP steps on the card (K1-K3,
+    cuBLAS, a one-rank NCCL group) and on the CPU (plain versions,
+    gloo) from one initial checkpoint: per-step losses must agree."""
+    import numpy as np
+
+    from theanompi_tpu_torch.models.llama import save_init_checkpoint
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        init = Path(tmp) / "init"
+        save_init_checkpoint(TRAIN_SMALL, init)
+        losses = []
+        for devices in ([dev.index], ["cpu"]):
+            d = Path(tmp) / str(devices[0])
+            shutil.copytree(init, d)
+            out = bsp(devices, TRAIN_SMALL, checkpoint_dir=str(d),
+                      resume=True, verbose=False)
+            losses.append(out["recorder"].train_losses)
+    ok = len(losses[0]) == 3 and np.allclose(losses[0], losses[1],
+                                             rtol=TRAIN_REF_RTOL, atol=0)
+    log(f"reference [training] small fp32 model, 3 BSP steps, card "
+        f"{losses[0]} vs CPU {losses[1]} (rtol {TRAIN_REF_RTOL}): "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError("training: card and CPU losses differ")
+
+
+def run_training(dev, n_layers: int, counters: dict) -> tuple[dict, object]:
+    """BSP at Llama-3-8B widths through ``BSP().init``: each step timed
+    (the device synchronized around it), K1/K2/K3 launches counted over
+    the run (train steps and val), losses checked.  Returns (numbers,
+    the trained model)."""
+    import torch
+
+    from theanompi_tpu_torch.models import LLAMA3_8B, Llama
+
+    steps, val_batches, batch, seq = 8, 2, 2, 2048
+    cfg = dict(LLAMA3_8B, n_layers=n_layers, seq_len=seq, batch_size=batch,
+               n_train=steps * batch, n_val=val_batches * batch,
+               compute_dtype="bfloat16", optimizer="adam", lr=1e-4,
+               remat=True, xent_chunks="auto", exch_strategy="ici32", seed=0)
+    times = []
+    train_iter = Llama.train_iter
+
+    def timed(self, count, recorder):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_iter(self, count, recorder)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    Llama.train_iter = timed
+    try:
+        out = bsp([dev.index], cfg, print_freq=1)
+    finally:
+        Llama.train_iter = train_iter
+    launches = {k: fn.launches for k, fn in counters.items()}
+    model = out["model"]
+    losses = out["recorder"].train_losses
+    med = statistics.median(times[1:])
+    tokens = batch * seq
+    res = {
+        "config": {k: cfg[k] for k in ("dim", "n_layers", "n_heads",
+                                       "n_kv_heads", "ffn_dim", "vocab",
+                                       "seq_len", "batch_size")},
+        "params_b": model.n_params() / 1e9,
+        "xent_chunks": model._n_xent_chunks,
+        "losses": losses, "val": out["final_val"],
+        "step_s": times, "median_step_s": med,
+        "tokens_per_s": tokens / med,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches,
+        "launches_per_step": {
+            "K1": (launches["K1"] - val_batches * n_layers) / steps,
+            "K2": launches["K2"] / steps, "K3": launches["K3"] / steps,
+        },
+    }
+    log(f"[training] {json.dumps(res)} on {card_line()}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: last loss {losses[-1]} is not "
+                             f"below the first {losses[0]}")
+    want = {"K1": steps * 2 * n_layers + val_batches * n_layers,
+            "K2": steps * n_layers, "K3": steps * n_layers}
+    if launches != want:
+        raise AssertionError(f"training: launches {launches}, want {want} "
+                             f"(2L/L/L per step with remat, L per val "
+                             f"batch)")
+    if res["xent_chunks"] != 24:
+        raise AssertionError(f"training: {res['xent_chunks']} head chunks")
+    return res, model
+
+
+def kernel_kind(name: str) -> str:
+    """The group a profiled device kernel's name puts it in."""
+    for key, kind in (("flash_fwd_kernel", "K1 flash_fwd"),
+                      ("flash_bwd_dkv_kernel", "K2 flash_bwd_dkv"),
+                      ("flash_bwd_dq_kernel", "K3 flash_bwd_dq"),
+                      ("nccl", "NCCL"), ("Memcpy", "memcpy/memset"),
+                      ("Memset", "memcpy/memset"),
+                      ("elementwise", "elementwise"),
+                      ("reduce", "reductions")):
+        if key in name:
+            return kind
+    if name.startswith("nvjet") or any(
+            k in name.lower() for k in ("gemm", "xmma", "cutlass")):
+        return "GEMM (cuBLAS)"
+    return "other"
+
+
+def profile_training(model, steps: int = 2) -> dict:
+    """Where a training step's time goes: ``steps`` more steps of the
+    trained model traced as ``trace_steps`` does, with the device time
+    also summed by kind of kernel."""
+    from theanompi_tpu_torch.utils import Recorder
+
+    rec = Recorder(verbose=False)
+    out, kernels = trace_steps(lambda i: model.train_iter(i, rec), steps,
+                               top=10)
+    by_kind = {}
+    for k, ms in kernels:
+        by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
+    out["device_ms_per_step_by_kind"] = dict(
+        sorted(by_kind.items(), key=lambda kv: -kv[1]))
+    log(f"[training] step profile {json.dumps(out)} on {card_line()}")
     return out
 
 
 # -- main -------------------------------------------------------------------
 
-def main() -> int:
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list of {PHASES} (default: all)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth of the full-width models (default: 32 "
+                    "serving, 8 training)")
+    ns = ap.parse_args(argv)
+    ns.phases = [p for p in ns.phases.split(",") if p]
+    bad = set(ns.phases) - set(PHASES)
+    if bad:
+        ap.error(f"unknown phases {sorted(bad)}; known: {PHASES}")
+    return ns
+
+
+def main(argv=None) -> int:
+    ns = parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -435,7 +758,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from theanompi_tpu_torch.kernels import _build
     from theanompi_tpu_torch.models import LLAMA3_8B, Llama
-    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
+    from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
     from theanompi_tpu_torch.serving import LlamaDecoder, PagedLlamaDecoder
     from theanompi_tpu_torch.serving.paged_attention import (
         paged_attend_cuda,
@@ -446,7 +774,9 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
+    log(f"phases: {ns.phases}, layers: {ns.layers or 'default'}")
     log("reduced: " + json.dumps(REDUCED))
+    (ROOT / "build").mkdir(exist_ok=True)
 
     # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
@@ -459,53 +789,87 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernels, at most {max(regs)} "
             f"registers, {spills} bytes spilled")
 
-    # phase 2: kernels against their plain versions
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-    flash = check_flash(dev, flush)
-    paged_rec = check_paged(dev, flush)
-    del flush
-    check_reference(dev)
+    records = {}
+    if "kernels" in ns.phases:
+        # phase 2: kernels against their plain versions
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+        records["K1"] = check_flash(dev, flush)
+        records["K2"], records["K3"] = check_flash_bwd(dev, flush)
+        records["K4"] = check_paged(dev, flush)
+        del flush
+        torch.cuda.empty_cache()
+        check_reference(dev)
+        check_training_reference(dev)
 
-    # phases 3-4: the serving paths at Llama-3-8B width
-    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
-    t0 = time.perf_counter()
-    model = Llama(cfg, device=dev)
-    torch.cuda.synchronize()
-    log(f"model: Llama {cfg} with {model.n_params() / 1e9:.3f} B params, "
-        f"random init in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    prompts, shared = make_requests(model.vocab)
-    warm = [prompts[0][:16]]
+    if "serving" in ns.phases:
+        # phases 3-4: the serving paths at Llama-3-8B width
+        cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
+        if ns.layers:
+            cfg["n_layers"] = ns.layers
+        t0 = time.perf_counter()
+        model = Llama(cfg, device=dev)
+        model.params                   # drawn at first use: time it here
+        torch.cuda.synchronize()
+        log(f"model: Llama {cfg} with {model.n_params() / 1e9:.3f} B "
+            f"params, random init in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        prompts, shared = make_requests(model.vocab)
+        warm = [prompts[0][:16]]
 
-    dec = LlamaDecoder(model, max_slots=8, max_seq=2048)
-    log(f"[v1] cache {dec.kv_cache_bytes() / 2**30:.2f} GiB")
-    serve(dec, warm, max_tokens=2, seeds=[0])              # warm-up
-    flash["launches"] = run_serving("v1", dec, prompts, (0, 5, 11),
-                                    flash_fwd_cuda)["launches"]
-    profile_decode("v1", dec, prompts)
-    del dec
+        dec = LlamaDecoder(model, max_slots=8, max_seq=2048)
+        log(f"[v1] cache {dec.kv_cache_bytes() / 2**30:.2f} GiB")
+        serve(dec, warm, max_tokens=2, seeds=[0])              # warm-up
+        v1 = run_serving("v1", dec, prompts, (0, 5, 11), flash_fwd_cuda)
+        profile_decode("v1", dec, prompts)
+        del dec
 
-    dec = PagedLlamaDecoder(model, max_slots=8, max_seq=2048,
-                            block_size=16, prefill_chunk=64)
-    log(f"[paged] pools {dec.kv_cache_bytes() / 2**30:.2f} GiB")
-    serve(dec, warm, max_tokens=2, seeds=[0], prefix_caching=False)
-    # the first system-prompt request prefills (cold) ahead of the
-    # queue; the other three queue behind the 12, so they arrive after
-    # its blocks are cached and adopt them
-    run = run_serving("paged", dec, shared[:1] + prompts + shared[1:],
-                      (0, 1, 13, 15), paged_attend_cuda)
-    paged_rec["launches"] = run["launches"]
-    hits = run["stats"]["prefix_cache"]["n_hits"]
-    log(f"[paged] prefix-cache hits {hits}")
-    if hits < 1:
-        raise AssertionError("paged: no prefix-cache hit")
-    profile_decode("paged", dec, prompts)
-    del dec
-    log(f"peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        dec = PagedLlamaDecoder(model, max_slots=8, max_seq=2048,
+                                block_size=16, prefill_chunk=64)
+        log(f"[paged] pools {dec.kv_cache_bytes() / 2**30:.2f} GiB")
+        serve(dec, warm, max_tokens=2, seeds=[0], prefix_caching=False)
+        # the first system-prompt request prefills (cold) ahead of the
+        # queue; the other three queue behind the 12, so they arrive
+        # after its blocks are cached and adopt them
+        run = run_serving("paged", dec, shared[:1] + prompts + shared[1:],
+                          (0, 1, 13, 15), paged_attend_cuda)
+        hits = run["stats"]["prefix_cache"]["n_hits"]
+        log(f"[paged] prefix-cache hits {hits}")
+        if hits < 1:
+            raise AssertionError("paged: no prefix-cache hit")
+        profile_decode("paged", dec, prompts)
+        del dec, model
+        log(f"peak device memory (serving) "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        torch.cuda.empty_cache()
+        if "K1" in records:
+            records["K1"]["launches"] = v1["launches"]
+            records["K1"]["launches_by_path"] = {"serving_v1":
+                                                 v1["launches"]}
+            records["K4"]["launches"] = run["launches"]
 
-    # phase 5: the kernels line, the card, the result
-    log(json.dumps({"kernels": [flash, paged_rec]}))
+    if "training" in ns.phases:
+        # phase 5: BSP training at Llama-3-8B widths, then its profile
+        counters = {"K1": flash_fwd_cuda, "K2": flash_bwd_dkv_cuda,
+                    "K3": flash_bwd_dq_cuda}
+        # the group outlives the run, so the profile can take more steps
+        init_group(dev)
+        res, model = run_training(dev, ns.layers or 8, counters)
+        profile_training(model)
+        destroy_group()
+        del model
+        torch.cuda.empty_cache()
+        for k in ("K2", "K3"):
+            if k in records:
+                records[k]["launches"] = res["launches"][k]
+        if "K1" in records:
+            by_path = records["K1"].setdefault("launches_by_path", {})
+            by_path["training"] = res["launches"]["K1"]
+            # K1 runs on two paths: its count is the sum of both runs
+            records["K1"]["launches"] = sum(by_path.values())
+
+    # phase 6: the kernels line, the card, the result
+    log(json.dumps({"kernels": [records[k] for k in ("K1", "K2", "K3", "K4")
+                                if k in records]}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ The import check runs in a subprocess: ``tests/conftest.py`` has
 already imported jax into this one."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -126,3 +127,84 @@ def test_decoder_from_checkpoint_needs_the_card(no_cuda, tmp_path):
                                   max_slots=2, max_seq=16)
     assert torch.equal(dec.model.params["lm_head"],
                        torch.from_numpy(tree["lm_head"]))
+
+
+# -- the training entry points ---------------------------------------------------
+
+TRAIN = dict(CFG, seq_len=8, batch_size=2, n_train=4, n_val=2)
+LLAMA = dict(modelfile="theanompi_tpu_torch.models.llama", modelclass="Llama")
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from theanompi_tpu_torch import BSP
+    from theanompi_tpu_torch.launcher import main
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BSP().init(launch="inprocess", config=TRAIN, **LLAMA)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bsp_worker.run(config=TRAIN, **LLAMA)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["BSP", LLAMA["modelfile"], "Llama", "--kwargs",
+              '{"n_epochs": 1}'])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Llama(TRAIN).compile_iter_fns()
+
+    model = Llama(TRAIN, device="cpu")
+    model.build_model()
+    model.compile_iter_fns()
+    p = model.params["layers"][0]["wq"]
+    assert p.device.type == "cpu" and p.dtype == torch.float32
+    assert p.requires_grad
+
+    rule = BSP()
+    rule.init(devices=["cpu"], launch="inprocess", config=TRAIN,
+              n_epochs=1, verbose=False, **LLAMA)
+    out = rule.wait()
+    assert out["device"] == "cpu" and out["iterations"] == 2
+    assert main(["BSP", LLAMA["modelfile"], "Llama", "--devices", "cpu",
+                 "--kwargs", json.dumps({"config": TRAIN, "n_epochs": 1,
+                                         "verbose": False,
+                                         "checkpoint_dir": str(tmp_path)})]
+                ) == 0
+    assert (tmp_path / "ckpt_0.npz").exists()
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(exch_strategy="icii32"), ValueError, "unknown exch_strategy"),
+    (dict(exch_strategy="zero1"), NotImplementedError, "A8"),
+    (dict(config=dict(TRAIN, exch_compression="int8")),
+     NotImplementedError, "A8"),
+    (dict(config=dict(TRAIN, exchange_bucket_mb=-1)), ValueError,
+     "exchange_bucket_mb"),
+    (dict(config=dict(TRAIN, elastic=True)), NotImplementedError, "A9"),
+    (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
+    (dict(config=dict(TRAIN, loader_pipeline=2)), NotImplementedError,
+     "A7"),
+    (dict(devices=["meta"]), ValueError, "unsupported device"),
+    (dict(devices=["cpu", "cpu"]), ValueError, "one process per device"),
+])
+def test_bad_values_fail_before_the_model_is_built(monkeypatch, kwargs,
+                                                   error, match):
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    def built(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(Llama, "build_model", built)
+    kw = dict(devices=["cpu"], config=TRAIN, verbose=False, **LLAMA)
+    kw.update(kwargs)
+    with pytest.raises(error, match=match):
+        bsp_worker.run(**kw)
+
+
+def test_unported_rules_and_modes_raise():
+    from theanompi_tpu_torch import EASGD, GOSGD, BSP
+
+    for rule in (EASGD(), GOSGD()):
+        with pytest.raises(NotImplementedError, match="A10"):
+            rule.init(devices=["cpu"], **LLAMA)
+    with pytest.raises(NotImplementedError, match="A9"):
+        BSP().init(devices=["cpu"], launch="supervised", **LLAMA)
+    with pytest.raises(RuntimeError, match="init"):
+        BSP().wait()

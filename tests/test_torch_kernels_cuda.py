@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the
-card, at shapes the serving path does not reach (ragged and tiny T,
-every supported head dim, full attention, multi-row query windows).
+card, at shapes the serving and training paths do not reach (ragged
+and tiny T, every supported head dim, full attention, multi-row query
+windows), and a small Llama's training steps on the card against the
+CPU.
 Marked ``cuda``; each test skips where no CUDA device is present.  Run
 on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 
@@ -77,6 +79,111 @@ def test_flash_fwd_refuses_bad_inputs(dev):
     z = torch.zeros((1, 8, 2, 64), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd_cuda(z, z, z, True, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,d", [(1, 16), (15, 32), (64, 64), (65, 128),
+                                 (130, 128), (333, 64)])
+def test_flash_bwd_matches_reference(dev, dtype, causal, t, d):
+    """K2 (dk, dv) and K3 (dq) against ``flash_bwd_reference`` in fp32
+    on the same inputs and residuals; each launch counted once."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(t * d + 1)
+    q, k, v, do = (torch.randn((2, 3, t, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
+                               lse, delta, causal=causal)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+
+
+def test_flash_bwd_is_deterministic_and_takes_cross_lengths(dev):
+    """Full attention with Tq != Tk, twice: bitwise the same (each
+    output tile has one owner, no atomics)."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_cuda,
+        flash_bwd_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, do = (torch.randn((1, 2, 40, 64), generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((1, 2, 100, 64), generator=gen, device=dev)
+            for _ in range(2))
+    lse = torch.randn((1, 2, 40), generator=gen, device=dev) + 5.0
+    delta = torch.randn((1, 2, 40), generator=gen, device=dev)
+    a = flash_bwd_cuda(q, k, v, do, lse, delta, False, 0.125)
+    b = flash_bwd_cuda(q, k, v, do, lse, delta, False, 0.125)
+    want = flash_bwd_reference(q, k, v, do, lse, delta, causal=False,
+                               sm_scale=0.125)
+    for x, y, ref in zip(a, b, want):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, ref, **TOL[torch.float32])
+
+
+def test_flash_bwd_refuses_bad_inputs(dev):
+    from theanompi_tpu_torch.ops.attention import flash_bwd_cuda
+
+    x = torch.zeros((1, 2, 8, 64), device=dev)
+    r = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        y = torch.zeros((1, 2, 8, 48), device=dev)
+        flash_bwd_cuda(y, y, y, y, r, r, True, 1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        y = x.half()
+        flash_bwd_cuda(y, y, y, y, r, r, True, 1.0)
+    with pytest.raises(ValueError, match="lse and delta"):
+        flash_bwd_cuda(x, x, x, x, r.double(), r, True, 1.0)
+    with pytest.raises(ValueError, match="lse and delta"):
+        flash_bwd_cuda(x, x, x, x, r[..., :4], r, True, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        z = torch.zeros((1, 8, 2, 64), device=dev).transpose(1, 2)
+        flash_bwd_cuda(z, x, x, x, r, r, True, 1.0)
+
+
+def test_llama_training_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Three BSP steps of a small fp32 Llama on the card (K1-K3, cuBLAS,
+    a one-rank NCCL group) and on the CPU (plain versions, gloo), both
+    resuming from one seeded initial checkpoint: per-step losses within
+    rtol 1e-4 (fp32 summation order on two devices, carried through
+    Adam)."""
+    import shutil
+
+    import numpy as np
+
+    from theanompi_tpu_torch.models.llama import save_init_checkpoint
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    cfg = dict(dim=128, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256,
+               vocab=128, seq_len=64, batch_size=2, n_train=6, n_val=2,
+               compute_dtype="float32", seed=3, lr=1e-3)
+    save_init_checkpoint(cfg, tmp_path / "init")
+    losses = []
+    for device in (0, "cpu"):
+        d = tmp_path / str(device)
+        shutil.copytree(tmp_path / "init", d)
+        out = bsp_worker.run(
+            devices=[device], modelfile="theanompi_tpu_torch.models.llama",
+            modelclass="Llama", config=cfg, n_epochs=1, verbose=False,
+            checkpoint_dir=str(d), resume=True)
+        losses.append(out["recorder"].train_losses)
+    assert len(losses[0]) == 3
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
 
 
 def paged_inputs(dev, dtype, *, s, nq, hkv, rep, hd, bs, mb, seed):

@@ -1,28 +1,55 @@
-"""Llama-family decoder transformer, serving subset (one card, tp=1).
+"""Llama-family decoder transformer at tp = sp = pp = 1, no MoE:
+serving and BSP training.
 
-Port of ``theanompi_tpu/models/llama.py`` for the serving path: the
-model math (RMSNorm, interleaved-pair RoPE with theta 10000, GQA,
-SwiGLU, untied LM head), the parameter layout and init, and the bridge
-that carries a JAX parameter tree across.
+Port of ``theanompi_tpu/models/llama.py``: the model math (RMSNorm,
+interleaved-pair RoPE with theta 10000, GQA, SwiGLU, untied LM head),
+the parameter layout and init, the training contract the BSP worker
+drives, and the bridge that carries a JAX parameter tree and optimizer
+state across.
 
 Parameters are a plain dict of tensors in the JAX layout —
 ``{"embed" [V, D], "layers": [{attn_norm, wq [D, H*hd], wk, wv, wo,
 mlp_norm, w_gate, w_up, w_down}], "final_norm", "lm_head" [D, V]}``,
-weights ``[in, out]`` so every product is ``x @ w`` — held in the
-compute dtype.  That is exactly equivalent to the JAX path, which keeps
-fp32 master weights but casts them to ``x.dtype`` before every use
-(``tp.col_parallel``/``row_parallel`` and ``rms_norm``): the port casts
-once, at load or init, instead of at every use.
+weights ``[in, out]`` so every product is ``x @ w``.
 
-Training, tp/sp/pp > 1 and MoE are not ported yet (ROADMAP.md).
+- Serving (``make_decoder``) holds them in the compute dtype: the JAX
+  path keeps fp32 master weights but casts them to ``x.dtype`` before
+  every use (``tp.col_parallel``/``row_parallel`` and ``rms_norm``), so
+  casting once at init or load is exactly equivalent.
+- Training (``build_model`` -> ``compile_iter_fns`` -> ``train_iter``)
+  keeps fp32 master weights, cast at each use as in the JAX step, and
+  trains them with the JAX optimizers' update forms.  Each step runs
+  the forward (per-layer ``torch.utils.checkpoint`` when ``remat``),
+  the fused LM head (chunked over the vocab at >= 64k, else dense), the
+  backward (attention through kernels K1-K3 on the card), the
+  allreduce-mean of the gradients by the named strategy over the
+  process group, and the optimizer update.  Each rank takes rows
+  ``[r*B, (r+1)*B)`` of the global batch, as the JAX ``batch_spec``
+  shards it; loss and error are means over the ranks.
+
+tp/sp/pp > 1, MoE and selective remat (``remat_save``) are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from theanompi_tpu_torch.parallel.mesh import resolve_device
+from theanompi_tpu_torch.models.base import TMModel
+from theanompi_tpu_torch.models.data.lm_synthetic import MarkovLMData
+from theanompi_tpu_torch.ops import optimizers as opt_lib
+from theanompi_tpu_torch.ops.attention import flash_attention
+from theanompi_tpu_torch.parallel import tp as tp_lib
+from theanompi_tpu_torch.parallel.mesh import init_group, resolve_device
+from theanompi_tpu_torch.parallel.strategies import (
+    get_strategy,
+    resolve_bucket_mb,
+    resolve_compression,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,14 +111,19 @@ def _unheads(x):
 
 # -- the model ----------------------------------------------------------------
 
-class Llama:
-    """Serving-only Llama: config, parameters and device.
+class Llama(TMModel):
+    """Llama: config, parameters and device, for serving and training.
 
     Config knobs read: ``dim, n_layers, n_heads, n_kv_heads, ffn_dim,
-    vocab, seq_len, compute_dtype, seed``.  Parameters are drawn from
-    ``self.generator`` (seeded with ``seed``) unless ``params`` is
-    given (e.g. from :func:`params_from_jax` or a checkpoint).
-    ``device`` defaults to the card; ``device="cpu"`` runs on the CPU.
+    vocab, seq_len, compute_dtype, seed`` and, for training,
+    ``batch_size`` (per rank), ``n_train, n_val, n_epochs, lr,
+    optimizer, weight_decay, remat, xent_chunks, exch_strategy,
+    exchange_bucket_mb, lr_schedule``.  Serving parameters are drawn
+    from ``self.generator`` (seeded with ``seed``) at first use unless
+    ``params`` is given (e.g. from :func:`params_from_jax` or a
+    checkpoint); training draws the same values in fp32 at
+    ``compile_iter_fns``.  ``device`` defaults to the card;
+    ``device="cpu"`` runs on the CPU.
     """
 
     def __init__(self, config: dict | None = None, device=None, *,
@@ -127,22 +159,51 @@ class Llama:
                     != (0 if k == "n_experts" else 1)}
         if unported:
             raise NotImplementedError(
-                f"the port serves at one card, tp=1, no MoE; {unported} "
-                f"is not ported yet (ROADMAP.md A11-A12: tp>1 serving, MoE)"
+                f"the port runs tp=sp=pp=1 without MoE; {unported} is not "
+                f"ported yet (ROADMAP.md A11-A12: tp>1 serving, parallel "
+                f"layouts, MoE)"
             )
+        if c.get("remat_save"):
+            raise NotImplementedError(
+                "remat_save (selective remat) is not ported yet "
+                "(ROADMAP.md A6); remat=True recomputes whole layers"
+            )
+        self.remat = bool(c.get("remat", True))
+        self.n_epochs = int(c.get("n_epochs", 5))
+        self.epoch = 0
+        self.current_lr = float(c.get("lr", 3e-3))
+        self.opt_name = str(c.get("optimizer", "adam"))
+        self.optimizer = opt_lib.get(
+            self.opt_name, weight_decay=float(c.get("weight_decay", 0.0))
+        )
+        self.opt_state = None
+        self.data = None
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.seed)
-        self.params = params if params is not None else self.init_params()
+        self._params = params
 
-    def init_params(self) -> dict:
+    @property
+    def params(self) -> dict:
+        """The parameter tree; serving parameters (compute dtype) are
+        drawn at first use."""
+        if self._params is None:
+            self._params = self.init_params()
+        return self._params
+
+    @params.setter
+    def params(self, value: dict | None) -> None:
+        self._params = value
+
+    def init_params(self, dtype=None) -> dict:
         """Random parameters with the shapes and scales of the JAX
-        ``_init_full_params``: each tensor drawn in fp32 from the
-        model's generator and cast to the compute dtype before the
-        next is drawn, so the fp32 peak is one tensor."""
+        ``_init_full_params``, in ``dtype`` (default: the compute
+        dtype): each tensor drawn in fp32 from the model's generator,
+        reseeded first so every call draws the same values, and cast
+        before the next is drawn, so the fp32 peak is one tensor."""
         d, f, v = self.dim, self.ffn_dim, self.vocab
         hd = self.head_dim
-        dev, cd = self.device, self.compute_dtype
+        dev, cd = self.device, dtype or self.compute_dtype
+        self.generator.manual_seed(self.seed)
 
         def normal(shape, scale):
             x = torch.randn(shape, generator=self.generator, device=dev,
@@ -189,6 +250,179 @@ class Llama:
         cls = PagedLlamaDecoder if paged else LlamaDecoder
         return cls(self, **kw)
 
+    # -- forward ----------------------------------------------------------
+
+    def _layer(self, p, x, pos):
+        """One decoder block: x [B, T, D] in the compute dtype."""
+        cd = self.compute_dtype
+        h, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        xn = rms_norm(x, p["attn_norm"])
+        q = rope(_heads(tp_lib.col_parallel(xn, p["wq"]), h, hd), pos)
+        k = rope(_heads(tp_lib.col_parallel(xn, p["wk"]), hkv, hd), pos)
+        v = _heads(tp_lib.col_parallel(xn, p["wv"]), hkv, hd)
+        rep = h // hkv
+        if rep != 1:
+            # GQA: jnp.repeat on axis 1 is repeat_interleave on dim 1
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        o = flash_attention(q, k, v, causal=True)
+        x = x + tp_lib.row_parallel(_unheads(o), p["wo"]).to(cd)
+        xn = rms_norm(x, p["mlp_norm"])
+        gate = F.silu(tp_lib.col_parallel(xn, p["w_gate"]))
+        up = tp_lib.col_parallel(xn, p["w_up"])
+        return x + tp_lib.row_parallel(gate * up, p["w_down"]).to(cd)
+
+    def _forward(self, params, ids):
+        """ids [B, T] -> final-normed hidden states [B, T, D]; each
+        layer under non-reentrant ``checkpoint`` when ``remat`` and
+        gradients are on (its forward runs again in the backward)."""
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        x = tp_lib.embed_lookup(ids, params["embed"], self.vocab)
+        x = x.to(self.compute_dtype)
+        remat = self.remat and torch.is_grad_enabled()
+        for p in params["layers"]:
+            if remat:
+                x = checkpoint(self._layer, p, x, pos, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._layer(p, x, pos)
+        return rms_norm(x, params["final_norm"])
+
+    def _loss(self, params, x, y):
+        """(mean loss, top-1 error) of one local batch through the
+        fused head."""
+        h = self._forward(params, x)
+        h2 = h.reshape(-1, h.shape[-1])
+        yf = y.reshape(-1)
+        if self._n_xent_chunks > 1:
+            loss_vec, pred = tp_lib.chunked_unembed_xent(
+                h2, params["lm_head"], yf, self.vocab, self._n_xent_chunks)
+        else:
+            loss_vec, pred = tp_lib.dense_unembed_xent(
+                h2, params["lm_head"], yf, self.vocab)
+        return loss_vec.mean(), (pred != yf).float().mean()
+
+    # -- contract -----------------------------------------------------------
+
+    def build_model(self, n_replicas: int = 1) -> None:
+        self.data = MarkovLMData(
+            vocab=self.vocab,
+            seq_len=self.seq_len,
+            batch_size=int(self.config.get("batch_size", 8)),
+            n_replicas=n_replicas,
+            n_train=int(self.config.get("n_train", 2048)),
+            n_val=int(self.config.get("n_val", 256)),
+            seed=self.seed,
+        )
+        # master parameters materialize in compile_iter_fns
+        self._params = None
+        self.opt_state = None
+
+    def compile_iter_fns(self, exch_strategy: str | None = None,
+                         **unknown) -> None:
+        """Resolve the exchange, join (or create, one rank) the process
+        group, pick the head, and draw fp32 master parameters and fresh
+        optimizer state."""
+        if unknown:
+            raise TypeError(
+                f"Llama.compile_iter_fns: unknown kwargs {sorted(unknown)}"
+            )
+        if self.data is None:
+            raise RuntimeError("call build_model() before compile_iter_fns()")
+        self._strategy = get_strategy(
+            exch_strategy or self.config.get("exch_strategy", "ici32"))
+        resolve_compression(self.config)
+        self._bucket_elems = self._strategy.bucket_elems(
+            resolve_bucket_mb(self.config))
+        if not dist.is_initialized():
+            init_group(self.device)        # a one-rank group of its own
+        self._rank, self._world = dist.get_rank(), dist.get_world_size()
+        b = int(self.config.get("batch_size", 8))
+        if self._world * b != self.data.global_batch:
+            raise ValueError(
+                f"{self._world} ranks x per-rank batch {b} != global batch "
+                f"{self.data.global_batch} (build_model n_replicas must "
+                f"match the group)"
+            )
+        # the chunked head is a memory feature: "auto" chunks only at a
+        # vocab >= 64k; an int pins the count; 0/1 is the dense head
+        xc = self.config.get("xent_chunks", "auto")
+        if xc == "auto":
+            n = tp_lib.pick_xent_chunks(self.vocab) \
+                if self.vocab >= 65536 else 1
+        else:
+            n = max(1, int(xc or 1))
+            if self.vocab % n:
+                raise ValueError(
+                    f"xent_chunks={n} must divide the vocab {self.vocab}"
+                )
+        self._n_xent_chunks = n
+        params = self.init_params(torch.float32)
+        for t in _leaves(params):
+            t.requires_grad_(True)
+        self._params = params
+        self.opt_state = self.optimizer.init(list(_leaves(params)))
+
+    def _local_batch(self, batch):
+        """This rank's rows of a global (inputs, targets) batch, on the
+        device."""
+        b = int(self.config.get("batch_size", 8))
+        lo = self._rank * b
+        return tuple(
+            torch.as_tensor(np.ascontiguousarray(a[lo:lo + b]),
+                            device=self.device).long()
+            for a in batch
+        )
+
+    def _rank_mean(self, *xs) -> torch.Tensor:
+        stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                             device=self.device)
+                             for x in xs])
+        dist.all_reduce(stats)
+        return stats / self._world
+
+    def train_iter(self, count: int, recorder) -> None:
+        recorder.start()
+        x, y = self._local_batch(self.data.train_batch(count))
+        recorder.end("wait")
+        recorder.start()
+        leaves = list(_leaves(self.params))
+        loss, err = self._loss(self.params, x, y)
+        grads = list(torch.autograd.grad(loss, leaves))
+        self._strategy(grads, bucket_elems=self._bucket_elems)
+        self.opt_state = self.optimizer.update(leaves, grads, self.opt_state,
+                                               self.current_lr)
+        stats = self._rank_mean(loss.detach(), err)
+        recorder.end("calc")
+        recorder.train_error(count, stats[0], stats[1])
+
+    @torch.no_grad()
+    def val_iter(self, count: int, recorder):
+        x, y = self._local_batch(self.data.val_batch(count))
+        h = self._forward(self.params, x)
+        logits = tp_lib.col_parallel(h, self.params["lm_head"])
+        stats = self._rank_mean(
+            tp_lib.sharded_softmax_xent(logits, y, self.vocab),
+            tp_lib.sharded_top1_err(logits, y, self.vocab),
+            tp_lib.sharded_topk_err(logits, y, self.vocab, k=5),
+        )
+        return tuple(float(v) for v in stats)
+
+    # -- checkpoint ---------------------------------------------------------
+
+    def checkpoint_trees(self) -> dict:
+        return {"params": self.params,
+                "opt_state": _opt_tree(self.opt_state)}
+
+    def restore_trees(self, trees: dict) -> None:
+        params = params_from_jax(trees["params"], self.config, self.device,
+                                 dtype=torch.float32)
+        for t in _leaves(params):
+            t.requires_grad_(True)
+        self._params = params
+        self.opt_state = opt_state_from_jax(trees["opt_state"], self.config,
+                                            self.device)
+
 
 def _leaves(params: dict):
     yield params["embed"]
@@ -201,14 +435,80 @@ def _leaves(params: dict):
 
 # -- the JAX parameter bridge -------------------------------------------------
 
-def params_from_jax(tree: dict, config: dict, device=None) -> dict:
+def save_init_checkpoint(config: dict, directory) -> None:
+    """Write a model's seeded initial state — fp32 parameters drawn on
+    the CPU and fresh optimizer state — as checkpoint 0 stamped epoch
+    -1, which a run with ``resume=True`` starts epoch 0 from.  Runs on
+    different devices start from the same parameters this way (a
+    generator draws other numbers on the card than on the CPU)."""
+    from theanompi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = Llama(config, device="cpu")
+    params = model.init_params(torch.float32)
+    state = model.optimizer.init(list(_leaves(params)))
+    save_checkpoint(directory, 0, {
+        "params": params_to_jax(params),
+        "opt_state": opt_state_to_jax(state),
+    }, {"epoch": -1, "lr": model.current_lr})
+
+
+def _tree_from_leaves(flat: list) -> dict:
+    """The parameter tree of a flat leaf list in ``_leaves`` order."""
+    it = iter(flat)
+    embed = next(it)
+    layers = [{k: next(it) for k in LAYER_KEYS}
+              for _ in range((len(flat) - 3) // len(LAYER_KEYS))]
+    return {"embed": embed, "layers": layers, "final_norm": next(it),
+            "lm_head": next(it)}
+
+
+def _opt_tree(state):
+    """The optimizer state (lists in ``_leaves`` order) in the JAX tree
+    layout: ``()`` (SGD), a parameter tree (momentum velocity) or
+    ``{"m", "v", "t"}`` (Adam)."""
+    if isinstance(state, dict):
+        return {"m": _tree_from_leaves(state["m"]),
+                "v": _tree_from_leaves(state["v"]), "t": state["t"]}
+    if not state:
+        return ()
+    return _tree_from_leaves(state)
+
+
+def opt_state_to_jax(state):
+    """The optimizer state as the JAX package holds it, in numpy: f32
+    moment trees and Adam's int32 step count."""
+    tree = _opt_tree(state)
+    if isinstance(tree, dict) and "m" in tree:
+        return {"m": params_to_jax(tree["m"]), "v": params_to_jax(tree["v"]),
+                "t": np.asarray(int(tree["t"]), np.int32)}
+    return params_to_jax(tree) if tree else ()
+
+
+def opt_state_from_jax(tree, config: dict, device=None):
+    """Inverse of :func:`opt_state_to_jax`: the port's optimizer state
+    (f32 lists in ``_leaves`` order) from a JAX optimizer-state tree of
+    numpy arrays (a checkpoint's ``opt_state`` group)."""
+    f32 = dict(device=device, dtype=torch.float32)
+    if isinstance(tree, dict) and "m" in tree:
+        return {"m": list(_leaves(params_from_jax(tree["m"], config, **f32))),
+                "v": list(_leaves(params_from_jax(tree["v"], config, **f32))),
+                "t": torch.tensor(int(np.asarray(tree["t"])),
+                                  dtype=torch.int32)}
+    if not isinstance(tree, dict):
+        return ()
+    return list(_leaves(params_from_jax(tree, config, **f32)))
+
+
+def params_from_jax(tree: dict, config: dict, device=None, *,
+                    dtype=None) -> dict:
     """The port's parameters from a JAX Llama parameter tree given as
     numpy arrays (``jax.device_get(model.params)`` or a checkpoint's
     ``params`` group).  Both packages keep weights ``[in, out]``, so
-    this is a copy plus the cast to the compute dtype; shapes are
-    checked against ``config``."""
+    this is a copy plus the cast to ``dtype`` (default: the compute
+    dtype, as serving holds them; ``torch.float32`` keeps the master
+    weights bitwise); shapes are checked against ``config``."""
     dev = resolve_device(device)
-    cd = DTYPES[str(config.get("compute_dtype", "bfloat16"))]
+    cd = dtype or DTYPES[str(config.get("compute_dtype", "bfloat16"))]
     expect = _shapes_of(config)
 
     def conv(a, shape, name):

@@ -1,4 +1,5 @@
-"""Attention: the plain reference and the flash-attention forward (K1).
+"""Attention: the plain reference, the flash-attention forward (K1)
+and its backward (K2, K3).
 
 Port of ``theanompi_tpu/ops/attention.py``.  Shapes follow
 [B, H, T, D] as in the JAX package.
@@ -8,13 +9,21 @@ Port of ``theanompi_tpu/ops/attention.py``.  Shapes follow
 - ``flash_attention_fwd`` — returns ``(o, lse)``: o [B, H, T, D] in the
   input dtype and the per-row logsumexp [B, H, T] in f32 (the residual
   the ring-attention merge and the backward kernels consume).
-- ``flash_attention`` — the output alone.
+- ``flash_bwd`` — ``(dq, dk, dv)`` against EXPLICIT residuals
+  ``(lse, delta)`` [B, H, T] f32, as ``_flash_bwd_call`` takes them, so
+  ring attention can pass global ones; ``flash_bwd_reference`` is its
+  plain version (the explicit formulas, not autograd).
+- ``flash_attention`` — the output alone, differentiable: the
+  ``FlashAttention`` autograd function runs K1 forward and K2/K3
+  backward (``delta = rowsum(dO*O)`` in f32, computed outside the
+  kernels as in ``_flash_bwd``).
 
 Dispatch is by device: a CPU tensor gets the plain math, a CUDA tensor
-always gets the hand-written kernel ``csrc/flash_fwd.cu`` (or an
-error).  The kernel masks the ragged edge of T itself, so unlike the
-TPU dispatch (whose block-divisibility rule sent ragged lengths to the
-dense path) every length runs through it.
+always gets the hand-written kernels ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` (or an error).  The kernels mask the ragged edge
+of T themselves, so unlike the TPU dispatch (whose block-divisibility
+rule sent ragged lengths to the dense path) every length runs through
+them.
 """
 
 from __future__ import annotations
@@ -139,6 +148,183 @@ def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
     )
 
 
+# -- backward: K2 (dK, dV) and K3 (dQ) ----------------------------------------
+
+def flash_bwd_reference(q, k, v, do, lse, delta, *, causal=True,
+                        sm_scale=None):
+    """The plain version of K2 and K3: the backward formulas written out
+    in f32 against the given residuals (lse, delta [B, H, Tq] f32),
+    with the causal mask on positions counted from 0 on both sides:
+
+    P = exp(S*scale - lse) (masked), dV = P^T dO,
+    dS = P*(dO V^T - delta)*scale, dK = dS^T Q, dQ = dS K.
+
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        mask = causal_mask(torch.arange(q.shape[2], device=q.device),
+                           torch.arange(k.shape[2], device=q.device))
+        p = torch.where(mask, p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd_inputs(name, q, k, v, do, lse, delta):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype) \
+            or q.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"{name} takes float32 or bfloat16 q/k/v/do of one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape != do.shape or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(
+            f"{name} shapes: q=do [B,H,Tq,D], k=v [B,H,Tk,D]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+            f"{tuple(do.shape)}"
+        )
+    if lse.shape != q.shape[:3] or delta.shape != q.shape[:3] \
+            or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: lse and delta must be float32 [B,H,Tq] = "
+            f"{tuple(q.shape[:3])}; got {lse.dtype} {tuple(lse.shape)}, "
+            f"{delta.dtype} {tuple(delta.shape)}"
+        )
+    if q.shape[3] not in FLASH_HEAD_DIMS:
+        raise ValueError(
+            f"{name} supports head dims {FLASH_HEAD_DIMS}, got {q.shape[3]}"
+        )
+    ts = (q, k, v, do, lse, delta)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: inputs on different devices")
+
+
+def _bwd_call(fn, name, q, k, v, do, lse, delta, outs, causal, sm_scale):
+    from theanompi_tpu_torch.kernels import _build
+
+    b, h, tq, d = q.shape
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            b * h, tq, k.shape[2], d, float(sm_scale), int(bool(causal)),
+            KERNEL_DTYPES[q.dtype], stream,
+        )
+    _build.check(lib, err, name)
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
+                       sm_scale: float):
+    """Launch K2 (``csrc/flash_bwd.cu``) on contiguous CUDA tensors:
+    (dk, dv) [B, H, Tk, D] in the input dtype.  ``.launches`` counts
+    its launches."""
+    _check_bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_call("tm_flash_bwd_dkv", "flash_bwd_dkv", q, k, v, do, lse, delta,
+              (dk, dv), causal, sm_scale)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
+                      sm_scale: float):
+    """Launch K3 (``csrc/flash_bwd.cu``) on contiguous CUDA tensors:
+    dq [B, H, Tq, D] in the input dtype.  ``.launches`` counts its
+    launches."""
+    _check_bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _bwd_call("tm_flash_bwd_dq", "flash_bwd_dq", q, k, v, do, lse, delta,
+              (dq,), causal, sm_scale)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """K2 then K3 on contiguous CUDA tensors: (dq, dk, dv).  Each kernel
+    counts its own launches (``flash_bwd_dkv_cuda.launches``,
+    ``flash_bwd_dq_cuda.launches``)."""
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+def _bwd_lib():
+    from theanompi_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn, n_out in (("tm_flash_bwd_dkv", 2), ("tm_flash_bwd_dq", 1)):
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = ([p] * (6 + n_out)
+                          + [i, i, i, i, ctypes.c_float, i, i, p])
+            f.restype = i
+    return lib
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
+    """(dq, dk, dv) of attention against explicit residuals ``lse`` and
+    ``delta`` [B, H, Tq] f32 (``delta = rowsum(dO*O)``).  CPU tensors
+    take ``flash_bwd_reference``; CUDA tensors launch K2 and K3."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                   sm_scale=sm_scale)
+    return flash_bwd_cuda(
+        *(t.contiguous() for t in (q, k, v, do, lse, delta)), causal,
+        sm_scale,
+    )
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash residual contract: the forward is K1
+    (saving q, k, v, o and lse), the backward is K2/K3 via
+    :func:`flash_bwd` with ``delta = rowsum(dO*O)`` in f32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        if q.device.type != "cpu":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, causal=ctx.causal,
+                               sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, sm_scale=None):
-    """Attention output [B, H, T, D]; see ``flash_attention_fwd``."""
-    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+    """Attention output [B, H, T, D], differentiable (see
+    :class:`FlashAttention`)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, causal, sm_scale)

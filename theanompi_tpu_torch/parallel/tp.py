@@ -1,11 +1,16 @@
 """Tensor-parallel building blocks at tp=1.
 
-Port of the serving subset of ``theanompi_tpu/parallel/tp.py``.  With
-one shard the model-axis collectives are identities, so the column-
+Port of ``theanompi_tpu/parallel/tp.py`` for serving and training at
+one shard.  The model-axis collectives are identities, so the column-
 and row-parallel products are plain ``x @ w`` and the vocab-sharded
-samplers act on the full vocab row.  The argmax keeps the JAX
-package's tie-break (lowest id: ``torch.argmax`` returns the first
-maximum).
+samplers, losses and metrics act on the full vocab row.  The argmax
+keeps the JAX package's tie-break (lowest id: ``torch.argmax`` returns
+the first maximum).
+
+The two fused LM heads (``chunked_unembed_xent``, ``dense_unembed_xent``)
+are ``torch.autograd.Function``s with the JAX custom VJPs' manual
+backwards: dlogits cast to the compute dtype before the dW and dx
+products, which accumulate and return in f32 (``_mm_f32``).
 
 Sampling draws Gumbel noise for the full vocab from a
 ``torch.Generator`` seeded per row by the caller (request seed folded
@@ -74,3 +79,165 @@ def sharded_sample(logits, vocab: int, seeds, temperature):
     t = temperature.clamp_min(1e-6)[:, None]
     score = torch.where(temperature[:, None] > 0.0, x / t + g, x)
     return sharded_argmax(score, vocab)
+
+
+# -- losses and metrics over the vocab row -------------------------------------
+
+def sharded_softmax_xent(logits, labels, vocab: int):
+    """Mean softmax cross-entropy over tokens, f32: logsumexp with a
+    stop-gradient max shift, minus the target logit (labels outside
+    [0, vocab) contribute a zero target, as a sharded miss does)."""
+    x = logits.float()
+    m = x.max(dim=-1).values.detach()
+    lse = m + torch.log(torch.exp(x - m[..., None]).sum(dim=-1))
+    hit = (labels >= 0) & (labels < vocab)
+    safe = labels.clamp(0, vocab - 1).long()
+    tgt = torch.gather(x, -1, safe[..., None])[..., 0]
+    tgt = torch.where(hit, tgt, 0.0)
+    return (lse - tgt).mean()
+
+
+def sharded_top1_err(logits, labels, vocab: int):
+    """Top-1 error (lowest-id argmax)."""
+    pred = sharded_argmax(logits.detach().float(), vocab)
+    return (pred != labels).float().mean()
+
+
+def sharded_topk_err(logits, labels, vocab: int, k: int = 5):
+    """Top-k error."""
+    x = logits.detach().float()
+    top = torch.topk(x, min(k, x.shape[-1]), dim=-1).indices
+    hit = (top == labels[..., None]).any(dim=-1)
+    return (1.0 - hit.float()).mean()
+
+
+# -- fused unembed + cross-entropy ------------------------------------------------
+
+def pick_xent_chunks(v_loc: int, target: int = 4096) -> int:
+    """Largest chunk count with ~``target``-wide chunks that divides
+    the local vocab; 1 = chunking off (small vocab)."""
+    if v_loc <= 2 * target:
+        return 1
+    for c in range(v_loc // target, 1, -1):
+        if v_loc % c == 0:
+            return c
+    return 1
+
+
+def _mm_f32(a, b):
+    """``a @ b`` with f32 accumulation and an f32 result.  f32 operands
+    multiply as they are; compute-dtype (bf16) operands keep their
+    width — an upcast of both would run the product at the f32 rate —
+    and take PyTorch's f32 output (``torch.mm(..., out_dtype=...)``) on
+    the card.  The CPU build has no such product, so there the bf16
+    result is upcast (one bf16 rounding more)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return (a @ b).float()
+
+
+def _xent_grad(lg, lse, labels, g, off):
+    """(softmax - onehot) * g over one [N, Vc] logits block whose
+    columns are vocab ids ``[off, off + Vc)``, f32."""
+    d = torch.exp(lg - lse[:, None])
+    local = labels - off
+    rows = torch.nonzero((local >= 0) & (local < lg.shape[1]))[:, 0]
+    d[rows, local[rows]] -= 1.0
+    return d * g[:, None]
+
+
+class ChunkedUnembedXent(torch.autograd.Function):
+    """See :func:`chunked_unembed_xent`."""
+
+    @staticmethod
+    def forward(ctx, x2, w, labels, vocab, n_chunks):
+        n = x2.shape[0]
+        vc = w.shape[1] // n_chunks
+        f32 = dict(dtype=torch.float32, device=x2.device)
+        m = torch.full((n,), -torch.inf, **f32)
+        s = torch.zeros((n,), **f32)
+        tgt = torch.zeros((n,), **f32)
+        bv = torch.full((n,), -torch.inf, **f32)
+        bi = torch.full((n,), vocab, dtype=torch.int64, device=x2.device)
+        for c in range(n_chunks):
+            lg = (x2 @ w[:, c * vc:(c + 1) * vc].to(x2.dtype)).float()
+            mc, cb = lg.max(dim=-1)
+            m_new = torch.maximum(m, mc)
+            s = s * torch.exp(m - m_new) + torch.exp(
+                lg - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            local = labels - c * vc
+            hit = (local >= 0) & (local < vc)
+            t = torch.gather(lg, 1, local.clamp(0, vc - 1)[:, None])[:, 0]
+            tgt = tgt + torch.where(hit, t, 0.0)
+            # running argmax: strict > keeps the EARLIEST max
+            better = mc > bv
+            bv = torch.where(better, mc, bv)
+            bi = torch.where(better, cb + c * vc, bi)
+        lse = m + torch.log(torch.clamp_min(s, 1e-30))
+        ctx.save_for_backward(x2, w, labels, lse)
+        ctx.n_chunks = n_chunks
+        ctx.mark_non_differentiable(bi)
+        return lse - tgt, bi
+
+    @staticmethod
+    def backward(ctx, g, _dpred):
+        x2, w, labels, lse = ctx.saved_tensors
+        n_chunks = ctx.n_chunks
+        vc = w.shape[1] // n_chunks
+        gf = g.float()
+        dx = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
+        dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        for c in range(n_chunks):
+            wc = w[:, c * vc:(c + 1) * vc].to(x2.dtype)
+            lg = (x2 @ wc).float()
+            dlgc = _xent_grad(lg, lse, labels, gf, c * vc).to(x2.dtype)
+            dw[:, c * vc:(c + 1) * vc] = _mm_f32(x2.t(), dlgc)
+            dx += _mm_f32(dlgc, wc.t())
+        return dx.to(x2.dtype), dw.to(w.dtype), None, None, None
+
+
+def chunked_unembed_xent(x2, w, labels, vocab: int, n_chunks: int):
+    """Fused LM head + softmax cross-entropy that never materializes the
+    [N, V] logits: vocab chunks stream through an online logsumexp
+    carrying (max, sumexp, target logit, argmax); the backward
+    recomputes each chunk's logits.  x2 [N, D] (compute dtype), w
+    [D, V] (f32 master), labels [N] int.  Returns (loss_vec [N] f32 =
+    lse - target, pred [N] int64)."""
+    return ChunkedUnembedXent.apply(x2, w, labels.long(), vocab, n_chunks)
+
+
+class DenseUnembedXent(torch.autograd.Function):
+    """See :func:`dense_unembed_xent`."""
+
+    @staticmethod
+    def forward(ctx, x2, w, labels, vocab):
+        lg = x2 @ w.to(x2.dtype)                       # [N, V] compute dtype
+        lgf = lg.float()
+        m, bi = lgf.max(dim=-1)
+        hit = (labels >= 0) & (labels < w.shape[1])
+        tgt = torch.gather(lgf, 1, labels.clamp(0, w.shape[1] - 1)[:, None])
+        tgt = torch.where(hit, tgt[:, 0], 0.0)
+        s = torch.exp(lgf - m[:, None]).sum(dim=-1)
+        lse = m + torch.log(torch.clamp_min(s, 1e-30))
+        ctx.save_for_backward(x2, w, labels, lg, lse)
+        ctx.mark_non_differentiable(bi)
+        return lse - tgt, bi
+
+    @staticmethod
+    def backward(ctx, g, _dpred):
+        x2, w, labels, lg, lse = ctx.saved_tensors
+        dlgc = _xent_grad(lg.float(), lse, labels, g.float(), 0).to(x2.dtype)
+        dw = _mm_f32(x2.t(), dlgc)
+        dx = _mm_f32(dlgc, w.to(x2.dtype).t())
+        return dx.to(x2.dtype), dw.to(w.dtype), None, None
+
+
+def dense_unembed_xent(x2, w, labels, vocab: int):
+    """Fused LM head + softmax cross-entropy with the logits
+    materialized once in the compute dtype and saved for the backward
+    (no recompute).  Same arguments and returns as
+    :func:`chunked_unembed_xent`."""
+    return DenseUnembedXent.apply(x2, w, labels.long(), vocab)

@@ -1,5 +1,9 @@
-"""Checkpoint reading and serving telemetry for the port."""
+"""Checkpoints and telemetry for the port."""
 
-from theanompi_tpu_torch.utils.recorder import Reservoir, ServingRecorder
+from theanompi_tpu_torch.utils.recorder import (
+    Recorder,
+    Reservoir,
+    ServingRecorder,
+)
 
-__all__ = ["Reservoir", "ServingRecorder"]
+__all__ = ["Recorder", "Reservoir", "ServingRecorder"]

@@ -1,17 +1,22 @@
-"""Reader of the JAX package's npz checkpoints.
+"""Writer and reader of the JAX package's npz checkpoints.
 
-Port (reader only) of ``theanompi_tpu/utils/checkpoint.py``.  A
-checkpoint is ``ckpt_<step>.npz`` holding every leaf of the saved trees
-under ``"<group>:" + jax.tree_util.keystr(path)`` — e.g.
-``params:['layers'][0]['wq']`` — beside a ``ckpt_<step>.json`` sidecar
-whose ``_digests`` map stamps each array's crc32 (``array_digest``).
-The keys are parsed here without jax; the digests are verified before
-any array is used.  Sharded (``.shards``) checkpoints are not read yet.
+Port of ``theanompi_tpu/utils/checkpoint.py``.  A checkpoint is
+``ckpt_<step>.npz`` holding every leaf of the saved trees under
+``"<group>:" + jax.tree_util.keystr(path)`` — e.g.
+``params:['layers'][0]['wq']``, ``opt_state:['m']['embed']``,
+``opt_state:['t']`` — beside a ``ckpt_<step>.json`` sidecar with the
+metadata (epoch, lr, world stamps, recorder state) and a ``_digests``
+map stamping each array's crc32 (``array_digest``).  The keys are
+written and parsed here without jax, so a checkpoint of either package
+loads into the other; the digests are verified before any array is
+used.  Sharded (``.shards``) checkpoints are not read or written yet
+(ROADMAP.md A8).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import zlib
 from pathlib import Path
@@ -100,6 +105,85 @@ def checkpoints(directory: Path) -> list[Path]:
             found.append((int(m.group(1)), p.stat().st_mtime, p))
     found.sort(key=lambda t: (t[0], t[1]), reverse=True)
     return [p for _, _, p in found]
+
+
+def keystr(path) -> str:
+    """``["layers", 0, "wq"]`` -> ``"['layers'][0]['wq']"`` (the
+    inverse of :func:`parse_keystr`)."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
+                   for p in path)
+
+
+def tree_to_flat(tree, prefix=()) -> dict[str, np.ndarray]:
+    """Leaves of a nested dict/list tree of arrays keyed by keystr;
+    an empty tuple (SGD's optimizer state) has no leaves."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(tree_to_flat(tree[k], prefix + (k,)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, x in enumerate(tree):
+            out.update(tree_to_flat(x, prefix + (i,)))
+        return out
+    return {keystr(prefix): np.asarray(tree)}
+
+
+def save_checkpoint(directory: str | Path, step: int, trees: dict,
+                    meta: dict | None = None) -> Path:
+    """Write ``{directory}/ckpt_{step}.npz`` and its ``.json`` sidecar
+    (metadata plus per-array digests), the sidecar first and the npz
+    renamed into place, as the JAX package does."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    flat = {}
+    for group, tree in trees.items():
+        for k, v in tree_to_flat(tree).items():
+            flat[f"{group}:{k}"] = v
+    sidecar = dict(meta or {})
+    sidecar["_digests"] = {k: array_digest(v) for k, v in flat.items()}
+    (directory / f"ckpt_{step}.json").write_text(json.dumps(sidecar))
+    tmp = directory / f".ckpt_{step}.npz.tmp"
+    final = directory / f"ckpt_{step}.npz"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, final)
+    return final
+
+
+def checkpoint_meta(path: str | Path) -> dict:
+    """The sidecar metadata of a checkpoint, without the digests
+    (``{}`` when there is no sidecar)."""
+    meta_path = Path(path).with_suffix(".json")
+    if not meta_path.exists():
+        return {}
+    meta = json.loads(meta_path.read_text())
+    meta.pop("_digests", None)
+    return meta
+
+
+def load_latest(directory: str | Path, groups: tuple[str, ...]):
+    """``(path, {group: tree}, meta)`` of the newest checkpoint under
+    ``directory`` whose groups all verify, or None when there is none.
+    A group with no arrays (SGD's empty optimizer state) loads as
+    ``()``.  A checkpoint that fails its digests is reported and
+    skipped (an older one is used)."""
+    directory = Path(directory)
+    if not directory.is_dir():
+        return None
+    for path in checkpoints(directory):
+        try:
+            trees = {}
+            for g in groups:
+                try:
+                    trees[g] = load_group(path, g)
+                except KeyError:
+                    trees[g] = ()
+            return path, trees, checkpoint_meta(path)
+        except (ValueError, OSError) as e:
+            print(f"checkpoint: skipping {path.name}: {e}", flush=True)
+    return None
 
 
 def load_latest_params(directory: Path) -> dict:

@@ -1,11 +1,18 @@
-"""Serving telemetry: per-request TTFT/TPOT, tokens/s, slot occupancy,
-queue depth and KV-block gauges.
+"""Training and serving telemetry.
 
-A copy of the serving section of ``theanompi_tpu/utils/recorder.py``
-(``Reservoir`` and ``ServingRecorder``, numpy only).  Left out: the
-training ``Recorder``, ``FleetRecorder`` and ``ServingRecorder
-.metrics_txt`` (its exposition lives in the JAX package's ``obs``
-layer, not ported yet).
+- ``Recorder`` — the training recorder of
+  ``theanompi_tpu/utils/recorder.py``, the subset the BSP worker
+  calls: wall-clock segments (``calc``/``comm``/``wait``), per-step
+  (loss, err) kept as device scalars and read at the next print window
+  or epoch end (the read is the fence), val records, epoch times, and
+  ``state_dict``/``load_state_dict`` in the JAX layout, so a checkpoint's
+  recorder state crosses between the packages.  Left out: span
+  tracing, restart accounting (A9) and ``metrics_txt`` (A13).
+- ``Reservoir``/``ServingRecorder`` — copies of the serving section
+  (numpy only): per-request TTFT/TPOT, tokens/s, slot occupancy, queue
+  depth and KV-block gauges.  Left out: ``FleetRecorder`` and
+  ``ServingRecorder.metrics_txt`` (the JAX package's ``obs`` layer,
+  not ported yet).
 """
 
 from __future__ import annotations
@@ -15,6 +22,153 @@ import time
 from collections import Counter, deque
 
 import numpy as np
+
+
+MODES = ("calc", "comm", "wait")
+
+
+class Recorder:
+    """Training metrics and wall-clock segments (see module
+    docstring)."""
+
+    def __init__(self, rank: int = 0, size: int = 1, print_freq: int = 40,
+                 verbose: bool = True):
+        self.rank = rank
+        self.size = size
+        self.print_freq = print_freq
+        self.verbose = verbose and rank == 0
+        self._t0: float | None = None
+        self.segments = {m: 0.0 for m in MODES}        # this print window
+        self.epoch_segments = {m: 0.0 for m in MODES}
+        self.total_segments = {m: 0.0 for m in MODES}  # whole run
+        self._train_losses: list[float] = []
+        self._train_errors: list[float] = []
+        self.val_records: list[dict] = []
+        self.epoch_times: list[float] = []
+        self._epoch_start: float | None = None
+        self._window: list[tuple[float, float]] = []
+        self._pending: list[tuple] = []
+        self.n_iter = 0
+        self._last_print = 0
+        self.restart_events: list[dict] = []
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def end(self, mode: str) -> None:
+        assert mode in MODES, mode
+        if self._t0 is None:
+            return
+        self._add(mode, time.perf_counter() - self._t0)
+        self._t0 = None
+
+    def _add(self, mode: str, dt: float) -> None:
+        for seg in (self.segments, self.epoch_segments,
+                    self.total_segments):
+            seg[mode] += dt
+
+    def start_epoch(self) -> None:
+        self._epoch_start = time.perf_counter()
+        self.epoch_segments = {m: 0.0 for m in MODES}
+
+    def train_error(self, count: int, loss, err) -> None:
+        """One step's (loss, err), read lazily (see :meth:`flush`)."""
+        del count
+        self._pending.append((loss, err))
+        self.n_iter += 1
+
+    def flush(self) -> None:
+        """Read the pending device scalars (this is the fence)."""
+        for loss, err in self._pending:
+            pair = (float(loss), float(err))
+            self._train_losses.append(pair[0])
+            self._train_errors.append(pair[1])
+            self._window.append(pair)
+        self._pending = []
+
+    @property
+    def train_losses(self) -> list[float]:
+        self.flush()
+        return self._train_losses
+
+    @property
+    def train_errors(self) -> list[float]:
+        self.flush()
+        return self._train_errors
+
+    def _timed_flush(self) -> None:
+        """Flush and charge the wait for the device to ``calc``."""
+        t0 = time.perf_counter()
+        self.flush()
+        self._add("calc", time.perf_counter() - t0)
+
+    def print_train_info(self, count: int) -> None:
+        if not self.verbose or \
+                self.n_iter < self._last_print + self.print_freq:
+            return
+        self._last_print = self.n_iter
+        self._timed_flush()
+        if not self._window:
+            return
+        losses, errs = zip(*self._window)
+        seg = self.segments
+        print(
+            f"iter {count}: loss {np.mean(losses):.4f} err "
+            f"{np.mean(errs):.4f} | calc {seg['calc']:.3f}s comm "
+            f"{seg['comm']:.3f}s wait {seg['wait']:.3f}s",
+            flush=True,
+        )
+        self._window = []
+        self.segments = {m: 0.0 for m in MODES}
+
+    def val_error(self, loss: float, err: float,
+                  err_top5: float | None = None) -> None:
+        rec = {"loss": float(loss), "err": float(err)}
+        if err_top5 is not None:
+            rec["err_top5"] = float(err_top5)
+        self.val_records.append(rec)
+
+    def end_epoch(self, epoch: int) -> None:
+        if self._epoch_start is None:
+            return
+        self._timed_flush()   # epoch wall time includes all device work
+        wall = time.perf_counter() - self._epoch_start
+        self.epoch_times.append(wall)
+        if self.verbose:
+            seg = self.epoch_segments
+            val = self.val_records[-1] if self.val_records else {}
+            val_str = (f" | val loss {val['loss']:.4f} err {val['err']:.4f}"
+                       if val else "")
+            print(
+                f"epoch {epoch}: {wall:.1f}s (calc {seg['calc']:.1f}s comm "
+                f"{seg['comm']:.1f}s wait {seg['wait']:.1f}s){val_str}",
+                flush=True,
+            )
+
+    def state_dict(self) -> dict:
+        self.flush()
+        return {
+            "train_losses": self._train_losses,
+            "train_errors": self._train_errors,
+            "val_records": self.val_records,
+            "epoch_times": self.epoch_times,
+            "n_iter": self.n_iter,
+            "restart_events": self.restart_events,
+            "total_segments": dict(self.total_segments),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self._pending = []
+        self._train_losses = list(d["train_losses"])
+        self._train_errors = list(d["train_errors"])
+        self.val_records = list(d["val_records"])
+        self.epoch_times = list(d["epoch_times"])
+        self.n_iter = int(d["n_iter"])
+        self.restart_events = list(d.get("restart_events", []))
+        tot = d.get("total_segments") or {
+            "calc": float(sum(self.epoch_times))}
+        self.total_segments = {m: float(tot.get(m, 0.0)) for m in MODES}
+        self._last_print = self.n_iter
 
 
 def _percentile(xs: list[float], q: float) -> float | None:
