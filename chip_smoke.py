@@ -11,13 +11,17 @@ the card-and-build phase always runs):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
-   source, all at once), with the build time;
+   source, all at once), with the build time; ptxas's report
+   (registers, spills) and the shared memory and CTAs per SM of the
+   tensor-core kernels;
 2. kernels — each kernel against its plain PyTorch version on the
    card, at the shapes the serving and training paths give it, with
    its error, tolerance and times (kernel, plain version, and the one
-   PyTorch call computing the same function, where there is one); then
-   a small fp32 model served on the card and on the CPU (greedy ids
-   compared) and trained 3 BSP steps on each (losses compared);
+   PyTorch call computing the same function, where there is one): K1
+   and K2 on both routes (bf16 on the tensor cores, fp32 on the SIMT
+   kernels), K3, K4; then a small fp32 model served on the card and on
+   the CPU (greedy ids compared) and trained 3 BSP steps on each
+   (losses compared), the fp32 routes' launches counted over both;
 3. v1 serving — a Llama at Llama-3-8B width (random weights from a
    seed, bf16, ``--layers`` deep, 32 by default) under ``LlamaDecoder``
    and ``Engine``: 12 greedy requests batched, 3 of them again alone,
@@ -32,7 +36,8 @@ the card-and-build phase always runs):
    batch 2, bf16, Adam, remat, the chunked head, ``ici32``: one epoch
    of 8 steps and 2 val batches, with each step's loss, the step time,
    tokens/s, peak memory and K1/K2/K3 launches (checked against
-   2L/L/L per step); then a 2-step profile;
+   2L/L/L per step, every K1/K2 launch on the tensor-core route), the
+   losses held to ``TRAIN_TRAJECTORY``; then a 2-step profile;
 6. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
@@ -76,6 +81,12 @@ REDUCED = {
 # the CPU from one initial state: fp32 summation order differs between
 # the devices and Adam carries it on (measured ~1e-6 relative)
 TRAIN_REF_RTOL = 1e-4
+# first and last training loss and the val loss of phase 5 at its
+# default depth (8 layers), as the SIMT kernels gave them on an H100
+# (products in fp32): the tensor-core kernels, which round P and dS to
+# bf16 before their products, must stay within TRAIN_TRAJECTORY_RTOL
+TRAIN_TRAJECTORY = {"first": 11.7917, "last": 11.7502, "val": 11.7429}
+TRAIN_TRAJECTORY_RTOL = 1e-3
 PHASES = ("kernels", "serving", "training")
 
 
@@ -127,7 +138,25 @@ def time_ms(fn, *, reps: int = 20, warmup: int = 3, flush=None) -> float:
 
 # -- phase 2: kernels against their plain versions -------------------------
 
+def bound(ops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): ``ops`` at the
+    peak rate of ``dtype_name`` against ``nbytes`` at the HBM rate."""
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def route(dtype_name: str) -> str:
+    """Which kernel of K1/K2 a dtype takes on the card."""
+    return "tensor cores" if dtype_name == "bfloat16" else "SIMT"
+
+
 def check_flash(dev, flush) -> dict:
+    """K1 against ``mha_reference_fwd`` evaluated in fp32 on both routes
+    (fp32: SIMT, bf16: tensor cores) at the serving shapes, each launch
+    checked to take its dtype's route; times at T = 2047 for both, and
+    at the training shape [2, 32, 2048, 128] bf16.  Returns the records
+    of the two routes, keyed "K1" (bf16) and "K1 fp32"."""
     import torch
     import torch.nn.functional as F
 
@@ -137,9 +166,17 @@ def check_flash(dev, flush) -> dict:
         mha_reference_fwd,
     )
 
+    def run(q, k, v, name):
+        before = flash_fwd_cuda.tc_launches
+        out = flash_fwd_cuda(q, k, v, True, q.shape[-1] ** -0.5)
+        took = flash_fwd_cuda.tc_launches - before
+        if took != (name == "bfloat16"):
+            raise AssertionError(f"K1 {name}: launch took the wrong route")
+        return out
+
     gen = torch.Generator(device=dev).manual_seed(1)
     h, hd = 32, 128
-    record = None
+    records = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for t in (16, 512, 2047):
@@ -147,7 +184,7 @@ def check_flash(dev, flush) -> dict:
                 torch.randn((1, h, t, hd), generator=gen, device=dev)
                 .to(dtype) for _ in range(3)
             )
-            o, lse = flash_fwd_cuda(q, k, v, True, hd ** -0.5)
+            o, lse = run(q, k, v, name)
             o_ref, lse_ref = mha_reference_fwd(
                 q.float(), k.float(), v.float(), causal=True
             )
@@ -155,66 +192,63 @@ def check_flash(dev, flush) -> dict:
             err, ok_o = compare(o, o_ref, name)
             lerr, ok_l = compare(lse, lse_ref, "float32")
             ok = ok_o and ok_l
-            log(f"K1 flash_fwd {name} [1,{h},{t},{hd}] causal: "
-                f"max_abs_err o {err:.3e} (atol, rtol {TOL[name]}), lse "
-                f"{lerr:.3e} (atol, rtol {TOL['float32']}) -> "
-                f"{'ok' if ok else 'FAIL'}")
+            log(f"K1 flash_fwd {name} ({route(name)}) [1,{h},{t},{hd}] "
+                f"causal: max_abs_err o {err:.3e} (atol, rtol "
+                f"{TOL[name]}), lse {lerr:.3e} (atol, rtol "
+                f"{TOL['float32']}) -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 disagrees with mha_reference "
                                      f"at {name} T={t}")
-            if dtype is torch.bfloat16 and t == 2047:
-                ms = time_ms(lambda: flash_fwd_cuda(q, k, v, True,
-                                                    hd ** -0.5),
-                             flush=flush)
-                plain = time_ms(lambda: mha_reference(q, k, v,
-                                                      causal=True),
-                                flush=flush)
-                lib = time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), flush=flush)
-                ops = 4 * hd * h * t * (t + 1) / 2
-                nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
-                t_ops = ops / PEAK_OPS[name] * 1e3
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                record = {
-                    "name": "flash_fwd", "route": "cuda",
-                    "source": "theanompi_tpu_torch/csrc/flash_fwd.cu",
-                    "replaces": "theanompi_tpu/ops/attention.py:146",
-                    "shape": f"[1,{h},{t},{hd}] {name} causal",
-                    "launches": None, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain,
-                    "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "operations" if t_ops >= t_bytes
-                    else "bytes",
-                    "library_ms": lib,
-                }
-                log(f"K1 times bf16 T={t}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-                    f"{record['bound_ms']:.4f} ms ({record['bound_by']})")
+            if t != 2047:
+                continue
+            ms = time_ms(lambda: run(q, k, v, name), flush=flush)
+            plain = time_ms(lambda: mha_reference(q, k, v, causal=True),
+                            flush=flush)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), flush=flush)
+            b_ms, b_by = bound(
+                4 * hd * h * t * (t + 1) / 2,
+                4 * q.numel() * q.element_size() + lse.numel() * 4, name)
+            tc = name == "bfloat16"
+            records["K1" if tc else "K1 fp32"] = {
+                "name": "flash_fwd_tc" if tc else "flash_fwd_simt",
+                "route": "cuda",
+                "source": "theanompi_tpu_torch/csrc/flash_fwd.cu",
+                "replaces": "theanompi_tpu/ops/attention.py:146",
+                "shape": f"[1,{h},{t},{hd}] {name} causal",
+                "launches": None, "max_abs_err": max(err, lerr), "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib,
+            }
+            log(f"K1 times {name} ({route(name)}) T={t}: kernel {ms:.4f} "
+                f"ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
     # the training path's shape: two sequences of 2048, bf16, causal
     q, k, v = (torch.randn((2, h, 2048, hd), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
-    o, lse = flash_fwd_cuda(q, k, v, True, hd ** -0.5)
+    o, lse = run(q, k, v, "bfloat16")
     o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
                                        causal=True)
     err, ok_o = compare(o, o_ref, "bfloat16")
     lerr, ok_l = compare(lse, lse_ref, "float32")
-    ms = time_ms(lambda: flash_fwd_cuda(q, k, v, True, hd ** -0.5),
-                 flush=flush)
+    ms = time_ms(lambda: run(q, k, v, "bfloat16"), flush=flush)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), flush=flush)
-    bound = 4 * hd * 2 * h * 2048 * 2049 / 2 / PEAK_OPS["bfloat16"] * 1e3
-    log(f"K1 flash_fwd bfloat16 [2,{h},2048,{hd}] causal (training): "
-        f"max_abs_err o {err:.3e}, lse {lerr:.3e}, kernel {ms:.4f} ms, "
-        f"sdpa {lib:.4f} ms, bound {bound:.4f} ms (operations) -> "
-        f"{'ok' if ok_o and ok_l else 'FAIL'}")
+    b_ms, _ = bound(4 * hd * 2 * h * 2048 * 2049 / 2,
+                    4 * q.numel() * q.element_size() + lse.numel() * 4,
+                    "bfloat16")
+    log(f"K1 flash_fwd bfloat16 (tensor cores) [2,{h},2048,{hd}] causal "
+        f"(training): max_abs_err o {err:.3e}, lse {lerr:.3e}, kernel "
+        f"{ms:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+        f"(operations) -> {'ok' if ok_o and ok_l else 'FAIL'}")
     if not (ok_o and ok_l):
         raise AssertionError("K1 disagrees with mha_reference at the "
                              "training shape")
-    record["training_shape"] = {"shape": f"[2,{h},2048,{hd}] bfloat16 "
-                                "causal", "max_abs_err": max(err, lerr),
-                                "ms": ms, "library_ms": lib,
-                                "bound_ms": bound}
-    return record
+    records["K1"]["training_shape"] = {
+        "shape": f"[2,{h},2048,{hd}] bfloat16 causal",
+        "max_abs_err": max(err, lerr), "ms": ms, "library_ms": lib,
+        "bound_ms": b_ms}
+    return records
 
 
 def bwd_bound(name, q, dtype_name, causal=True):
@@ -225,18 +259,18 @@ def bwd_bound(name, q, dtype_name, causal=True):
     b, h, t, d = q.shape
     pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
     ops = (8 if name == "dkv" else 6) * d * pairs
-    isz = q.element_size()
     n_out = 2 if name == "dkv" else 1
-    nbytes = (4 + n_out) * q.numel() * isz + 2 * b * h * t * 4
-    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    nbytes = (4 + n_out) * q.numel() * q.element_size() + 2 * b * h * t * 4
+    return bound(ops, nbytes, dtype_name)
 
 
-def check_flash_bwd(dev, flush) -> list:
-    """K2 (dK, dV) and K3 (dQ) against ``flash_bwd_reference`` evaluated
-    in fp32 on the same inputs and residuals; then times at the
-    training shape [2, 32, 2048, 128] bf16 causal."""
+def check_flash_bwd(dev, flush) -> dict:
+    """K2 (dK, dV; both routes) and K3 (dQ) against
+    ``flash_bwd_reference`` evaluated in fp32 on the same inputs and
+    residuals, each K2 launch checked to take its dtype's route; times
+    of the fp32 route at [1, 32, 2047, 128] and of the bf16 kernels at
+    the training shape [2, 32, 2048, 128].  Returns the records keyed
+    "K2" (bf16), "K2 fp32" and "K3"."""
     import torch
     import torch.nn.functional as F
 
@@ -256,10 +290,18 @@ def check_flash_bwd(dev, flush) -> list:
         delta = (do.float() * o.float()).sum(-1)
         return q, k, v, do, lse, delta
 
+    def dkv(args, causal):
+        before = flash_bwd_dkv_cuda.tc_launches
+        out = flash_bwd_dkv_cuda(*args, causal, args[0].shape[-1] ** -0.5)
+        took = flash_bwd_dkv_cuda.tc_launches - before
+        if took != (args[0].dtype == torch.bfloat16):
+            raise AssertionError("K2: launch took the wrong route")
+        return out
+
     def check(shape, dtype, causal):
         name = str(dtype).split(".")[1]
         args = case(shape, dtype, causal)
-        dk, dv = flash_bwd_dkv_cuda(*args, causal, shape[-1] ** -0.5)
+        dk, dv = dkv(args, causal)
         dq = flash_bwd_dq_cuda(*args, causal, shape[-1] ** -0.5)
         q, k, v, do, lse, delta = args
         ref = flash_bwd_reference(q.float(), k.float(), v.float(),
@@ -270,7 +312,7 @@ def check_flash_bwd(dev, flush) -> list:
                                  ("dv", dv, ref[2])):
             errs[kname] = compare(got, want, name)
         ok = all(e[1] for e in errs.values())
-        log(f"K2/K3 flash_bwd {name} {list(shape)} "
+        log(f"K2/K3 flash_bwd {name} (K2 {route(name)}) {list(shape)} "
             f"{'causal' if causal else 'full'}: max_abs_err "
             + ", ".join(f"{k} {e[0]:.3e}" for k, e in errs.items())
             + f" (atol, rtol {TOL[name]}) -> {'ok' if ok else 'FAIL'}")
@@ -279,43 +321,58 @@ def check_flash_bwd(dev, flush) -> list:
                                  f"at {name} {shape} causal={causal}")
         return args, errs
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for causal in (True, False):
-            for t in (16, 512, 2047):
-                check((1, 32, t, 128), dtype, causal)
-    shape = (2, 32, 2048, 128)
-    args, errs = check(shape, torch.bfloat16, True)
-    scale = shape[-1] ** -0.5
-    dkv_ms = time_ms(lambda: flash_bwd_dkv_cuda(*args, True, scale),
-                     flush=flush)
-    dq_ms = time_ms(lambda: flash_bwd_dq_cuda(*args, True, scale),
-                    flush=flush)
-    plain = time_ms(lambda: flash_bwd_reference(*args, causal=True),
-                    reps=5, flush=flush)
-    q, k, v, do = (x.detach().clone().requires_grad_() for x in args[:4])
-    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    lib = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
-                                              retain_graph=True),
-                  flush=flush)
-    records = []
-    for name, ms, err in (("dkv", dkv_ms, max(errs["dk"][0], errs["dv"][0])),
-                          ("dq", dq_ms, errs["dq"][0])):
-        bound, by = bwd_bound(name, args[0], "bfloat16")
-        records.append({
-            "name": f"flash_bwd_{name}", "route": "cuda",
+    def sdpa_backward_ms(args):
+        q, k, v, do = (x.detach().clone().requires_grad_() for x in args[:4])
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                   retain_graph=True),
+                       flush=flush)
+
+    def record(name, kname, args, err, ms, plain, lib):
+        dtype_name = str(args[0].dtype).split(".")[1]
+        b_ms, b_by = bwd_bound(kname, args[0], dtype_name)
+        log(f"{name} times {dtype_name} {list(args[0].shape)}: kernel "
+            f"{ms:.4f} ms, plain (dq+dk+dv) {plain:.4f} ms, sdpa backward "
+            f"(pair) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return {
+            "name": name, "route": "cuda",
             "source": "theanompi_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": ("theanompi_tpu/ops/attention.py:239" if name == "dkv"
-                         else "theanompi_tpu/ops/attention.py:292"),
-            "shape": "[2,32,2048,128] bfloat16 causal",
+            "replaces": ("theanompi_tpu/ops/attention.py:239"
+                         if kname == "dkv" else
+                         "theanompi_tpu/ops/attention.py:292"),
+            "shape": f"{list(args[0].shape)} {dtype_name} causal",
             "launches": None, "max_abs_err": err, "ms": ms,
             # the plain version computes dq, dk and dv together; the
             # library call is the SDPA backward of the K2 + K3 pair
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib,
-        })
-        log(f"{'K2' if name == 'dkv' else 'K3'} times bf16 {list(shape)}: "
-            f"kernel {ms:.4f} ms, plain (dq+dk+dv) {plain:.4f} ms, sdpa "
-            f"backward (pair) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        }
+
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for t in (16, 512, 2047):
+                args, errs = check((1, 32, t, 128), dtype, causal)
+                if dtype is torch.float32 and causal and t == 2047:
+                    records["K2 fp32"] = record(
+                        "flash_bwd_dkv_simt", "dkv", args,
+                        max(errs["dk"][0], errs["dv"][0]),
+                        time_ms(lambda: dkv(args, True), flush=flush),
+                        time_ms(lambda: flash_bwd_reference(
+                            *args, causal=True), reps=5, flush=flush),
+                        sdpa_backward_ms(args))
+    args, errs = check((2, 32, 2048, 128), torch.bfloat16, True)
+    scale = 128 ** -0.5
+    plain = time_ms(lambda: flash_bwd_reference(*args, causal=True),
+                    reps=5, flush=flush)
+    lib = sdpa_backward_ms(args)
+    records["K2"] = record(
+        "flash_bwd_dkv_tc", "dkv", args, max(errs["dk"][0], errs["dv"][0]),
+        time_ms(lambda: dkv(args, True), flush=flush), plain, lib)
+    records["K3"] = record(
+        "flash_bwd_dq", "dq", args, errs["dq"][0],
+        time_ms(lambda: flash_bwd_dq_cuda(*args, True, scale), flush=flush),
+        plain, lib)
     return records
 
 
@@ -384,9 +441,8 @@ def check_paged(dev, flush) -> dict:
             isz = q.element_size()
             nbytes = (2 * walked * hkv * hd * isz + 2 * q.numel() * isz
                       + tables.numel() * 4 + pos.numel() * 4)
-            ops = 4 * walked * hkv * rep * nq * hd
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[name] * 1e3
+            b_ms, b_by = bound(4 * walked * hkv * rep * nq * hd, nbytes,
+                               name)
             record = {
                 "name": "paged_attend", "route": "cuda",
                 "source": "theanompi_tpu_torch/csrc/paged_attend.cu",
@@ -394,9 +450,7 @@ def check_paged(dev, flush) -> dict:
                 "shape": "S=8 Q=1 Hkv=8 rep=4 hd=128 bs=16 MB=128 bf16",
                 "launches": None, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             }
             log(f"K4 times bf16: kernel {ms:.4f} ms, plain {plain:.4f} "
                 f"ms, bound {record['bound_ms']:.4f} ms "
@@ -491,19 +545,39 @@ def make_requests(vocab: int):
     return prompts, shared
 
 
+def reset_counts(*wrappers) -> None:
+    """Zero each kernel wrapper's launch counts (all routes)."""
+    for fn in wrappers:
+        fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
+
+
+def check_tc_route(what: str, fn) -> None:
+    """Every launch of ``fn`` counted since its reset took the
+    tensor-core kernel (the bf16 route)."""
+    if fn.tc_launches != fn.launches:
+        raise AssertionError(
+            f"{what}: {fn.launches - fn.tc_launches} of {fn.launches} "
+            f"{fn.__name__} launches missed the tensor-core route")
+
+
 def run_serving(name, dec, prompts, alone_idx, counter) -> dict:
     """Drive one decoder through the engine: every prompt batched with
     ``counter`` (a kernel wrapper) reset just before and read just
-    after, then a few prompts again alone; ids must agree."""
+    after, then a few prompts again alone; ids must agree.  A counter
+    with a tensor-core route must have taken it every time."""
     card = card_line()
     seeds = list(range(len(prompts)))
-    counter.launches = 0
+    reset_counts(counter)
     ids, summ, stats, wall = serve(dec, prompts, max_tokens=32, seeds=seeds)
     launches = counter.launches
     log(f"[{name}] {len(prompts)} requests batched in {wall:.2f} s; "
         f"{counter.__name__} launches {launches}")
     if launches <= 0:
         raise AssertionError(f"{name}: {counter.__name__} never launched")
+    if hasattr(counter, "tc_launches"):
+        check_tc_route(name, counter)
     alone = [serve(dec, [prompts[i]], max_tokens=32, seeds=[seeds[i]],
                    prefix_caching=False)[0][0] for i in alone_idx]
     same = all(a == ids[i] for a, i in zip(alone, alone_idx))
@@ -647,14 +721,15 @@ def run_training(dev, n_layers: int, counters: dict) -> tuple[dict, object]:
         times.append(time.perf_counter() - t0)
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(*counters.values())
     Llama.train_iter = timed
     try:
         out = bsp([dev.index], cfg, print_freq=1)
     finally:
         Llama.train_iter = train_iter
     launches = {k: fn.launches for k, fn in counters.items()}
+    tc_launches = {k: fn.tc_launches for k, fn in counters.items()
+                   if hasattr(fn, "tc_launches")}
     model = out["model"]
     losses = out["recorder"].train_losses
     med = statistics.median(times[1:])
@@ -669,7 +744,7 @@ def run_training(dev, n_layers: int, counters: dict) -> tuple[dict, object]:
         "step_s": times, "median_step_s": med,
         "tokens_per_s": tokens / med,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches,
+        "launches": launches, "tc_launches": tc_launches,
         "launches_per_step": {
             "K1": (launches["K1"] - val_batches * n_layers) / steps,
             "K2": launches["K2"] / steps, "K3": launches["K3"] / steps,
@@ -687,15 +762,28 @@ def run_training(dev, n_layers: int, counters: dict) -> tuple[dict, object]:
         raise AssertionError(f"training: launches {launches}, want {want} "
                              f"(2L/L/L per step with remat, L per val "
                              f"batch)")
+    for k in tc_launches:
+        check_tc_route(f"training {k}", counters[k])
     if res["xent_chunks"] != 24:
         raise AssertionError(f"training: {res['xent_chunks']} head chunks")
+    if n_layers == 8:
+        got = {"first": losses[0], "last": losses[-1],
+               "val": out["final_val"]["loss"]}
+        rel = {k: abs(got[k] - v) / v for k, v in TRAIN_TRAJECTORY.items()}
+        log(f"[training] losses {got} against {TRAIN_TRAJECTORY}: relative "
+            f"differences {rel} (rtol {TRAIN_TRAJECTORY_RTOL})")
+        if max(rel.values()) > TRAIN_TRAJECTORY_RTOL:
+            raise AssertionError("training: losses left the reference "
+                                 "trajectory")
     return res, model
 
 
 def kernel_kind(name: str) -> str:
     """The group a profiled device kernel's name puts it in."""
-    for key, kind in (("flash_fwd_kernel", "K1 flash_fwd"),
-                      ("flash_bwd_dkv_kernel", "K2 flash_bwd_dkv"),
+    for key, kind in (("flash_fwd_tc_kernel", "K1 flash_fwd_tc"),
+                      ("flash_bwd_dkv_tc_kernel", "K2 flash_bwd_dkv_tc"),
+                      ("flash_fwd_kernel", "K1 flash_fwd (SIMT)"),
+                      ("flash_bwd_dkv_kernel", "K2 flash_bwd_dkv (SIMT)"),
                       ("flash_bwd_dq_kernel", "K3 flash_bwd_dq"),
                       ("nccl", "NCCL"), ("Memcpy", "memcpy/memset"),
                       ("Memset", "memcpy/memset"),
@@ -724,6 +812,57 @@ def profile_training(model, steps: int = 2) -> dict:
     out["device_ms_per_step_by_kind"] = dict(
         sorted(by_kind.items(), key=lambda kv: -kv[1]))
     log(f"[training] step profile {json.dumps(out)} on {card_line()}")
+    return out
+
+
+# -- phase 1: what the compiler made of the kernels -------------------------
+
+def ptxas_kernels(report: str) -> list[dict]:
+    """Each entry function of an ``nvcc -Xptxas -v`` report: its
+    (mangled) name, registers and spill bytes (stores + loads)."""
+    out = []
+    for blk in report.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", blk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", blk)
+        out.append({
+            "name": blk.split("'", 1)[0],
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                            if spill else None),
+        })
+    return out
+
+
+TC_OCCUPANCY = {"flash_fwd_tc_kernel": ("flash_fwd",
+                                        "tm_flash_fwd_tc_occupancy"),
+                "flash_bwd_dkv_tc_kernel": ("flash_bwd",
+                                            "tm_flash_bwd_dkv_tc_occupancy")}
+
+
+def tc_report(reports: dict) -> dict:
+    """Per tensor-core kernel and head dim: ptxas's registers and
+    spills, the dynamic shared memory and the CTAs the runtime fits on
+    one SM."""
+    import ctypes
+
+    from theanompi_tpu_torch.kernels import _build
+
+    out = {}
+    for rep in reports.values():
+        for e in ptxas_kernels(rep):
+            m = re.search(r"(flash_[a-z_]+_tc_kernel)ILi(\d+)E", e["name"])
+            if m is None:
+                continue
+            kernel, d = m.group(1), int(m.group(2))
+            lib_name, fn_name = TC_OCCUPANCY[kernel]
+            lib = _build.load(lib_name)
+            smem, ctas = ctypes.c_int(), ctypes.c_int()
+            _build.check(lib, getattr(lib, fn_name)(
+                d, ctypes.byref(smem), ctypes.byref(ctas)), fn_name)
+            out.setdefault(kernel, {})[d] = {
+                "registers": e["registers"], "spill_bytes": e["spill_bytes"],
+                "smem_bytes": smem.value, "ctas_per_sm": ctas.value}
     return out
 
 
@@ -784,22 +923,51 @@ def main(argv=None) -> int:
     log(f"build: {len(reports)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", rep)]
-        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", rep))
-        log(f"  {name}: {len(regs)} kernels, at most {max(regs)} "
-            f"registers, {spills} bytes spilled")
+        ks = ptxas_kernels(rep)
+        log(f"  {name}: {len(ks)} kernels, at most "
+            f"{max(k['registers'] for k in ks)} registers, "
+            f"{sum(k['spill_bytes'] for k in ks)} bytes spilled")
+        for k in ks:
+            if k["spill_bytes"]:
+                log(f"    {k['name']}: {k['spill_bytes']} bytes spilled")
+    tc = tc_report(reports)
+    for kernel, by_d in tc.items():
+        for d, r in sorted(by_d.items()):
+            log(f"  {kernel} D={d}: {json.dumps(r)}")
 
     records = {}
     if "kernels" in ns.phases:
         # phase 2: kernels against their plain versions
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-        records["K1"] = check_flash(dev, flush)
-        records["K2"], records["K3"] = check_flash_bwd(dev, flush)
+        records.update(check_flash(dev, flush))
+        records.update(check_flash_bwd(dev, flush))
         records["K4"] = check_paged(dev, flush)
         del flush
         torch.cuda.empty_cache()
-        check_reference(dev)
-        check_training_reference(dev)
+        for k, kernel in (("K1", "flash_fwd_tc_kernel"),
+                          ("K2", "flash_bwd_dkv_tc_kernel")):
+            records[k]["ptxas_d128"] = tc.get(kernel, {}).get(128)
+        # the fp32 routes run on the small fp32 models: count them there
+        by_path = {"K1 fp32": {}, "K2 fp32": {}}
+        for path, run in (("reference_serving_fp32", check_reference),
+                          ("reference_training_fp32",
+                           check_training_reference)):
+            reset_counts(flash_fwd_cuda, flash_bwd_dkv_cuda)
+            run(dev)
+            for k, fn in (("K1 fp32", flash_fwd_cuda),
+                          ("K2 fp32", flash_bwd_dkv_cuda)):
+                if fn.tc_launches:
+                    raise AssertionError(f"{path}: fp32 {fn.__name__} took "
+                                         f"the tensor-core route")
+                if fn.launches:
+                    by_path[k][path] = fn.launches
+        for k, paths in by_path.items():
+            if not paths:
+                raise AssertionError(f"{k}: never launched by the fp32 "
+                                     f"reference runs")
+            records[k]["launches"] = sum(paths.values())
+            records[k]["launches_by_path"] = paths
+            log(f"{k} ({records[k]['name']}) launches {paths}")
 
     if "serving" in ns.phases:
         # phases 3-4: the serving paths at Llama-3-8B width
@@ -868,8 +1036,9 @@ def main(argv=None) -> int:
             records["K1"]["launches"] = sum(by_path.values())
 
     # phase 6: the kernels line, the card, the result
-    log(json.dumps({"kernels": [records[k] for k in ("K1", "K2", "K3", "K4")
-                                if k in records]}))
+    log(json.dumps({"kernels": [
+        records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3", "K4")
+        if k in records]}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,13 @@ forward and backward kernels in the interpreter), and ``_flash_bwd_call``
 the local ones — the global logsumexp and delta of a longer key set, as
 ring attention passes them.  Inputs are made with numpy from a seed;
 fp32; atol 2e-5 (the frameworks sum in different orders; gradients of
-sum(o * g) with unit-normal g reach a few units)."""
+sum(o * g) with unit-normal g reach a few units).
+
+Last, the bf16 arithmetic of the tensor-core K1 and K2, emulated with
+torch ops on bf16 inputs (K1 rounds P to bf16 before P V, K2 rounds P
+and dS before dV = P^T dO and dK = dS^T Q), held to the fp32 plain
+versions and to the Pallas kernels in interpret mode within the
+tolerance the card's kernels are held to (atol = rtol = 1e-2)."""
 
 import jax
 import jax.numpy as jnp
@@ -150,3 +156,122 @@ def test_bwd_kernel_wrappers_refuse_cpu_tensors():
                port_attn.flash_bwd_dq_cuda):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(x, x, x, x, r, r, True, 0.25)
+
+
+# -- the tensor-core kernels' bf16 rounding -----------------------------------
+
+CARD_TOL = dict(atol=1e-2, rtol=1e-2)
+TC_BK = 64        # K1's kv tile: the online softmax folds 64 keys at a time
+
+
+def rounded(x):
+    """x rounded to bf16, computed on in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def bf16_inputs(seed, n, t, d=32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(normal(rng, 1, 2, t, d)).to(torch.bfloat16)
+            for _ in range(n)]
+
+
+def k1_tc_emulated(q, k, v, causal, sm_scale):
+    """K1's tensor-core arithmetic: S in fp32 from bf16 operands, the
+    online softmax over 64-key tiles with masked entries exactly 0, P
+    rounded to bf16 before P V (l sums the unrounded P), O rounded to
+    bf16; lse = m + log(max(l, 1e-30)) in fp32."""
+    b, h, tq, _ = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, tq), port_attn.NEG_INF)
+    l = torch.zeros((b, h, tq))
+    acc = torch.zeros(qf.shape)
+    rows = torch.arange(tq)
+    for k0 in range(0, kf.shape[2], TC_BK):
+        kt, vt = kf[:, :, k0:k0 + TC_BK], vf[:, :, k0:k0 + TC_BK]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * sm_scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])
+            s = torch.where(cols[None, :] <= rows[:, None], s,
+                            port_attn.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(s == port_attn.NEG_INF, 0.0,
+                        torch.exp(s - m_new[..., None]))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", rounded(p), vt)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.to(torch.bfloat16), m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def k2_tc_emulated(q, k, v, do, lse, delta, causal, sm_scale):
+    """K2's tensor-core arithmetic: P and dS in fp32 from bf16 operands,
+    rounded to bf16 before dV = P^T dO and dK = dS^T Q (fp32 sums),
+    dK and dV rounded to bf16."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        t_q, t_k = q.shape[2], k.shape[2]
+        p = torch.where(port_attn.causal_mask(torch.arange(t_q),
+                                              torch.arange(t_k)), p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", rounded(p), dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", rounded(ds), qf)
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def jax_bf16(x):
+    return jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
+
+
+def close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               err_msg=what, **CARD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [15, 64, 65, 130])
+def test_k1_bf16_p_rounding_fits_the_card_tolerance(t, causal):
+    """K1's rounding of P to bf16 against ``mha_reference_fwd`` in fp32
+    and the Pallas forward (bf16 inputs, one full-axis block, interpret
+    mode); lse, which the rounding does not touch, to 1e-5."""
+    q, k, v = bf16_inputs(200 + t + causal, 3, t)
+    scale = q.shape[-1] ** -0.5
+    o, lse = k1_tc_emulated(q, k, v, causal, scale)
+    o_ref, lse_ref = port_attn.mha_reference_fwd(
+        q.float(), k.float(), v.float(), causal=causal)
+    want_o, want_lse = jax_attn._flash_fwd_call(
+        jax_bf16(q), jax_bf16(k), jax_bf16(v), causal, scale, t, t, True)
+    close(o.float(), o_ref, "o vs fp32 plain")
+    close(o.float(), want_o.astype(jnp.float32), "o vs Pallas")
+    for want in (lse_ref, np.asarray(want_lse).reshape(lse.shape)):
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [15, 64, 65, 130])
+def test_k2_bf16_p_ds_rounding_fits_the_card_tolerance(t, causal):
+    """K2's rounding of P and dS to bf16 against ``flash_bwd_reference``
+    in fp32 and the Pallas dK/dV kernel (bf16 inputs, fp32 products,
+    interpret mode), on the residuals K1's emulation gives."""
+    q, k, v, do = bf16_inputs(300 + t + causal, 4, t)
+    scale = q.shape[-1] ** -0.5
+    o, lse = k1_tc_emulated(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = k2_tc_emulated(q, k, v, do, lse, delta, causal, scale)
+    _, dk_ref, dv_ref = port_attn.flash_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), lse, delta,
+        causal=causal)
+    _, want_dk, want_dv = jax_attn._flash_bwd_call(
+        jax_bf16(q), jax_bf16(k), jax_bf16(v), jax_bf16(do),
+        jnp.asarray(lse.numpy())[..., None],
+        jnp.asarray(delta.numpy())[..., None], causal, scale, t, t, True)
+    close(dk.float(), dk_ref, "dk vs fp32 plain")
+    close(dv.float(), dv_ref, "dv vs fp32 plain")
+    close(dk.float(), want_dk.astype(jnp.float32), "dk vs Pallas")
+    close(dv.float(), want_dv.astype(jnp.float32), "dv vs Pallas")

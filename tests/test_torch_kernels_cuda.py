@@ -1,14 +1,16 @@
 """The hand-written CUDA kernels against their plain versions, on the
 card, at shapes the serving and training paths do not reach (ragged
 and tiny T, every supported head dim, full attention, multi-row query
-windows), and a small Llama's training steps on the card against the
-CPU.
+windows), the tensor-core K1 and K2 (bf16) across their tile edges,
+and a small Llama's training steps on the card against the CPU.
 Marked ``cuda``; each test skips where no CUDA device is present.  Run
 on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 
 Tolerances: the plain version is evaluated in fp32 on the same inputs;
 fp32 kernels differ from it by summation order (atol 1e-4), bf16
-kernels also by rounding the output to bf16 (atol 1e-2, rtol 1e-2)."""
+kernels also by rounding the output to bf16 and, on the tensor-core
+route, P (K1, K2) and dS (K2) before their products (atol 1e-2, rtol
+1e-2)."""
 
 import numpy as np
 import pytest
@@ -40,9 +42,11 @@ def test_flash_fwd_matches_reference(dev, dtype, causal, t, d):
     gen = torch.Generator(device=dev).manual_seed(t * d)
     q, k, v = (torch.randn((2, 3, t, d), generator=gen, device=dev)
                .to(dtype) for _ in range(3))
-    before = flash_fwd_cuda.launches
+    before = (flash_fwd_cuda.launches, flash_fwd_cuda.tc_launches)
     o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
-    assert flash_fwd_cuda.launches == before + 1
+    # bf16 takes the tensor-core kernel, fp32 the SIMT one
+    assert (flash_fwd_cuda.launches, flash_fwd_cuda.tc_launches) == (
+        before[0] + 1, before[1] + (dtype is torch.bfloat16))
     o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
                                        causal=causal)
     torch.testing.assert_close(o.float(), o_ref, **TOL[dtype])
@@ -100,11 +104,13 @@ def test_flash_bwd_matches_reference(dev, dtype, causal, t, d):
                    .to(dtype) for _ in range(4))
     o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
     delta = (do.float() * o.float()).sum(-1)
-    before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches)
+    before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.tc_launches)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
-    assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.tc_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (dtype is torch.bfloat16))
     want = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
                                lse, delta, causal=causal)
     for got, ref in zip((dq, dk, dv), want):
@@ -155,6 +161,110 @@ def test_flash_bwd_refuses_bad_inputs(dev):
         z = torch.zeros((1, 8, 2, 64), device=dev).transpose(1, 2)
         flash_bwd_cuda(z, x, x, x, r, r, True, 1.0)
 
+
+# the tensor-core K1 and K2 (bf16): T across their 64-row tiles (K2
+# walks 32-row q tiles) and the serving length, every head dim
+TC_TS = (1, 15, 63, 64, 65, 127, 128, 129, 2047)
+TC_DS = (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", TC_DS)
+@pytest.mark.parametrize("t", TC_TS)
+def test_tc_flash_fwd_bf16_matches_reference(dev, t, d, causal):
+    from theanompi_tpu_torch.ops.attention import (
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(7 * t + d)
+    q, k, v = (torch.randn((1, 2, t, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = flash_fwd_cuda.tc_launches
+    o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+    assert flash_fwd_cuda.tc_launches == before + 1
+    o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
+                                       causal=causal)
+    torch.testing.assert_close(o.float(), o_ref, **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", TC_DS)
+@pytest.mark.parametrize("t", TC_TS)
+def test_tc_flash_bwd_dkv_bf16_matches_reference(dev, t, d, causal):
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(7 * t + d + 1)
+    q, k, v, do = (torch.randn((1, 2, t, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    before = flash_bwd_dkv_cuda.tc_launches
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    assert flash_bwd_dkv_cuda.tc_launches == before + 1
+    _, dk_ref, dv_ref = flash_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), lse, delta,
+        causal=causal)
+    torch.testing.assert_close(dk.float(), dk_ref, **TOL[torch.bfloat16])
+    torch.testing.assert_close(dv.float(), dv_ref, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("tq,tk", [(40, 100), (130, 65), (1, 129)])
+def test_tc_cross_lengths_full_attention(dev, tq, tk):
+    """bf16 full attention with Tq != Tk through both tensor-core
+    kernels; K2 twice, bitwise the same (one owner per output tile)."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(tq + tk)
+    q, do = (torch.randn((1, 2, tq, 64), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, 2, tk, 64), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = flash_fwd_cuda(q, k, v, False, 0.125)
+    o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
+                                       causal=False, sm_scale=0.125)
+    torch.testing.assert_close(o.float(), o_ref, **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+    delta = (do.float() * o.float()).sum(-1)
+    a = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, 0.125)
+    b = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, 0.125)
+    want = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
+                               lse, delta, causal=False, sm_scale=0.125)
+    for x, y, ref in zip(a, b, want[1:]):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.float(), ref, **TOL[torch.bfloat16])
+
+
+def test_tc_kernels_refuse_what_they_cannot_take(dev):
+    """The tensor-core kernels copy 16-byte chunks: a bf16 view that
+    starts off a 16-byte boundary is refused, not misread; K1 applies
+    sm_scale to the row max, so it must be positive."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_cuda,
+        flash_fwd_cuda,
+    )
+
+    n = 2 * 8 * 64
+    x = torch.zeros(n + 1, device=dev, dtype=torch.bfloat16)[1:]
+    x = x.view(1, 2, 8, 64)
+    r = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_fwd_cuda(x, x, x, True, 1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_bwd_cuda(x, x, x, x, r, r, True, 1.0)
+    y = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sm_scale > 0"):
+        flash_fwd_cuda(y, y, y, True, -0.125)
 
 def test_llama_training_on_the_card_matches_the_cpu(dev, tmp_path):
     """Three BSP steps of a small fp32 Llama on the card (K1-K3, cuBLAS,

@@ -13,26 +13,58 @@
 //
 // What bounds it on this card: 4 (K2) and 3 (K3) products of 2*D
 // operations per live (q, k) pair against a few hundred MB of operands,
-// so the tensor-core rate bounds both.  This first version computes
-// every product on the fp32 CUDA cores out of shared memory (no wgmma),
-// so it is bound by fp32 FMA issue and shared-memory bandwidth, far
-// above the tensor-core bound; PERF.md keeps its time beside the bound.
+// so the tensor cores' bf16 rate (989 TF/s dense) bounds both.
 //
-// Design against that: no CTA carries anything to another (the TPU's
-// sequential grid axis kept the accumulators in VMEM between grid
-// steps).  K2 runs one CTA per (b*h, 64-row kv tile) that walks the q
-// tiles and keeps dK and dV in registers; K3 one CTA per (b*h, 64-row
-// q tile) that walks the kv tiles and keeps dQ in registers.  Each
-// output tile has exactly one owner, so there are no atomics and the
-// result is the same every run.  Tiles wholly above the causal
-// diagonal are skipped (the TPU kernels' `needed`).  Rows past T are
-// masked, so any T runs.  The operand tiles (fp32, rows padded by one
-// float so a half-warp reads 16 banks) take 166 KB (K2) and 149 KB
-// (K3) of shared memory at D = 128, above the 48 KB default, so each
-// launch raises the dynamic limit (the card allows 227 KB).  Thread
-// layout as in K1: a 16 x 16 grid of 256 threads, each owning 4 rows x
-// D/16 columns of its accumulators.
+// Common to every kernel here: no CTA carries anything to another (the
+// TPU's sequential grid axis kept the accumulators in VMEM between grid
+// steps).  K2 runs one CTA per (b*h, kv tile) that walks the q tiles
+// and keeps dK and dV in registers; K3 one CTA per (b*h, q tile) that
+// walks the kv tiles and keeps dQ in registers.  Each output tile has
+// exactly one owner, so there are no atomics and the result is the
+// same every run.  Tiles wholly above the causal diagonal are skipped
+// (the TPU kernels' `needed`).  Rows past T are masked, so any T runs.
+//
+// K2 has two routes, chosen by dtype in `tm_flash_bwd_dkv`, each dtype
+// exactly one:
+//
+// bf16: `flash_bwd_dkv_tc_kernel`, on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, fp32 accumulators; building blocks in
+// mma_sm90.cuh).  One CTA of 4 warps per (b*h, 64-row kv tile), each
+// warp owning 16 kv rows, so the products are taken transposed with kv
+// rows as the mma M dimension: S^T = K Q^T and dP^T = V dO^T, with K
+// and V (held in shared memory as bf16 for the whole CTA) as A
+// fragments.  The CTA walks 32-row q tiles from k0 when causal; Q, dO,
+// lse and delta of the next q tile arrive by cp.async into a 2-stage
+// ring while this one computes, with one barrier per tile (rows padded
+// by 16 bytes: ldmatrix without bank conflicts; 69 KB of shared memory
+// at D = 128; 240 registers, no spills: two CTAs per SM).  P^T =
+// exp2(S^T*scale*log2e - lse*log2e) and dS^T = P^T*(dP^T - delta)*scale
+// come out in the accumulator layout, are rounded to bf16 in registers
+// and are directly the A operands of dV += P^T dO and dK += dS^T Q,
+// with the B fragments from ldmatrix.trans of the dO and Q tiles: no P
+// or dS tile goes through shared memory.  dK and dV (16 rows x D each
+// per warp) accumulate in fp32 registers; a 32-row q tile keeps S^T and
+// dP^T at 16 registers each beside them (64-row q tiles were slightly
+// faster but spilled; PERF.md).  The masks are applied only on tiles that cross
+// the diagonal or the end of T.
+//
+// Numerics of the bf16 route: P^T and dS^T are rounded to bf16 before
+// the two products (the operands dO and Q are bf16 already), where the
+// TPU kernel keeps both products in fp32 (attention.py:272-284); this
+// is what tensor-core flash backwards do.  Its error against the plain
+// version in fp32 is measured by chip_smoke.py and emulated on the CPU
+// by tests/test_torch_flash_bwd.py, both within atol = rtol = 1e-2.
+//
+// fp32: `flash_bwd_dkv_kernel<float, D>`, and K3 in both dtypes, on the
+// fp32 CUDA cores: operand tiles in fp32 in shared memory (rows padded
+// by one float so a half-warp reads 16 banks; 166 KB for K2 and 149 KB
+// for K3 at D = 128, so each launch raises the dynamic limit), a 16 x 16
+// thread grid of 256 threads each owning 4 rows x D/16 columns of its
+// accumulators.  The tensor cores' only fp32 input is TF32 (about three
+// decimal digits), which cannot meet the fp32 tolerance of 1e-4, so
+// fp32 K2 stays here.  K3's tensor-core redesign is still to come.
 #include "common.cuh"
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -283,6 +315,179 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- K2, bf16: the tensor-core kernel -------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBK = 64;                    // kv rows per CTA
+constexpr int kTcBQ = 32;                    // q rows per tile
+constexpr int kTcThreads = 32 * kTcBK / 16;  // one warp per 16 kv rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {  // K, V; two stages of Q, dO, lse, delta
+  return sizeof(bf16) * tmt::Tile<D>::kStride * (2 * kTcBK + 4 * kTcBQ) +
+         sizeof(float) * 4 * kTcBQ;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int tq, int tk, float sm_scale, float scale_log2,
+                            int causal) {
+  using tmt::Tile;
+  constexpr int S = Tile<D>::kStride;
+  constexpr int NQ = kTcBQ / 8;  // accumulator tiles across a q tile
+  constexpr int ND = D / 8;      // accumulator tiles across D
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(tc_smem);  // [kTcBK][S]
+  bf16* sV = sK + kTcBK * S;                    // [kTcBK][S]
+  bf16* sQ = sV + kTcBK * S;                    // [2][kTcBQ][S]
+  bf16* sO = sQ + 2 * kTcBQ * S;                // [2][kTcBQ][S]: dO
+  float* sL = reinterpret_cast<float*>(sO + 2 * kTcBQ * S);  // [2][kTcBQ]
+  float* sD = sL + 2 * kTcBQ;                                // [2][kTcBQ]
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kTcBK;  // causal: the longest walks first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wk0 = k0 + warp * 16;  // this warp's first kv row
+  const size_t qbase = static_cast<size_t>(bh) * tq * D;
+  const size_t kbase = static_cast<size_t>(bh) * tk * D;
+  const float* lg = lse + static_cast<size_t>(bh) * tq;
+  const float* dg = delta + static_cast<size_t>(bh) * tq;
+
+  // causal: q tiles wholly before this kv tile see none of its keys
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = q_begin < tq ? (tq - q_begin + kTcBQ - 1) / kTcBQ : 0;
+
+  // Q, dO, lse and delta of q tile `it` into stage it % 2
+  auto load_q_tile = [&](int it) {
+    const int q0 = q_begin + it * kTcBQ, st = it % 2;
+    tmt::load_tile_async<D, kTcBQ, kTcThreads>(sQ + st * kTcBQ * S,
+                                               q + qbase, q0, tq, tid);
+    tmt::load_tile_async<D, kTcBQ, kTcThreads>(sO + st * kTcBQ * S,
+                                               dout + qbase, q0, tq, tid);
+    if (tid < kTcBQ) {
+      const bool valid = q0 + tid < tq;
+      const int r = valid ? q0 + tid : 0;
+      tmt::cp_async_4(sL + st * kTcBQ + tid, lg + r, valid);
+      tmt::cp_async_4(sD + st * kTcBQ + tid, dg + r, valid);
+    }
+  };
+
+  tmt::load_tile_async<D, kTcBK, kTcThreads>(sK, k + kbase, k0, tk, tid);
+  tmt::load_tile_async<D, kTcBK, kTcThreads>(sV, v + kbase, k0, tk, tid);
+  if (n_tiles > 0) load_q_tile(0);
+  tmt::cp_async_commit();
+
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const bf16* sKw = sK + warp * 16 * S;  // this warp's K and V rows
+  const bf16* sVw = sV + warp * 16 * S;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * kTcBQ;
+    tmt::cp_async_wait<0>();  // this q tile (and, first time, K, V) landed
+    // ... for every thread, and every warp is done with the last q tile,
+    // whose stage the next copy refills while this one is computed on
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      load_q_tile(it + 1);
+      tmt::cp_async_commit();
+    }
+    const bf16* sQs = sQ + (it % 2) * kTcBQ * S;
+    const bf16* sOs = sO + (it % 2) * kTcBQ * S;
+    const float* sLs = sL + (it % 2) * kTcBQ;
+    const float* sDs = sD + (it % 2) * kTcBQ;
+
+    // causal: a q tile whose rows all precede this warp's keys is skipped
+    if (!causal || q0 + kTcBQ - 1 >= wk0) {
+      // S^T = K Q^T and dP^T = V dO^T: rows kv, columns q
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        tmt::load_a(ka, sKw, S, kk * 16, lane);
+        tmt::load_a(va, sVw, S, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t b[4];
+          tmt::load_b_rows(b, sQs, S, np * 16, kk * 16, lane);
+          tmt::mma_bf16(st[2 * np], ka, b[0], b[1]);
+          tmt::mma_bf16(st[2 * np + 1], ka, b[2], b[3]);
+          tmt::load_b_rows(b, sOs, S, np * 16, kk * 16, lane);
+          tmt::mma_bf16(dpt[2 * np], va, b[0], b[1]);
+          tmt::mma_bf16(dpt[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+
+      // P^T and dS^T in place; masks only where the tile crosses the
+      // diagonal or the end of the queries
+      const bool edge = (causal && q0 < wk0 + 15) || q0 + kTcBQ > tq;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + t4 * 2 + (e & 1);  // q row within the tile
+          float p = tmt::exp2_approx(st[n][e] * scale_log2 - sLs[c] * kLog2e);
+          if (edge) {
+            const int kv = wk0 + g + (e >> 1) * 8;
+            if (q0 + c >= tq || (causal && kv > q0 + c)) p = 0.f;
+          }
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - sDs[c]) * sm_scale;
+        }
+
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T (bf16) straight
+      // from the accumulators
+#pragma unroll
+      for (int kk = 0; kk < kTcBQ / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        tmt::acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+        tmt::acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t b[4];
+          tmt::load_b_cols(b, sOs, S, kk * 16, dp * 16, lane);
+          tmt::mma_bf16(acc_v[2 * dp], pa, b[0], b[1]);
+          tmt::mma_bf16(acc_v[2 * dp + 1], pa, b[2], b[3]);
+          tmt::load_b_cols(b, sQs, S, kk * 16, dp * 16, lane);
+          tmt::mma_bf16(acc_k[2 * dp], da, b[0], b[1]);
+          tmt::mma_bf16(acc_k[2 * dp + 1], da, b[2], b[3]);
+        }
+      }
+    }
+  }
+  tmt::cp_async_wait<0>();  // K and V landed even when no q tile ran
+
+  // dK and dV leave through the warp's own K and V rows (no other warp
+  // reads them), 16 bytes a store
+  bf16* sdK = sK + warp * 16 * S;
+  bf16* sdV = sV + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    tmt::acc_to_smem<D>(sdK, acc_k[n], n * 8, lane);
+    tmt::acc_to_smem<D>(sdV, acc_v[n], n * 8, lane);
+  }
+  __syncwarp();
+  tmt::store_tile<D, 16, 32>(dk + kbase, sdK, wk0, tk, lane);
+  tmt::store_tile<D, 16, 32>(dv + kbase, sdV, wk0, tk, lane);
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -293,21 +498,53 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
+template <int D>
+cudaError_t launch_dkv_simt(const Args& a) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.tk + kB - 1) / kB, a.bh);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tq, a.tk,
-      a.sm_scale, a.causal);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.tq, a.tk, a.sm_scale, a.causal);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tk + kTcBK - 1) / kTcBK, a.bh);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.tq, a.tk, a.sm_scale, a.sm_scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+// The tensor-core kernel's dynamic shared memory at head dim D and how
+// many of its CTAs the runtime fits on one SM.
+template <int D>
+cudaError_t tc_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  *smem_bytes = static_cast<int>(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
+                                                       kTcThreads, smem);
 }
 
 template <typename T, int D>
@@ -326,34 +563,45 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kDkv>
-cudaError_t dispatch_d(const Args& a, int d) {
+// K2: bf16 on the tensor cores, f32 on the SIMT kernel
+cudaError_t dispatch_dkv(const Args& a, int d, int dtype) {
+  const bool tc = dtype == tmt::kBF16;
+  if (!tc && dtype != tmt::kF32) return cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return kDkv ? launch_dkv<T, 16>(a) : launch_dq<T, 16>(a);
+      return tc ? launch_dkv_tc<16>(a) : launch_dkv_simt<16>(a);
     case 32:
-      return kDkv ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
+      return tc ? launch_dkv_tc<32>(a) : launch_dkv_simt<32>(a);
     case 64:
-      return kDkv ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
+      return tc ? launch_dkv_tc<64>(a) : launch_dkv_simt<64>(a);
     case 128:
-      return kDkv ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+      return tc ? launch_dkv_tc<128>(a) : launch_dkv_simt<128>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <bool kDkv>
-int dispatch(const Args& a, int d, int dtype) {
-  if (dtype == tmt::kF32) return dispatch_d<float, kDkv>(a, d);
-  if (dtype == tmt::kBF16) return dispatch_d<__nv_bfloat16, kDkv>(a, d);
-  return cudaErrorInvalidValue;
+template <typename T>
+cudaError_t dispatch_dq_d(const Args& a, int d) {
+  switch (d) {
+    case 16:
+      return launch_dq<T, 16>(a);
+    case 32:
+      return launch_dq<T, 32>(a);
+    case 64:
+      return launch_dq<T, 64>(a);
+    case 128:
+      return launch_dq<T, 128>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q, dO [bh, tq, d], k/v [bh, tk, d], dk/dv [bh, tk, d] in the dtype
-// `dtype` names; lse, delta [bh, tq] f32.  Launches K2; returns its
-// cudaError_t.
+// `dtype` names; lse, delta [bh, tq] f32.  Launches K2 (bf16: the
+// tensor-core kernel, f32: the SIMT one); returns its cudaError_t.
 extern "C" int tm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
@@ -363,7 +611,7 @@ extern "C" int tm_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), nullptr, dk, dv, bh, tq,
                tk, sm_scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, d, dtype);
+  return dispatch_dkv(a, d, dtype);
 }
 
 // As tm_flash_bwd_dkv, writing dq [bh, tq, d]: launches K3.
@@ -375,5 +623,25 @@ extern "C" int tm_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, nullptr, bh,
                tq, tk, sm_scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, d, dtype);
+  if (dtype == tmt::kF32) return dispatch_dq_d<float>(a, d);
+  if (dtype == tmt::kBF16) return dispatch_dq_d<__nv_bfloat16>(a, d);
+  return cudaErrorInvalidValue;
+}
+
+// The K2 tensor-core kernel's dynamic shared memory at head dim d and
+// how many of its CTAs fit on one SM.
+extern "C" int tm_flash_bwd_dkv_tc_occupancy(int d, int* smem_bytes,
+                                             int* ctas_per_sm) {
+  switch (d) {
+    case 16:
+      return tc_occupancy<16>(smem_bytes, ctas_per_sm);
+    case 32:
+      return tc_occupancy<32>(smem_bytes, ctas_per_sm);
+    case 64:
+      return tc_occupancy<64>(smem_bytes, ctas_per_sm);
+    case 128:
+      return tc_occupancy<128>(smem_bytes, ctas_per_sm);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

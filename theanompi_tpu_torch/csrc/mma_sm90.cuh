@@ -1,0 +1,198 @@
+// Warp-level tensor-core building blocks of the port's bf16 kernels
+// (K1 forward, K2 dK/dV): the m16n8k16 bf16 product with an fp32
+// accumulator, ldmatrix (plain and transposed), cp.async with zero
+// fill, and the padded bf16 tile layout they share.
+//
+// Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4;
+// each 32-bit register holds two bf16, the lower column in the low
+// half):
+//   A 16x16 (row):  a0 (g, 2t..2t+1)   a1 (g+8, 2t..)
+//                   a2 (g, 2t+8..)     a3 (g+8, 2t+8..)
+//   B 16x8  (col):  b0 (k 2t..2t+1, n g)   b1 (k 2t+8.., n g)
+//   C 16x8  (f32):  c0, c1 (g, 2t..2t+1)   c2, c3 (g+8, 2t..2t+1)
+// Two neighbouring 16x8 accumulator tiles, rounded to bf16 pairwise,
+// are exactly one A fragment (`acc_to_a`), so a product's result feeds
+// the next product without leaving registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace tmt {
+
+// Tiles of bf16 rows D wide, each row padded by 8 elements (16 bytes):
+// the 8 row addresses of one ldmatrix phase then fall in 8 distinct
+// 16-byte bank groups for every D in {16, 32, 64, 128}, so ldmatrix is
+// free of bank conflicts, and every row starts 16-byte aligned for
+// cp.async.
+template <int D>
+struct Tile {
+  static constexpr int kStride = D + 8;  // elements per row in smem
+  static constexpr int kChunks = D / 8;  // 16-byte chunks per row
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// d += a * b on the tensor cores (bf16 operands, fp32 accumulator)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The A fragment of rows [0, 16) x columns [c0, c0 + 16) of a
+// row-major tile (row stride `stride` elements): ldmatrix_x4 with
+// matrices (rows 0-7 | 8-15) x (cols c0 | c0 + 8) in a0..a3 order.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int stride,
+                                       int c0, int lane) {
+  ldmatrix_x4(a, tile + (lane % 16) * stride + c0 + (lane / 16) * 8);
+}
+
+// B fragments of a product X * Y^T, where Y is a row-major tile whose
+// rows are the n dimension: rows [n0, n0 + 16) x k columns [k0, k0 +
+// 16) give b[0], b[1] (n tile n0) and b[2], b[3] (n tile n0 + 8).
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4],
+                                            const __nv_bfloat16* tile,
+                                            int stride, int n0, int k0,
+                                            int lane) {
+  ldmatrix_x4(b, tile + (n0 + lane % 8 + (lane / 16) * 8) * stride + k0 +
+                     ((lane / 8) % 2) * 8);
+}
+
+// B fragments of a product X * Y, where Y is a row-major tile whose
+// rows are the k dimension: k rows [k0, k0 + 16) x n columns [n0, n0 +
+// 16) give b[0], b[1] (n tile n0) and b[2], b[3] (n tile n0 + 8).
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
+                                            const __nv_bfloat16* tile,
+                                            int stride, int k0, int n0,
+                                            int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) *
+                                  stride + n0 + (lane / 16) * 8);
+}
+
+// 2^x on the special-function unit (relative error about 2^-22;
+// results below 2^-126 flush to 0, as a softmax weight may)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values as one bf16x2 register (round to nearest even), `lo`
+// in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// accumulator tiles n and n + 1 (16 x 16 in all) as an A fragment
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid (the
+// source address is then not read, but must still be a valid pointer)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [r0, r0 + R) of a [t, D] bf16 matrix into a padded tile by
+// cp.async, kThreads threads (this one is `tid`) taking 16-byte chunks
+// in turn; rows past t are zero-filled (their source clamped to row 0)
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int r0, int t, int tid) {
+  using L = Tile<D>;
+  for (int i = tid; i < R * L::kChunks; i += kThreads) {
+    const int r = i / L::kChunks, c = (i % L::kChunks) * 8;
+    const bool valid = r0 + r < t;
+    cp_async_16(dst + r * L::kStride + c,
+                src + (valid ? static_cast<size_t>(r0 + r) * D + c : 0),
+                valid);
+  }
+}
+
+// rows [0, R) of a padded smem tile to rows [r0, r0 + R) of a [t, D]
+// bf16 matrix, 16 bytes per store, kThreads threads (this one is
+// `tid`) in turn, rows past t skipped; the caller synchronises the
+// threads between writing the tile and this call
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* tile,
+                                           int r0, int t, int tid) {
+  using L = Tile<D>;
+  for (int i = tid; i < R * L::kChunks; i += kThreads) {
+    const int r = i / L::kChunks, c = (i % L::kChunks) * 8;
+    if (r0 + r < t)
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(tile + r * L::kStride + c);
+  }
+}
+
+// accumulator tile (rows g, g + 8; columns 2t, 2t + 1 of an n8 tile at
+// column c0) rounded to bf16 into rows [0, 16) of a padded smem tile
+template <int D>
+__device__ __forceinline__ void acc_to_smem(__nv_bfloat16* tile,
+                                            const float (&c)[4], int c0,
+                                            int lane) {
+  const int g = lane / 4, col = c0 + (lane % 4) * 2;
+  *reinterpret_cast<uint32_t*>(tile + g * Tile<D>::kStride + col) =
+      pack_bf16(c[0], c[1]);
+  *reinterpret_cast<uint32_t*>(tile + (g + 8) * Tile<D>::kStride + col) =
+      pack_bf16(c[2], c[3]);
+}
+
+}  // namespace tmt

@@ -20,10 +20,12 @@ Port of ``theanompi_tpu/ops/attention.py``.  Shapes follow
 
 Dispatch is by device: a CPU tensor gets the plain math, a CUDA tensor
 always gets the hand-written kernels ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` (or an error).  The kernels mask the ragged edge
-of T themselves, so unlike the TPU dispatch (whose block-divisibility
-rule sent ragged lengths to the dense path) every length runs through
-them.
+``csrc/flash_bwd.cu`` (or an error).  On the card the dtype picks the
+kernel, one per dtype: bf16 runs K1 and K2 on the tensor cores, fp32
+(and K3 in both dtypes) on the SIMT kernels.  The kernels mask the
+ragged edge of T themselves, so unlike the TPU dispatch (whose
+block-divisibility rule sent ragged lengths to the dense path) every
+length runs through them.
 """
 
 from __future__ import annotations
@@ -35,7 +37,15 @@ import torch
 NEG_INF = -1e30  # finite "-inf": keeps exp() NaN-free in masked blocks
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype csrc/ sends to the tensor-core kernels of K1 and K2
+TC_DTYPE = torch.bfloat16
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _check_tc_aligned(name, *ts):
+    """The tensor-core kernels copy rows 16 bytes at a time."""
+    if ts[0].dtype == TC_DTYPE and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name} needs 16-byte aligned bf16 inputs")
 
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
@@ -80,7 +90,8 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_fwd.cu`` on contiguous CUDA tensors
     q [B, H, Tq, D], k/v [B, H, Tk, D] (f32 or bf16).  Returns
     (o [B, H, Tq, D], lse [B, H, Tq] f32).  ``flash_fwd_cuda.launches``
-    counts its launches."""
+    counts its launches, ``.tc_launches`` those of the tensor-core
+    kernel (bf16)."""
     from theanompi_tpu_torch.kernels import _build
 
     if q.device.type != "cuda":
@@ -106,6 +117,11 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
         raise ValueError("flash_fwd_cuda needs contiguous q, k, v")
     if q.device != k.device or q.device != v.device:
         raise ValueError("flash_fwd_cuda: q, k, v on different devices")
+    _check_tc_aligned("flash_fwd_cuda", q, k, v)
+    if q.dtype == TC_DTYPE and not sm_scale > 0:
+        # the tensor-core kernel scales the row max, not each score
+        raise ValueError(f"flash_fwd_cuda needs sm_scale > 0 for bf16, "
+                         f"got {sm_scale}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     lib = _flash_lib()
@@ -118,10 +134,12 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
         )
     _build.check(lib, err, "flash_fwd")
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.tc_launches += int(q.dtype == TC_DTYPE)
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.tc_launches = 0
 
 
 def _flash_lib():
@@ -232,16 +250,20 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
                        sm_scale: float):
     """Launch K2 (``csrc/flash_bwd.cu``) on contiguous CUDA tensors:
     (dk, dv) [B, H, Tk, D] in the input dtype.  ``.launches`` counts
-    its launches."""
+    its launches, ``.tc_launches`` those of the tensor-core kernel
+    (bf16)."""
     _check_bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
+    _check_tc_aligned("flash_bwd_dkv_cuda", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_call("tm_flash_bwd_dkv", "flash_bwd_dkv", q, k, v, do, lse, delta,
               (dk, dv), causal, sm_scale)
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.tc_launches += int(q.dtype == TC_DTYPE)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.tc_launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
