@@ -8,11 +8,12 @@ ring attention passes them.  Inputs are made with numpy from a seed;
 fp32; atol 2e-5 (the frameworks sum in different orders; gradients of
 sum(o * g) with unit-normal g reach a few units).
 
-Last, the bf16 arithmetic of the tensor-core K1 and K2, emulated with
-torch ops on bf16 inputs (K1 rounds P to bf16 before P V, K2 rounds P
-and dS before dV = P^T dO and dK = dS^T Q), held to the fp32 plain
-versions and to the Pallas kernels in interpret mode within the
-tolerance the card's kernels are held to (atol = rtol = 1e-2)."""
+Last, the bf16 arithmetic of the tensor-core K1, K2 and K3, emulated
+with torch ops on bf16 inputs (K1 rounds P to bf16 before P V, K2 rounds
+P and dS before dV = P^T dO and dK = dS^T Q, K3 rounds dS before
+dQ = dS K), held to the fp32 plain versions and to the Pallas kernels in
+interpret mode within the tolerance the card's kernels are held to
+(atol = rtol = 1e-2)."""
 
 import jax
 import jax.numpy as jnp
@@ -223,6 +224,23 @@ def k2_tc_emulated(q, k, v, do, lse, delta, causal, sm_scale):
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def k3_tc_emulated(q, k, v, do, lse, delta, causal, sm_scale):
+    """K3's tensor-core arithmetic: P and dS in fp32 from bf16 operands,
+    dS rounded to bf16 before dQ = dS K (bf16 K, fp32 sums), dQ rounded
+    to bf16."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        t_q, t_k = q.shape[2], k.shape[2]
+        p = torch.where(port_attn.causal_mask(torch.arange(t_q),
+                                              torch.arange(t_k)), p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", rounded(ds), kf)
+    return dq.to(torch.bfloat16)
+
+
 def jax_bf16(x):
     return jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
 
@@ -275,3 +293,25 @@ def test_k2_bf16_p_ds_rounding_fits_the_card_tolerance(t, causal):
     close(dv.float(), dv_ref, "dv vs fp32 plain")
     close(dk.float(), want_dk.astype(jnp.float32), "dk vs Pallas")
     close(dv.float(), want_dv.astype(jnp.float32), "dv vs Pallas")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [15, 64, 65, 130])
+def test_k3_bf16_ds_rounding_fits_the_card_tolerance(t, causal):
+    """K3's rounding of dS to bf16 against ``flash_bwd_reference`` in
+    fp32 and the Pallas dQ kernel (bf16 inputs, fp32 dS times K cast to
+    fp32, interpret mode), on the residuals K1's emulation gives."""
+    q, k, v, do = bf16_inputs(400 + t + causal, 4, t)
+    scale = q.shape[-1] ** -0.5
+    o, lse = k1_tc_emulated(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = k3_tc_emulated(q, k, v, do, lse, delta, causal, scale)
+    dq_ref = port_attn.flash_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), lse, delta,
+        causal=causal)[0]
+    want_dq = jax_attn._flash_bwd_call(
+        jax_bf16(q), jax_bf16(k), jax_bf16(v), jax_bf16(do),
+        jnp.asarray(lse.numpy())[..., None],
+        jnp.asarray(delta.numpy())[..., None], causal, scale, t, t, True)[0]
+    close(dq.float(), dq_ref, "dq vs fp32 plain")
+    close(dq.float(), want_dq.astype(jnp.float32), "dq vs Pallas")

@@ -9,8 +9,8 @@ on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 Tolerances: the plain version is evaluated in fp32 on the same inputs;
 fp32 kernels differ from it by summation order (atol 1e-4), bf16
 kernels also by rounding the output to bf16 and, on the tensor-core
-route, P (K1, K2) and dS (K2) before their products (atol 1e-2, rtol
-1e-2)."""
+route, P (K1, K2, K4) and dS (K2, K3) before their products (atol
+1e-2, rtol 1e-2)."""
 
 import numpy as np
 import pytest
@@ -105,12 +105,13 @@ def test_flash_bwd_matches_reference(dev, dtype, causal, t, d):
     o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
     delta = (do.float() * o.float()).sum(-1)
     before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches,
-              flash_bwd_dkv_cuda.tc_launches)
+              flash_bwd_dkv_cuda.tc_launches, flash_bwd_dq_cuda.tc_launches)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    tc = int(dtype is torch.bfloat16)
     assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches,
-            flash_bwd_dkv_cuda.tc_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + (dtype is torch.bfloat16))
+            flash_bwd_dkv_cuda.tc_launches, flash_bwd_dq_cuda.tc_launches) \
+        == (before[0] + 1, before[1] + 1, before[2] + tc, before[3] + tc)
     want = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
                                lse, delta, causal=causal)
     for got, ref in zip((dq, dk, dv), want):
@@ -162,7 +163,7 @@ def test_flash_bwd_refuses_bad_inputs(dev):
         flash_bwd_cuda(z, x, x, x, r, r, True, 1.0)
 
 
-# the tensor-core K1 and K2 (bf16): T across their 64-row tiles (K2
+# the tensor-core K1, K2 and K3 (bf16): T across their 64-row tiles (K2
 # walks 32-row q tiles) and the serving length, every head dim
 TC_TS = (1, 15, 63, 64, 65, 127, 128, 129, 2047)
 TC_DS = (16, 32, 64, 128)
@@ -193,8 +194,11 @@ def test_tc_flash_fwd_bf16_matches_reference(dev, t, d, causal):
 @pytest.mark.parametrize("d", TC_DS)
 @pytest.mark.parametrize("t", TC_TS)
 def test_tc_flash_bwd_dkv_bf16_matches_reference(dev, t, d, causal):
+    """K2 (dK, dV) and K3 (dQ) on the tensor cores against the fp32
+    plain version, each launch on its tensor-core route."""
     from theanompi_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
         flash_bwd_reference,
         flash_fwd_cuda,
     )
@@ -204,22 +208,44 @@ def test_tc_flash_bwd_dkv_bf16_matches_reference(dev, t, d, causal):
                    .to(torch.bfloat16) for _ in range(4))
     o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
     delta = (do.float() * o.float()).sum(-1)
-    before = flash_bwd_dkv_cuda.tc_launches
+    before = flash_bwd_dkv_cuda.tc_launches, flash_bwd_dq_cuda.tc_launches
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
-    assert flash_bwd_dkv_cuda.tc_launches == before + 1
-    _, dk_ref, dv_ref = flash_bwd_reference(
-        q.float(), k.float(), v.float(), do.float(), lse, delta,
-        causal=causal)
-    torch.testing.assert_close(dk.float(), dk_ref, **TOL[torch.bfloat16])
-    torch.testing.assert_close(dv.float(), dv_ref, **TOL[torch.bfloat16])
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    assert (flash_bwd_dkv_cuda.tc_launches,
+            flash_bwd_dq_cuda.tc_launches) == (before[0] + 1, before[1] + 1)
+    refs = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
+                               lse, delta, causal=causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        torch.testing.assert_close(got.float(), ref, **TOL[torch.bfloat16])
+
+
+def test_tc_flash_bwd_dq_is_deterministic_at_the_training_length(dev):
+    """K3 on the tensor cores, causal at T = 2048, twice: bitwise the
+    same (each dQ tile has one owner, no atomics)."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn((1, 4, 2048, 128), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    a = flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, 128 ** -0.5)
+    b = flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, 128 ** -0.5)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("tq,tk", [(40, 100), (130, 65), (1, 129)])
 def test_tc_cross_lengths_full_attention(dev, tq, tk):
-    """bf16 full attention with Tq != Tk through both tensor-core
-    kernels; K2 twice, bitwise the same (one owner per output tile)."""
+    """bf16 full attention with Tq != Tk through the three tensor-core
+    kernels; K2 and K3 twice, bitwise the same (one owner per output
+    tile)."""
     from theanompi_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
         flash_bwd_reference,
         flash_fwd_cuda,
         mha_reference_fwd,
@@ -236,11 +262,12 @@ def test_tc_cross_lengths_full_attention(dev, tq, tk):
     torch.testing.assert_close(o.float(), o_ref, **TOL[torch.bfloat16])
     torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
     delta = (do.float() * o.float()).sum(-1)
-    a = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, 0.125)
-    b = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, 0.125)
+    args = (q, k, v, do, lse, delta, False, 0.125)
+    a = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    b = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
     want = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
                                lse, delta, causal=False, sm_scale=0.125)
-    for x, y, ref in zip(a, b, want[1:]):
+    for x, y, ref in zip(a, b, want):
         assert torch.equal(x, y)
         torch.testing.assert_close(x.float(), ref, **TOL[torch.bfloat16])
 
@@ -251,6 +278,7 @@ def test_tc_kernels_refuse_what_they_cannot_take(dev):
     sm_scale to the row max, so it must be positive."""
     from theanompi_tpu_torch.ops.attention import (
         flash_bwd_cuda,
+        flash_bwd_dq_cuda,
         flash_fwd_cuda,
     )
 
@@ -262,6 +290,8 @@ def test_tc_kernels_refuse_what_they_cannot_take(dev):
         flash_fwd_cuda(x, x, x, True, 1.0)
     with pytest.raises(ValueError, match="aligned"):
         flash_bwd_cuda(x, x, x, x, r, r, True, 1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_bwd_dq_cuda(x, x, x, x, r, r, True, 1.0)
     y = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="sm_scale > 0"):
         flash_fwd_cuda(y, y, y, True, -0.125)
@@ -296,11 +326,14 @@ def test_llama_training_on_the_card_matches_the_cpu(dev, tmp_path):
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
 
 
-def paged_inputs(dev, dtype, *, s, nq, hkv, rep, hd, bs, mb, seed):
+def paged_inputs(dev, dtype, *, s, nq, hkv, rep, hd, bs, mb, seed,
+                 pos=None):
     rng = np.random.default_rng(seed)
     n_blocks = s * mb + 3
-    pos = rng.integers(0, mb * bs, size=(s, nq)).astype(np.int32)
-    pos[0, 0] = bs - 1          # on a block edge
+    if pos is None:
+        pos = rng.integers(0, mb * bs, size=(s, nq)).astype(np.int32)
+        pos[0, 0] = bs - 1          # on a block edge
+    pos = np.asarray(pos, np.int32)
     perm = rng.permutation(n_blocks)
     tables = np.full((s, mb), n_blocks, np.int32)          # trash id
     used = 0
@@ -384,3 +417,65 @@ def test_paged_decoder_on_the_card_matches_the_cpu(dev):
         eng.run_until_idle()
         ids.append([f.result(timeout=0).tokens for f in futs])
     assert ids[0] == ids[1]
+
+
+def paged_check(dev, dtype, ctas=None, **shape):
+    """K4 on the inputs ``paged_inputs`` makes, against the gather path
+    evaluated in fp32; returns the inputs and the kernel's output."""
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+        paged_attend_reference,
+    )
+
+    args = paged_inputs(dev, dtype, **shape)
+    out = paged_attend_cuda(*args, ctas=ctas)
+    ref = paged_attend_reference(*(a.float() if a.is_floating_point() else a
+                                   for a in args))
+    torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+    return args, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_takes_a_16_row_8192_position_window(dev, dtype):
+    """16 query rows over Llama-3-8B's 8192 positions: the split kernel's
+    shared memory does not grow with the window."""
+    paged_check(dev, dtype, s=2, nq=4, hkv=2, rep=4, hd=128, bs=16, mb=512,
+                seed=5, pos=[[8191, 8190, 4000, 0], [8191, 8191, 8191, 8191]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_paged_attend_positions_on_split_edges(dev, dtype, bs):
+    """Rows whose last position is the last of a split, the first of the
+    next, one past it, and a window shorter than one split; the split
+    kernel's CTA counter sees every split launched and, per slot and kv
+    head, the splits up to the slot's last position live."""
+    from theanompi_tpu_torch.serving.paged_attention import split_len
+
+    n = split_len()
+    pos = [[n - 1, n, n + 1, 2 * n - 1], [2 * n, 2 * n + 1, 0, 1],
+           [5, 17, n - 2, 2], [3 * n - 1, 3 * n - 1, 3 * n - 1, 3 * n - 1]]
+    ctas = torch.zeros(2, dtype=torch.int32, device=dev)
+    paged_check(dev, dtype, ctas, s=4, nq=4, hkv=2, rep=2, hd=64, bs=bs,
+                mb=3 * n // bs, seed=bs, pos=pos)
+    live = sum(max(p) // n + 1 for p in pos) * 2
+    assert ctas.tolist() == [3 * 2 * 4, live]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_is_deterministic_and_batch_invariant(dev, dtype):
+    """Two runs agree bit for bit, and each slot's output of a batched
+    call equals that slot's call alone bit for bit (the splits depend
+    on positions only)."""
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+    )
+
+    (q, kp, vp, tables, pos), out = paged_check(
+        dev, dtype, s=5, nq=1, hkv=8, rep=4, hd=128, bs=16, mb=64, seed=9,
+        pos=[[1023], [0], [255], [256], [700]])
+    assert torch.equal(out, paged_attend_cuda(q, kp, vp, tables, pos))
+    for i in range(q.shape[0]):
+        alone = paged_attend_cuda(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                  pos[i:i + 1])
+        assert torch.equal(alone[0], out[i])

@@ -3,7 +3,14 @@ path, the plain version of kernel K4) against the JAX package's gather
 oracle and its Pallas kernel in interpret mode.  Covers the block-table
 hazards: positions on block edges, trash-padded tables, multi-row query
 windows (Q > 1) and the degenerate single-head shape.  fp32, atol 1e-5
-(the two frameworks sum in different orders)."""
+(the two frameworks sum in different orders).
+
+Last, the card's split-and-combine arithmetic (flash-decoding: per
+split an online softmax over tiles, for bf16 pools P rounded to bf16
+before P V, the splits merged in order), emulated with torch ops and
+held to the same two JAX references within the card's tolerances
+(atol = rtol = 1e-4 fp32, 1e-2 bf16): the split changes the softmax's
+association, so the emulation states how far that moves the result."""
 
 import numpy as np
 import pytest
@@ -12,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from theanompi_tpu.serving.paged_attention import paged_attend as jax_paged
+from theanompi_tpu_torch.ops.attention import NEG_INF
 from theanompi_tpu_torch.serving.paged_attention import (
     gather_blocks,
     paged_attend,
@@ -108,3 +116,133 @@ def test_jax_tables_dtype_is_accepted():
     args[3] = args[3].long()
     assert torch.equal(paged_attend(*args), a)
     assert jnp.int32 == case[3].dtype
+
+
+# -- the card's split-and-combine arithmetic (K4) ------------------------------
+
+SPLIT = 256            # positions per split (kSplit in csrc/paged_attend.cu)
+# (positions per tile, positions per warp and tile, warps): bf16 runs 4
+# warps of 16 positions on each 64-position tile; fp32 one softmax per
+# CTA over 32-position tiles
+WALK = {torch.bfloat16: (64, 16, 4), torch.float32: (32, 32, 1)}
+LOG2E = 1.4426950408889634
+CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def merge(states):
+    """(o, m, l) states merged in list order with exp2(m - M) weights."""
+    big = states[0][1]
+    for _, m, _ in states[1:]:
+        big = torch.maximum(big, m)
+    o = torch.zeros_like(states[0][0])
+    l = torch.zeros_like(states[0][2])
+    for oj, mj, lj in states:
+        w = torch.exp2(mj - big)
+        o = o + w[..., None] * oj
+        l = l + w * lj
+    return o, big, l
+
+
+def k4_emulated(q, kp, vp, tables, pos):
+    """K4's arithmetic on the card for q [S, Q, Hkv, rep, hd] and pools of
+    one dtype: scores in log2 units (scale*log2e) in fp32, masked entries'
+    P exactly 0; each split of SPLIT positions walks its tiles with an
+    online softmax per warp slice, rounding P to the pool dtype before
+    P V; the warps merge in order, then the splits; out = o / l in the
+    pool dtype."""
+    tile, width, warps = WALK[q.dtype]
+    t_pad = tables.shape[1] * kp.shape[2]
+    kg = gather_blocks(kp, tables).float()          # [S, Hkv, T, hd]
+    vg = gather_blocks(vp, tables).float()
+    x = torch.einsum("sjkrd,sktd->sjkrt", q.float(), kg) * (
+        torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=torch.float32))
+    valid = (torch.arange(t_pad)[None, None, :]
+             <= pos[:, :, None].long())[:, :, None, None, :]
+    x = torch.where(valid, x, NEG_INF)
+    splits = []
+    for t0 in range(0, t_pad, SPLIT):
+        states = []
+        for w in range(warps):
+            o = torch.zeros(q.shape)
+            m = torch.full(q.shape[:-1], NEG_INF)
+            l = torch.zeros(q.shape[:-1])
+            for a in range(t0 + w * width, min(t0 + SPLIT, t_pad), tile):
+                xs = x[..., a:a + width]
+                mx = torch.maximum(m, xs.amax(-1))
+                alpha = torch.exp2(m - mx)
+                p = torch.where(xs == NEG_INF, 0.0,
+                                torch.exp2(xs - mx[..., None]))
+                l = l * alpha + p.sum(-1)
+                pv = torch.einsum("sjkrt,sktd->sjkrd",
+                                  p.to(q.dtype).float(),
+                                  vg[:, :, a:a + width])
+                o = o * alpha[..., None] + pv
+                m = mx
+            states.append((o, m, l))
+        splits.append(merge(states))
+    o, _, l = merge(splits)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def assert_k4_parity(case, dtype):
+    """The emulation on ``case`` rounded to ``dtype`` against the JAX
+    gather oracle (fp32, on the rounded inputs) and the Pallas kernel in
+    interpret mode (in ``dtype``)."""
+    args = [torch.tensor(np.asarray(a)) for a in case]
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    got = k4_emulated(*args).float().numpy()
+    rounded = [jnp.asarray(a.float().numpy()) for a in args[:3]] + list(
+        case[3:])
+    jdt = jnp.bfloat16 if dtype is torch.bfloat16 else jnp.float32
+    oracle = np.asarray(gather_oracle(*rounded))
+    kernel = np.asarray(jax_paged(
+        *[a.astype(jdt) for a in rounded[:3]], *case[3:],
+        interpret=True).astype(jnp.float32))
+    for want in (oracle, kernel):
+        np.testing.assert_allclose(got, want, **CARD_TOL[dtype])
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k4_split_emulation_positions_on_split_edges(dtype):
+    """Rows ending on the last position of a split, the first of the
+    next, one past it, and in the last split of a 640-position window."""
+    pos = np.array([[SPLIT - 1, SPLIT], [SPLIT + 1, 2 * SPLIT - 1],
+                    [2 * SPLIT, 639]], np.int32)
+    case = make_case(np.random.default_rng(20), nq=2, hd=16, bs=16, mb=40,
+                     n_blocks=120, pos=pos)
+    assert_k4_parity(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k4_split_emulation_window_shorter_than_a_split(dtype):
+    assert_k4_parity(make_case(np.random.default_rng(21), hd=16), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k4_split_emulation_trash_padded_tables(dtype):
+    """Trash entries below a slot's largest position are walked and
+    masked; those past it are never read."""
+    bs, mb, n_blocks = 16, 24, 30
+    tables = np.full((3, mb), n_blocks, np.int64)     # trash id
+    tables[0, :1] = [0]
+    tables[1, :17] = np.arange(1, 18)
+    tables[2, :20] = np.arange(10, 30)
+    pos = np.array([[0, 3], [100, 270], [300, 319]], np.int32)
+    assert_k4_parity(make_case(np.random.default_rng(22), hd=16, bs=bs,
+                               mb=mb, n_blocks=n_blocks, tables=tables,
+                               pos=pos), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq,rep,hkv", [(1, 4, 2), (4, 4, 1), (3, 2, 2)])
+def test_k4_split_emulation_query_windows(dtype, nq, rep, hkv):
+    """Q = 1 decode at the 8B grouping and Q > 1 verify windows up to the
+    kernel's 16 rows, over windows that span several splits."""
+    case = make_case(np.random.default_rng(30 + nq * rep), nq=nq, rep=rep,
+                     hkv=hkv, hd=16, bs=16, mb=20, n_blocks=60)
+    assert_k4_parity(case, dtype)

@@ -55,14 +55,40 @@
 // version in fp32 is measured by chip_smoke.py and emulated on the CPU
 // by tests/test_torch_flash_bwd.py, both within atol = rtol = 1e-2.
 //
-// fp32: `flash_bwd_dkv_kernel<float, D>`, and K3 in both dtypes, on the
-// fp32 CUDA cores: operand tiles in fp32 in shared memory (rows padded
-// by one float so a half-warp reads 16 banks; 166 KB for K2 and 149 KB
-// for K3 at D = 128, so each launch raises the dynamic limit), a 16 x 16
-// thread grid of 256 threads each owning 4 rows x D/16 columns of its
-// accumulators.  The tensor cores' only fp32 input is TF32 (about three
-// decimal digits), which cannot meet the fp32 tolerance of 1e-4, so
-// fp32 K2 stays here.  K3's tensor-core redesign is still to come.
+// K3 has two routes the same way, chosen by dtype in `tm_flash_bwd_dq`:
+//
+// bf16: `flash_bwd_dq_tc_kernel`, K2's design with the roles of q and
+// kv swapped.  One CTA of 4 warps per (b*h, 64-row q tile), each warp
+// owning 16 q rows as the mma M dimension; causal q tiles launch in
+// reverse, so the longest kv walks start first.  Q and dO arrive once
+// by cp.async and their A fragments are re-read by ldmatrix on every
+// kv tile (cheaper in registers than holding them, as for K1); each
+// thread keeps lse and delta of its rows g and g + 8 in registers for
+// the whole walk.  The CTA walks kv tiles of kDqBK rows from 0 up to
+// the diagonal, K and V arriving by cp.async into a 2-stage ring with
+// one barrier per tile.  S = Q K^T and dP = dO V^T take their B
+// fragments from ldmatrix of the K and V tiles; P = exp2(S*scale*log2e
+// - lse*log2e) and dS = P*(dP - delta)*scale come out in the
+// accumulator layout, masked only on tiles that cross the diagonal or
+// the end of the keys; dS is rounded to bf16 in registers and is
+// directly the A operand of dQ += dS K, whose B fragments come from
+// ldmatrix.trans of the same K tile.  No P or dS tile goes through
+// shared memory, and no barrier other than the ring's.  dQ (16 rows x D
+// per warp, 64 fp32 registers a thread at D = 128, beside 32 each for S
+// and dP) leaves through the warp's own Q rows in shared memory, 16
+// bytes a store.  Numerics: dQ += dS K takes bf16 dS and bf16 K, where
+// the TPU kernel multiplies fp32 dS by K cast to fp32
+// (attention.py:320-328); the CPU emulation of that rounding is in
+// tests/test_torch_flash_bwd.py, within atol = rtol = 1e-2.
+//
+// fp32: `flash_bwd_dkv_kernel<float, D>` and `flash_bwd_dq_kernel<float,
+// D>`, on the fp32 CUDA cores: operand tiles in fp32 in shared memory
+// (rows padded by one float so a half-warp reads 16 banks; 166 KB for K2
+// and 149 KB for K3 at D = 128, so each launch raises the dynamic
+// limit), a 16 x 16 thread grid of 256 threads each owning 4 rows x
+// D/16 columns of its accumulators.  The tensor cores' only fp32 input
+// is TF32 (about three decimal digits), which cannot meet the fp32
+// tolerance of 1e-4, so fp32 K2 and K3 stay here.
 #include "common.cuh"
 #include "mma_sm90.cuh"
 
@@ -488,6 +514,169 @@ __global__ void __launch_bounds__(kTcThreads)
   tmt::store_tile<D, 16, 32>(dv + kbase, sdV, wk0, tk, lane);
 }
 
+// -- K3, bf16: the tensor-core kernel -------------------------------------
+
+constexpr int kDqWarps = 4;                // each owns 16 q rows
+constexpr int kDqBQ = 16 * kDqWarps;       // q rows per CTA
+constexpr int kDqBK = 64;                  // kv rows per tile
+constexpr int kDqStages = 2;               // K/V tiles in the ring
+constexpr int kDqThreads = 32 * kDqWarps;
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {  // Q, dO, then the ring of K and V
+  return sizeof(bf16) * tmt::Tile<D>::kStride *
+         (2 * kDqBQ + 2 * kDqStages * kDqBK);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
+    flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int tq, int tk,
+                           float sm_scale, float scale_log2, int causal) {
+  using tmt::Tile;
+  constexpr int S = Tile<D>::kStride;
+  constexpr int NK = kDqBK / 8;  // accumulator tiles across a kv tile
+  constexpr int ND = D / 8;      // accumulator tiles across D
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // [kDqBQ][S]
+  bf16* sO = sQ + kDqBQ * S;                    // [kDqBQ][S]: dO
+  bf16* sK = sO + kDqBQ * S;                    // [kDqStages][kDqBK][S]
+  bf16* sV = sK + kDqStages * kDqBK * S;        // [kDqStages][kDqBK][S]
+
+  const int bh = blockIdx.y;
+  // causal: the q tiles with the most kv tiles launch first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kDqBQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wq0 = q0 + warp * 16;  // this warp's first q row
+  const bf16* sQw = sQ + warp * 16 * S;
+  const bf16* sOw = sO + warp * 16 * S;
+  const size_t qbase = static_cast<size_t>(bh) * tq * D;
+  const bf16* kg = k + static_cast<size_t>(bh) * tk * D;
+  const bf16* vg = v + static_cast<size_t>(bh) * tk * D;
+
+  // lse*log2(e) and delta of rows wq0 + g (index 0) and wq0 + g + 8
+  // (index 1); rows past tq get 0, and their Q and dO rows are zeros, so
+  // their dS is 0 and they are never stored
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wq0 + g + 8 * i;
+    const size_t at = static_cast<size_t>(bh) * tq + r;
+    lse2[i] = r < tq ? lse[at] * kLog2e : 0.f;
+    dlt[i] = r < tq ? delta[at] : 0.f;
+  }
+
+  // causal: kv tiles wholly above the diagonal hold no key these rows see
+  const int k_end = causal ? min(tk, q0 + kDqBQ) : tk;
+  const int n_tiles = (k_end + kDqBK - 1) / kDqBK;
+
+  // kv tile j into stage j % kDqStages, as one cp.async group (empty
+  // past the last tile, so group j always holds tile j)
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      const int st = j % kDqStages;
+      tmt::load_tile_async<D, kDqBK, kDqThreads>(sK + st * kDqBK * S, kg,
+                                                 j * kDqBK, tk, tid);
+      tmt::load_tile_async<D, kDqBK, kDqThreads>(sV + st * kDqBK * S, vg,
+                                                 j * kDqBK, tk, tid);
+    }
+    tmt::cp_async_commit();
+  };
+  tmt::load_tile_async<D, kDqBQ, kDqThreads>(sQ, q + qbase, q0, tq, tid);
+  tmt::load_tile_async<D, kDqBQ, kDqThreads>(sO, dout + qbase, q0, tq, tid);
+  for (int j = 0; j < kDqStages - 1; ++j) load_kv(j);  // Q, dO join group 0
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kDqBK;
+    // tile j (and, first time, Q and dO) has landed, for every thread;
+    // and every warp is done with tile j - 1, whose stage the copy
+    // started next refills while this tile is computed on
+    tmt::cp_async_wait<kDqStages - 2>();
+    __syncthreads();
+    load_kv(j + kDqStages - 1);
+    // causal: a kv tile whose keys all follow this warp's rows is skipped
+    if (causal && k0 > wq0 + 15) continue;
+    const bf16* sKj = sK + (j % kDqStages) * kDqBK * S;
+    const bf16* sVj = sV + (j % kDqStages) * kDqBK * S;
+
+    // S = Q K^T and dP = dO V^T: rows q, columns kv
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      tmt::load_a(qa, sQw, S, kk * 16, lane);
+      tmt::load_a(oa, sOw, S, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        tmt::load_b_rows(b, sKj, S, np * 16, kk * 16, lane);
+        tmt::mma_bf16(s[2 * np], qa, b[0], b[1]);
+        tmt::mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
+        tmt::load_b_rows(b, sVj, S, np * 16, kk * 16, lane);
+        tmt::mma_bf16(dp[2 * np], oa, b[0], b[1]);
+        tmt::mma_bf16(dp[2 * np + 1], oa, b[2], b[3]);
+      }
+    }
+
+    // P and dS in place (dS into dp); masks only where the tile crosses
+    // the diagonal or the end of the keys
+    const bool edge = (causal && k0 + kDqBK - 1 > wq0) || k0 + kDqBK > tk;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = tmt::exp2_approx(fmaf(s[n][e], scale_log2, -lse2[i]));
+        if (edge) {
+          const int col = k0 + n * 8 + t4 * 2 + (e & 1);
+          const int row = wq0 + g + 8 * i;
+          if (col >= tk || (causal && col > row)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dlt[i]) * sm_scale;
+      }
+
+    // dQ += dS K, dS (bf16) straight from the accumulators
+#pragma unroll
+    for (int kk = 0; kk < kDqBK / 16; ++kk) {
+      uint32_t da[4];
+      tmt::acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        tmt::load_b_cols(b, sKj, S, kk * 16, dn * 16, lane);
+        tmt::mma_bf16(acc[2 * dn], da, b[0], b[1]);
+        tmt::mma_bf16(acc[2 * dn + 1], da, b[2], b[3]);
+      }
+    }
+  }
+  tmt::cp_async_wait<0>();  // no copy is left in flight at exit
+
+  // dQ leaves through the warp's own Q rows (no other warp reads them),
+  // 16 bytes a store
+  bf16* sdQ = sQ + warp * 16 * S;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < ND; ++n) tmt::acc_to_smem<D>(sdQ, acc[n], n * 8, lane);
+  __syncwarp();
+  tmt::store_tile<D, 16, 32>(dq + qbase, sdQ, wq0, tq, lane);
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -532,66 +721,98 @@ cudaError_t launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// The tensor-core kernel's dynamic shared memory at head dim D and how
-// many of its CTAs the runtime fits on one SM.
-template <int D>
-cudaError_t tc_occupancy(int* smem_bytes, int* ctas_per_sm) {
-  constexpr size_t smem = tc_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+// A kernel's dynamic shared memory and how many of its CTAs the
+// runtime fits on one SM.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t smem,
+                      int* smem_bytes, int* ctas_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *smem_bytes = static_cast<int>(smem);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
-                                                       kTcThreads, smem);
+                                                       threads, smem);
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
+template <int D>
+cudaError_t launch_dq_simt(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.tq + kB - 1) / kB, a.bh);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.tq, a.tk, a.sm_scale, a.causal);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.tq, a.tk, a.sm_scale,
+      a.causal);
   return cudaGetLastError();
 }
 
-// K2: bf16 on the tensor cores, f32 on the SIMT kernel
-cudaError_t dispatch_dkv(const Args& a, int d, int dtype) {
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  constexpr size_t smem = dq_tc_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tq + kDqBQ - 1) / kDqBQ, a.bh);
+  kernel<<<grid, kDqThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      a.lse, a.delta, static_cast<bf16*>(a.dq), a.tq, a.tk, a.sm_scale,
+      a.sm_scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+// K2 and K3: bf16 on the tensor cores, f32 on the SIMT kernels
+template <bool kDq>
+cudaError_t dispatch(const Args& a, int d, int dtype) {
   const bool tc = dtype == tmt::kBF16;
   if (!tc && dtype != tmt::kF32) return cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return tc ? launch_dkv_tc<16>(a) : launch_dkv_simt<16>(a);
+      return kDq ? (tc ? launch_dq_tc<16>(a) : launch_dq_simt<16>(a))
+                 : (tc ? launch_dkv_tc<16>(a) : launch_dkv_simt<16>(a));
     case 32:
-      return tc ? launch_dkv_tc<32>(a) : launch_dkv_simt<32>(a);
+      return kDq ? (tc ? launch_dq_tc<32>(a) : launch_dq_simt<32>(a))
+                 : (tc ? launch_dkv_tc<32>(a) : launch_dkv_simt<32>(a));
     case 64:
-      return tc ? launch_dkv_tc<64>(a) : launch_dkv_simt<64>(a);
+      return kDq ? (tc ? launch_dq_tc<64>(a) : launch_dq_simt<64>(a))
+                 : (tc ? launch_dkv_tc<64>(a) : launch_dkv_simt<64>(a));
     case 128:
-      return tc ? launch_dkv_tc<128>(a) : launch_dkv_simt<128>(a);
+      return kDq ? (tc ? launch_dq_tc<128>(a) : launch_dq_simt<128>(a))
+                 : (tc ? launch_dkv_tc<128>(a) : launch_dkv_simt<128>(a));
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_dq_d(const Args& a, int d) {
+// the tensor-core kernel of K2 (kDq false) or K3 at head dim D
+template <bool kDq, int D>
+cudaError_t tc_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  if constexpr (kDq)
+    return occupancy(flash_bwd_dq_tc_kernel<D>, kDqThreads,
+                     dq_tc_smem_bytes<D>(), smem_bytes, ctas_per_sm);
+  return occupancy(flash_bwd_dkv_tc_kernel<D>, kTcThreads, tc_smem_bytes<D>(),
+                   smem_bytes, ctas_per_sm);
+}
+
+template <bool kDq>
+cudaError_t tc_occupancy_d(int d, int* smem_bytes, int* ctas_per_sm) {
   switch (d) {
     case 16:
-      return launch_dq<T, 16>(a);
+      return tc_occupancy<kDq, 16>(smem_bytes, ctas_per_sm);
     case 32:
-      return launch_dq<T, 32>(a);
+      return tc_occupancy<kDq, 32>(smem_bytes, ctas_per_sm);
     case 64:
-      return launch_dq<T, 64>(a);
+      return tc_occupancy<kDq, 64>(smem_bytes, ctas_per_sm);
     case 128:
-      return launch_dq<T, 128>(a);
+      return tc_occupancy<kDq, 128>(smem_bytes, ctas_per_sm);
     default:
       return cudaErrorInvalidValue;
   }
@@ -611,10 +832,11 @@ extern "C" int tm_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), nullptr, dk, dv, bh, tq,
                tk, sm_scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch_dkv(a, d, dtype);
+  return dispatch<false>(a, d, dtype);
 }
 
-// As tm_flash_bwd_dkv, writing dq [bh, tq, d]: launches K3.
+// As tm_flash_bwd_dkv, writing dq [bh, tq, d]: launches K3 (bf16: the
+// tensor-core kernel, f32: the SIMT one).
 extern "C" int tm_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int bh, int tq,
@@ -623,25 +845,18 @@ extern "C" int tm_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, nullptr, bh,
                tq, tk, sm_scale, causal, static_cast<cudaStream_t>(stream)};
-  if (dtype == tmt::kF32) return dispatch_dq_d<float>(a, d);
-  if (dtype == tmt::kBF16) return dispatch_dq_d<__nv_bfloat16>(a, d);
-  return cudaErrorInvalidValue;
+  return dispatch<true>(a, d, dtype);
 }
 
 // The K2 tensor-core kernel's dynamic shared memory at head dim d and
 // how many of its CTAs fit on one SM.
 extern "C" int tm_flash_bwd_dkv_tc_occupancy(int d, int* smem_bytes,
                                              int* ctas_per_sm) {
-  switch (d) {
-    case 16:
-      return tc_occupancy<16>(smem_bytes, ctas_per_sm);
-    case 32:
-      return tc_occupancy<32>(smem_bytes, ctas_per_sm);
-    case 64:
-      return tc_occupancy<64>(smem_bytes, ctas_per_sm);
-    case 128:
-      return tc_occupancy<128>(smem_bytes, ctas_per_sm);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return tc_occupancy_d<false>(d, smem_bytes, ctas_per_sm);
+}
+
+// The same for the K3 tensor-core kernel.
+extern "C" int tm_flash_bwd_dq_tc_occupancy(int d, int* smem_bytes,
+                                            int* ctas_per_sm) {
+  return tc_occupancy_d<true>(d, smem_bytes, ctas_per_sm);
 }

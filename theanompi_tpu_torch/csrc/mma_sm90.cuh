@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks of the port's bf16 kernels
-// (K1 forward, K2 dK/dV): the m16n8k16 bf16 product with an fp32
-// accumulator, ldmatrix (plain and transposed), cp.async with zero
-// fill, and the padded bf16 tile layout they share.
+// (K1 forward, K2 dK/dV, K3 dQ, K4 paged attention): the m16n8k16 bf16
+// product with an fp32 accumulator, ldmatrix (plain and transposed),
+// cp.async with zero fill (contiguous rows, or rows through a block
+// table), and the padded bf16 tile layout they share.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4;
 // each 32-bit register holds two bf16, the lower column in the low
@@ -162,6 +163,31 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
     cp_async_16(dst + r * L::kStride + c,
                 src + (valid ? static_cast<size_t>(r0 + r) * D + c : 0),
                 valid);
+  }
+}
+
+// rows [t0, t0 + R) of a paged [T, D] matrix (bf16 or fp32) into a
+// tile of row stride `stride` elements by cp.async, 16 bytes a copy,
+// kThreads threads (this one is `tid`) in turn.  Row t is row t % bs of
+// block table[t / bs - b0], and block b starts at base + b *
+// block_stride, so a block's rows are contiguous but blocks lie
+// anywhere (K4's pools, any bs); rows at or past t_end are zero-filled
+// (their source clamped to base)
+template <typename T, int D, int R, int kThreads>
+__device__ __forceinline__ void load_paged_tile_async(
+    T* dst, int stride, const T* base, size_t block_stride,
+    const int* table, int b0, int bs, int t0, int t_end, int tid) {
+  constexpr int kPer = 16 / sizeof(T);  // elements per copy
+  constexpr int kChunks = D / kPer;     // copies per row
+  for (int i = tid; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    const int t = t0 + r;
+    const bool valid = t < t_end;
+    const T* src = base;
+    if (valid)
+      src += table[t / bs - b0] * block_stride +
+             static_cast<size_t>(t % bs) * D + c;
+    cp_async_16(dst + r * stride + c, src, valid);
   }
 }
 

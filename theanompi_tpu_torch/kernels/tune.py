@@ -1,21 +1,27 @@
-"""Time variants of the tensor-core kernels' tile constants on a card.
+"""Time variants of the hand-written kernels' tile constants on a card.
 
     python3 -m theanompi_tpu_torch.kernels.tune fwd fwd:kTcBK=32 \\
-        fwd:kTcWarps=8 bwd bwd:kTcBQ=64
+        bwd bwd:kDqBK=32 paged paged:kSplit=128,kStages=2
 
 Each argument names a source (``fwd``: K1 in ``csrc/flash_fwd.cu``,
-``bwd``: K2 in ``csrc/flash_bwd.cu``) and, after a colon, comma-joined
+``bwd``: K2 and K3 in ``csrc/flash_bwd.cu``, ``paged``: K4 in
+``csrc/paged_attend.cu``) and, after a colon, comma-joined
 ``NAME=VALUE`` substitutions of its ``constexpr int NAME = ...;``
 lines; a bare name is the source as it stands.  Every variant is
 compiled as ``_build`` compiles (all at once, into
-``build/theanompi_tpu_torch/tune/``), its ptxas registers and spills at
-D = 128 printed, its bf16 results checked against the plain version in
-fp32 at six shapes (worst error as a fraction of atol = rtol = 1e-2;
-K2 also bitwise across two runs), and it is timed (median of 20
+``build/theanompi_tpu_torch/tune/``), and its ptxas registers and
+spills of the tensor-core kernels at D = 128 are printed.  fwd and bwd
+variants: bf16 results checked against the plain version in fp32 at
+six shapes (worst error as a fraction of atol = rtol = 1e-2; K2 and K3
+also bitwise across two runs), each kernel timed (median of 20
 launches, cold L2, CUDA events) at the training shape [2, 32, 2048,
 128] and the serving shape [1, 32, 2047, 128], causal, in two passes
-(in order, then reversed).  SDPA's forward and backward at the
-training shape are timed last as the yardstick.  Needs a CUDA card.
+(in order, then reversed), SDPA's forward and backward at the training
+shape last as the yardstick.  paged variants: both dtypes checked
+against the gather path (tolerance 1e-4 fp32, 1e-2 bf16; bitwise
+across two runs), bf16 timed the same way at the decode shape (S=8,
+Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and the 16-row verify shape
+(Q=4).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import sys
 
 from theanompi_tpu_torch.kernels import _build
 
-SOURCES = {"fwd": "flash_fwd", "bwd": "flash_bwd"}
+SOURCES = {"fwd": "flash_fwd", "bwd": "flash_bwd", "paged": "paged_attend"}
 SHAPES = (((2, 32, 2048, 128), True), ((1, 32, 2047, 128), True),
           ((1, 3, 129, 128), True), ((1, 3, 65, 64), False),
           ((1, 3, 15, 16), True), ((1, 3, 333, 32), False))
@@ -67,33 +73,60 @@ def build_variants(variants) -> dict:
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         for blk in log.split("Compiling entry function '")[1:]:
-            if "_tc_kernelILi128E" in blk.split("'", 1)[0]:
+            kernel = re.search(r"(\w+_tc_kernel)ILi128E",
+                               blk.split("'", 1)[0])
+            if kernel:
                 regs = re.search(r"Used (\d+) registers", blk).group(1)
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                   r"spill loads", blk).groups()
-                print(f"{name}: D=128 {regs} registers, spill stores/loads "
-                      f"{spill[0]}/{spill[1]} bytes", flush=True)
+                print(f"{name}: {kernel.group(1)} D=128 {regs} registers, "
+                      f"spill stores/loads {spill[0]}/{spill[1]} bytes",
+                      flush=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
-def main(argv=None) -> int:
+def time_ms(fn, flush, reps=20):
+    """Median device ms of ``fn()`` over ``reps`` launches after 3
+    warm-up calls, each alone with a cold L2 (``flush`` overwritten
+    first, which also keeps the device busy while the host enqueues
+    ``fn``, so the timed window holds device time only)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    ts = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts)
+
+
+def frac(got, ref, tol=1e-2):
+    """Worst |got - ref| as a fraction of atol + rtol * |ref| (both
+    ``tol``)."""
+    return ((got.float() - ref).abs() / (tol + tol * ref.abs())).max().item()
+
+
+def tune_flash(libs, kinds, dev, flush) -> None:
+    """Check and time the fwd (K1) and bwd (K2 and K3) variants."""
     import torch
     import torch.nn.functional as F
 
     from theanompi_tpu_torch.ops import attention as A
 
-    variants = [parse(a) for a in (argv or sys.argv[1:])]
-    if not variants or not torch.cuda.is_available():
-        raise SystemExit(__doc__)
-    libs = build_variants(variants)
-    kinds = {name: kind for name, kind, _ in variants}
-    dev = torch.device("cuda", 0)
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-    def call(name, q, k, v, do, lse, delta, causal):
+    def call(name, q, k, v, do, lse, delta, causal, fn_name=None):
         """The variant's kernel on bf16 [B, H, T, D] inputs: (o, lse)
-        for K1, (dk, dv) for K2."""
+        for K1, (dk, dv) for K2 (``tm_flash_bwd_dkv``), (dq,) for K3
+        (``tm_flash_bwd_dq``)."""
         b, h, t, d = q.shape
         stream = torch.cuda.current_stream().cuda_stream
         if kinds[name] == "fwd":
@@ -101,8 +134,11 @@ def main(argv=None) -> int:
                     torch.empty((b, h, t), device=dev))
             fn, ins = libs[name].tm_flash_fwd, (q, k, v)
         else:
-            outs = (torch.empty_like(k), torch.empty_like(v))
-            fn, ins = libs[name].tm_flash_bwd_dkv, (q, k, v, do, lse, delta)
+            dq = fn_name == "tm_flash_bwd_dq"
+            outs = ((torch.empty_like(q),) if dq else
+                    (torch.empty_like(k), torch.empty_like(v)))
+            fn, ins = (getattr(libs[name], fn_name),
+                       (q, k, v, do, lse, delta))
         ptrs = [x.data_ptr() for x in (*ins, *outs)]
         fn.argtypes = [p_] * len(ptrs) + [i_] * 4 + [f_, i_, i_, p_]
         err = fn(*ptrs, b * h, t, k.shape[2], d, d ** -0.5, int(causal),
@@ -110,27 +146,6 @@ def main(argv=None) -> int:
         if err:
             raise RuntimeError(f"{name}: CUDA error {err}")
         return outs
-
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-
-    def time_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        ts = []
-        for _ in range(reps):
-            flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            ts.append(s.elapsed_time(e))
-        return statistics.median(ts)
-
-    def frac(got, ref):
-        return ((got.float() - ref).abs()
-                / (1e-2 + 1e-2 * ref.abs())).max().item()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = []
@@ -142,39 +157,134 @@ def main(argv=None) -> int:
         delta = (do.float() * o).sum(-1)
         ref = A.flash_bwd_reference(q.float(), k.float(), v.float(),
                                     do.float(), lse, delta, causal=causal)
-        cases.append(((q, k, v, do, lse, delta, causal), (o, lse),
-                      ref[1:]))
-    for name in libs:
+        cases.append(((q, k, v, do, lse, delta, causal), (o, lse), ref))
+    # (variant, entry point): K2 and K3 of a bwd variant are timed apart
+    runs = [(name, fn) for name in libs
+            for fn in ((None,) if kinds[name] == "fwd" else
+                       ("tm_flash_bwd_dkv", "tm_flash_bwd_dq"))]
+    for name, fn in runs:
         worst = 0.0
-        for args, (o, lse), (dk, dv) in cases:
-            got = call(name, *args)
+        for args, (o, lse), (dq, dk, dv) in cases:
+            got = call(name, *args, fn_name=fn)
             if kinds[name] == "fwd":
                 worst = max(worst, frac(got[0], o),
                             (got[1] - lse).abs().max().item() / 1e-4)
-            else:
-                again = call(name, *args)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError(f"{name}: two runs differ")
-                worst = max(worst, frac(got[0], dk), frac(got[1], dv))
+                continue
+            again = call(name, *args, fn_name=fn)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} {fn}: two runs differ")
+            want = (dq,) if fn == "tm_flash_bwd_dq" else (dk, dv)
+            worst = max([worst] + [frac(a, b) for a, b in zip(got, want)])
+        print(f"{name} {fn or ''}: worst error / tolerance {worst:.3f}",
+              flush=True)
+    times = {run: [] for run in runs}
+    for order in (runs, runs[::-1]):
+        for name, fn in order:
+            for args, _, _ in cases[:2]:
+                times[name, fn].append(time_ms(
+                    lambda: call(name, *args, fn_name=fn), flush))
+    for (name, fn), ts in times.items():
+        print(f"{name} {fn or ''}: ms at the training shape {ts[0]:.4f}, "
+              f"{ts[2]:.4f}; at the serving shape {ts[1]:.4f}, {ts[3]:.4f} "
+              f"(passes 1, 2)")
+    q, k, v, do = cases[0][0][:4]
+    fwd_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        flush)
+    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), do,
+                                                 retain_graph=True), flush)
+    print(f"sdpa at the training shape: forward {fwd_ms:.4f} ms, backward "
+          f"(dq, dk, dv) {bwd_ms:.4f} ms")
+
+
+def paged_inputs(dev, dtype, gen, nq, *, s=8, hkv=8, rep=4, hd=128, bs=16,
+                 mb=128):
+    """Serving-shaped K4 inputs: each slot's last position drawn in [0,
+    mb*bs) from a seed, its nq query rows at the nq positions ending
+    there, its table holding distinct blocks up to it and the trash id
+    past it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    last = rng.integers(nq - 1, mb * bs, size=s)
+    pos = np.stack([last - nq + 1 + j for j in range(nq)], 1)
+    tables = np.full((s, mb), s * mb, np.int32)      # trash id
+    perm, used = rng.permutation(s * mb), 0
+    for i in range(s):
+        n = int(last[i]) // bs + 1
+        tables[i, :n] = perm[used:used + n]
+        used += n
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return (rnd(s, nq, hkv, rep, hd), rnd(s * mb + 1, hkv, bs, hd),
+            rnd(s * mb + 1, hkv, bs, hd),
+            torch.as_tensor(tables, device=dev),
+            torch.as_tensor(pos.astype(np.int32), device=dev))
+
+
+def tune_paged(libs, dev, flush) -> None:
+    """Check the paged (K4) variants in both dtypes against the gather
+    path (bitwise across two runs too) and time them in bf16 at the
+    decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and
+    the 16-row verify shape (Q=4)."""
+    import torch
+
+    from theanompi_tpu_torch.serving.paged_attention import (
+        launch_with,
+        paged_attend_reference,
+    )
+
+    def call(name, *args):
+        return launch_with(libs[name], *args)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {(dtype, nq): paged_inputs(dev, dtype, gen, nq)
+             for dtype in (torch.float32, torch.bfloat16) for nq in (1, 4)}
+    for name in libs:
+        worst = 0.0
+        for (dtype, _), args in cases.items():
+            ref = paged_attend_reference(*(a.float() if a.is_floating_point()
+                                           else a for a in args))
+            got = call(name, *args)
+            if not torch.equal(got, call(name, *args)):
+                raise AssertionError(f"{name}: two runs differ")
+            tol = 1e-2 if dtype is torch.bfloat16 else 1e-4
+            worst = max(worst, frac(got, ref, tol))
         print(f"{name}: worst error / tolerance {worst:.3f}", flush=True)
     times = {name: [] for name in libs}
     for order in (list(libs), list(libs)[::-1]):
         for name in order:
-            for args, _, _ in cases[:2]:
-                times[name].append(time_ms(lambda: call(name, *args)))
+            for nq in (1, 4):
+                args = cases[torch.bfloat16, nq]
+                times[name].append(time_ms(lambda: call(name, *args), flush))
     for name, ts in times.items():
-        print(f"{name}: ms at the training shape {ts[0]:.4f}, {ts[2]:.4f}"
-              f"; at the serving shape {ts[1]:.4f}, {ts[3]:.4f} (passes 1, "
-              f"2)")
-    q, k, v, do = cases[0][0][:4]
-    fwd_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), do,
-                                                 retain_graph=True))
-    print(f"sdpa at the training shape: forward {fwd_ms:.4f} ms, backward "
-          f"(dq, dk, dv) {bwd_ms:.4f} ms")
+        print(f"{name}: bf16 ms at the decode shape {ts[0]:.4f}, {ts[2]:.4f}"
+              f"; at the 16-row verify shape {ts[1]:.4f}, {ts[3]:.4f} "
+              f"(passes 1, 2)")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    variants = [parse(a) for a in (argv or sys.argv[1:])]
+    if not variants or not torch.cuda.is_available():
+        raise SystemExit(__doc__)
+    libs = build_variants(variants)
+    kinds = {name: kind for name, kind, _ in variants}
+    dev = torch.device("cuda", 0)
+    # 1 GiB: overwriting it outlasts the host's enqueueing of a call
+    flush = torch.empty(256 * 2**20, dtype=torch.int32, device=dev)
+    flash = {n: lib for n, lib in libs.items() if kinds[n] != "paged"}
+    paged = {n: lib for n, lib in libs.items() if kinds[n] == "paged"}
+    if flash:
+        tune_flash(flash, kinds, dev, flush)
+    if paged:
+        tune_paged(paged, dev, flush)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

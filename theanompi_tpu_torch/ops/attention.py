@@ -21,8 +21,8 @@ Port of ``theanompi_tpu/ops/attention.py``.  Shapes follow
 Dispatch is by device: a CPU tensor gets the plain math, a CUDA tensor
 always gets the hand-written kernels ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` (or an error).  On the card the dtype picks the
-kernel, one per dtype: bf16 runs K1 and K2 on the tensor cores, fp32
-(and K3 in both dtypes) on the SIMT kernels.  The kernels mask the
+kernel, one per dtype: bf16 runs K1, K2 and K3 on the tensor cores,
+fp32 on the SIMT kernels.  The kernels mask the
 ragged edge of T themselves, so unlike the TPU dispatch (whose
 block-divisibility rule sent ragged lengths to the dense path) every
 length runs through them.
@@ -37,7 +37,7 @@ import torch
 NEG_INF = -1e30  # finite "-inf": keeps exp() NaN-free in masked blocks
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the dtype csrc/ sends to the tensor-core kernels of K1 and K2
+# the dtype csrc/ sends to the tensor-core kernels of K1, K2 and K3
 TC_DTYPE = torch.bfloat16
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -270,16 +270,20 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
                       sm_scale: float):
     """Launch K3 (``csrc/flash_bwd.cu``) on contiguous CUDA tensors:
     dq [B, H, Tq, D] in the input dtype.  ``.launches`` counts its
-    launches."""
+    launches, ``.tc_launches`` those of the tensor-core kernel
+    (bf16)."""
     _check_bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
+    _check_tc_aligned("flash_bwd_dq_cuda", q, k, v, do)
     dq = torch.empty_like(q)
     _bwd_call("tm_flash_bwd_dq", "flash_bwd_dq", q, k, v, do, lse, delta,
               (dq,), causal, sm_scale)
     flash_bwd_dq_cuda.launches += 1
+    flash_bwd_dq_cuda.tc_launches += int(q.dtype == TC_DTYPE)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.tc_launches = 0
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):

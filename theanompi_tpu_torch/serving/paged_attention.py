@@ -14,8 +14,10 @@ Port of ``theanompi_tpu/serving/paged_attention.py``.  Shapes:
 slot's blocks into a contiguous ``[S, Hkv, MB*bs, hd]`` window, then
 masked softmax attention.  ``paged_attend`` dispatches by device: CPU
 tensors take the reference, CUDA tensors launch the hand-written
-kernel ``csrc/paged_attend.cu``, which streams the blocks from the
-pools and never builds the gathered window.
+kernels of ``csrc/paged_attend.cu``, which stream the blocks from the
+pools and never build the gathered window: the window is split into
+fixed runs of positions, one CTA each (flash-decoding), and a second
+kernel merges the splits' partial softmax states.
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ import torch
 from theanompi_tpu_torch.ops.attention import KERNEL_DTYPES, NEG_INF
 
 PAGED_HEAD_DIMS = (32, 64, 128)
-MAX_KERNEL_ROWS = 16           # nq * rep per CTA
-MAX_SMEM_BYTES = 232448        # a Hopper CTA's dynamic shared memory
+MAX_KERNEL_ROWS = 16           # nq * rep: the tensor cores' M dimension
 
 
 def gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -58,12 +59,12 @@ def paged_attend_reference(q, k_pool, v_pool, tables, pos):
     return torch.einsum("sjkrt,sktd->sjkrd", probs.to(vg.dtype), vg)
 
 
-def paged_attend_cuda(q, k_pool, v_pool, tables, pos):
+def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
     """Launch ``csrc/paged_attend.cu`` on contiguous CUDA tensors (q and
-    pools f32 or bf16 of one dtype; tables/pos int32).
-    ``paged_attend_cuda.launches`` counts its launches."""
-    from theanompi_tpu_torch.kernels import _build
-
+    pools f32 or bf16 of one dtype, 16-byte aligned; tables/pos int32):
+    the split kernel, then the merge (see ``launch_with``).
+    ``paged_attend_cuda.launches`` counts its calls (one per
+    split-and-merge pair)."""
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_attend_cuda needs CUDA tensors, got {q.device}"
@@ -104,28 +105,19 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos):
             f"rows per (slot, kv head), got nq*rep = {nq * rep}"
         )
     tensors = (q, k_pool, v_pool, tables, pos)
+    if ctas is not None:
+        if ctas.dtype != torch.int32 or ctas.numel() != 2:
+            raise ValueError("paged_attend_cuda: ctas must be int32 [2]")
+        tensors += (ctas,)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attend_cuda needs contiguous inputs")
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attend_cuda: inputs on different devices")
-    lib = _paged_lib()
-    smem = lib.tm_paged_attend_smem(nq, rep, hd, bs, mb)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"paged_attend_cuda: the score rows of a {mb * bs}-position "
-            f"window need {smem} B of shared memory, over the "
-            f"{MAX_SMEM_BYTES} B a CTA has"
-        )
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tm_paged_attend(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            s, nq, hkv, rep, hd, bs, mb, float(hd ** -0.5),
-            KERNEL_DTYPES[q.dtype], stream,
-        )
-    _build.check(lib, err, "paged_attend")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_attend_cuda needs 16-byte aligned q and "
+                         "pools (it copies rows 16 bytes at a time)")
+    out = launch_with(_paged_lib(), q, k_pool, v_pool, tables, pos,
+                      ctas=ctas)
     paged_attend_cuda.launches += 1
     return out
 
@@ -133,20 +125,64 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos):
 paged_attend_cuda.launches = 0
 
 
-def _paged_lib():
+def launch_with(lib, q, k_pool, v_pool, tables, pos, *, ctas=None):
+    """``tm_paged_attend`` of ``lib`` (the built library or a variant of
+    its source) on inputs ``paged_attend_cuda`` has checked: allocates
+    the splits' fp32 partials (o, and the row max and sum) for
+    ceil(MB*bs / split length) splits, launches the split kernel and the
+    merge on the current stream and returns the output.  ``ctas``: None,
+    or an int32 [2] tensor to which the split kernel adds the CTAs it
+    launched and those that did not exit early."""
     from theanompi_tpu_torch.kernels import _build
 
-    lib = _build.load("paged_attend")
+    _bind(lib)
+    s, nq, hkv, rep, hd = q.shape
+    bs, mb = k_pool.shape[2], tables.shape[-1]
+    n_splits = -(-(mb * bs) // lib.tm_paged_attend_split_len())
+    rows = nq * rep
+    o_part = torch.empty((s, hkv, n_splits, rows, hd), dtype=torch.float32,
+                         device=q.device)
+    ml_part = torch.empty((s, hkv, n_splits, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tm_paged_attend(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), o_part.data_ptr(),
+            ml_part.data_ptr(), None if ctas is None else ctas.data_ptr(),
+            out.data_ptr(), s, nq, hkv, rep, hd, bs, mb, float(hd ** -0.5),
+            KERNEL_DTYPES[q.dtype], stream,
+        )
+    _build.check(lib, err, "paged_attend")
+    return out
+
+
+def _bind(lib):
     fn = lib.tm_paged_attend
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = i
-        sm = lib.tm_paged_attend_smem
-        sm.argtypes = [i, i, i, i, i]
-        sm.restype = ctypes.c_longlong
+        lib.tm_paged_attend_split_len.argtypes = []
+        lib.tm_paged_attend_split_len.restype = i
+        lib.tm_cuda_error_string.argtypes = [i]
+        lib.tm_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _paged_lib():
+    from theanompi_tpu_torch.kernels import _build
+
+    return _bind(_build.load("paged_attend"))
+
+
+def split_len() -> int:
+    """Positions per split of the card's K4 (one CTA each), as the built
+    library reports it: the split boundaries are multiples of it,
+    whatever the batch."""
+    return _paged_lib().tm_paged_attend_split_len()
 
 
 def paged_attend(q, k_pool, v_pool, tables, pos):
