@@ -5,9 +5,10 @@ NVIDIA card.
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --phases kernels     # build + kernel checks only
     python3 chip_smoke.py --layers 2           # shallower full-width models
+    python3 chip_smoke.py --phases cnn         # build + the CNN phase only
 
-Phases (``--phases`` takes a comma list of kernels, serving, training;
-the card-and-build phase always runs):
+Phases (``--phases`` takes a comma list of kernels, serving, training,
+cnn; the card-and-build phase always runs):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
@@ -39,7 +40,20 @@ the card-and-build phase always runs):
    tokens/s, peak memory and K1/K2/K3 launches (checked against
    2L/L/L per step, every launch on the tensor-core route), the losses
    held to ``TRAIN_TRAJECTORY``; then a 2-step profile;
-6. the kernels line — one JSON object with every kernel's numbers.
+6. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
+   (``TM_DATA_DIR`` points at an empty directory under ``build/``): a
+   small fp32 WResNet trained 3 BSP steps on the card and on the CPU
+   (losses compared) and a small fp32 AlexNet's val step on both; then
+   ``BSP().init`` on the card with ResNet-50 at its published config
+   (crop 224, 1000 classes, batch 128, bf16 compute, fp32 master
+   weights, momentum 0.9, weight decay 1e-4, lr 0.1, ``ici32``): 8
+   steps, each timed, and 2 val batches, with the median step,
+   images/s and peak memory, the losses held to ``CNN_TRAJECTORY``;
+   AlexNet at its published config (crop 224, batch 128, bf16) the
+   same way; a 2-step ResNet-50 profile with device time by kind of
+   kernel.  No TPU kernel lies on this path: convolutions and matmuls
+   are cuDNN's and cuBLAS's, BN, pooling and LRN plain PyTorch;
+7. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
 Any failure raises and the exit code is not 0.  Without a CUDA device,
@@ -52,6 +66,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -77,6 +92,9 @@ REDUCED = {
     "Adam moments of 8.03 B parameters come to 128.5 GB, over the "
     "card's 80 GB",
     "seq_len (training)": "2048 (8192): the run's time limit",
+    "dataset (cnn)": "synthetic, 8 x 128 train and 2 x 128 val images "
+    "for ResNet-50 and AlexNet (ImageNet: 1.28 M / 50 k): no ImageNet "
+    "files in the repository; a cut of the dataset's size, not a width",
 }
 # per-step losses of the small fp32 model trained on the card and on
 # the CPU from one initial state: fp32 summation order differs between
@@ -88,7 +106,18 @@ TRAIN_REF_RTOL = 1e-4
 # bf16 before their products, must stay within TRAIN_TRAJECTORY_RTOL
 TRAIN_TRAJECTORY = {"first": 11.7917, "last": 11.7502, "val": 11.7429}
 TRAIN_TRAJECTORY_RTOL = 1e-3
-PHASES = ("kernels", "serving", "training")
+# the CNN phase's card-vs-CPU checks: fp32, per-step losses and the
+# AlexNet val numbers differ by summation order only (cuDNN against the
+# CPU's convolutions), amplified over 3 momentum steps
+CNN_REF_RTOL = 1e-4
+# first and last ResNet-50 training loss and its val loss in the cnn
+# phase (seed 0, synthetic data), as the first run of this phase gave
+# them on an H100: later runs must stay within CNN_TRAJECTORY_RTOL (bf16
+# products over 8 steps at lr 0.1, with cuDNN free to pick other
+# algorithms, or split-K weight gradients, from run to run)
+CNN_TRAJECTORY = {"first": 6.92595, "last": 7.25439, "val": 7.42520}
+CNN_TRAJECTORY_RTOL = 1e-2
+PHASES = ("kernels", "serving", "training", "cnn")
 
 
 def log(*a):
@@ -679,13 +708,14 @@ TRAIN_SMALL = dict(SMALL, batch_size=2, n_train=6, n_val=2, lr=1e-3)
 LLAMA = dict(modelfile="theanompi_tpu_torch.models.llama", modelclass="Llama")
 
 
-def bsp(devices, config, **kw) -> dict:
-    """One in-process BSP run through the rule API; its summary."""
+def bsp(devices, config, model=LLAMA, **kw) -> dict:
+    """One in-process BSP run of ``model`` (modelfile and modelclass)
+    through the rule API; its summary."""
     from theanompi_tpu_torch import BSP
 
     rule = BSP()
     rule.init(devices=devices, launch="inprocess", config=config,
-              n_epochs=1, **LLAMA, **kw)
+              n_epochs=1, **model, **kw)
     return rule.wait()
 
 
@@ -798,8 +828,20 @@ def run_training(dev, n_layers: int, counters: dict) -> tuple[dict, object]:
     return res, model
 
 
+# cuDNN's convolution kernels carry xmma/cutlass names too: matched
+# before the GEMM rule
+CONV_KEYS = ("fprop", "dgrad", "wgrad", "implicit_gemm", "implicit_convolve",
+             "conv2d", "convolve", "cudnn")
+POOL_KEYS = ("max_pool", "avg_pool", "pool2d")
+
+
 def kernel_kind(name: str) -> str:
     """The group a profiled device kernel's name puts it in."""
+    low = name.lower()
+    if any(k in low for k in CONV_KEYS):
+        return "conv (cuDNN)"
+    if any(k in low for k in POOL_KEYS):
+        return "pooling"
     for key, kind in (("flash_fwd_tc_kernel", "K1 flash_fwd_tc"),
                       ("flash_bwd_dkv_tc_kernel", "K2 flash_bwd_dkv_tc"),
                       ("flash_bwd_dq_tc_kernel", "K3 flash_bwd_dq_tc"),
@@ -810,6 +852,8 @@ def kernel_kind(name: str) -> str:
                       ("paged_combine", "K4 paged_combine"),
                       ("nccl", "NCCL"), ("Memcpy", "memcpy/memset"),
                       ("Memset", "memcpy/memset"),
+                      ("softmax", "loss (softmax, nll)"),
+                      ("nll_loss", "loss (softmax, nll)"),
                       ("elementwise", "elementwise"),
                       ("reduce", "reductions")):
         if key in name:
@@ -820,7 +864,7 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_training(model, steps: int = 2) -> dict:
+def profile_training(model, steps: int = 2, name: str = "training") -> dict:
     """Where a training step's time goes: ``steps`` more steps of the
     trained model traced as ``trace_steps`` does, with the device time
     also summed by kind of kernel."""
@@ -829,13 +873,177 @@ def profile_training(model, steps: int = 2) -> dict:
     rec = Recorder(verbose=False)
     out, kernels = trace_steps(lambda i: model.train_iter(i, rec), steps,
                                top=10)
-    by_kind = {}
+    by_kind, names = {}, {}
     for k, ms in kernels:
         by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
+        names.setdefault(kernel_kind(k), []).append((k[:100], ms))
     out["device_ms_per_step_by_kind"] = dict(
         sorted(by_kind.items(), key=lambda kv: -kv[1]))
-    log(f"[training] step profile {json.dumps(out)} on {card_line()}")
+    # the largest kernels of each kind (``kernels`` is sorted by time):
+    # what a kind's name rule caught
+    out["top_kernels_by_kind"] = {kind: dict(top[:3])
+                                  for kind, top in names.items()}
+    log(f"[{name}] step profile {json.dumps(out)} on {card_line()}")
     return out
+
+
+# -- the CNN classifier path -------------------------------------------------
+
+WRESNET = dict(modelfile="theanompi_tpu_torch.models.wresnet",
+               modelclass="WResNet")
+RESNET50 = dict(modelfile="theanompi_tpu_torch.models.resnet50",
+                modelclass="ResNet50")
+ALEXNET = dict(modelfile="theanompi_tpu_torch.models.alex_net",
+               modelclass="AlexNet")
+CNN_SMALL = dict(depth=10, widen=1, batch_size=8, n_train=24, n_val=8,
+                 compute_dtype="float32", seed=3, lr=0.02)
+# the published configs: ImageNet shapes (crop 224, 1000 classes),
+# batch 128 per card, bf16 compute over fp32 master weights
+CNN_STEPS, CNN_VAL_BATCHES, CNN_BATCH = 8, 2, 128
+RESNET50_CFG = dict(crop=224, batch_size=CNN_BATCH,
+                    n_train=CNN_STEPS * CNN_BATCH,
+                    n_val=CNN_VAL_BATCHES * CNN_BATCH,
+                    compute_dtype="bfloat16", lr=0.1, momentum=0.9,
+                    weight_decay=1e-4, exch_strategy="ici32", seed=0)
+ALEXNET_CFG = dict(RESNET50_CFG, lr=0.01, weight_decay=5e-4)
+
+
+def check_cnn_reference(dev) -> None:
+    """A small fp32 WResNet-10-1 (crop 32, batch 8) trained 3 BSP steps
+    on the card (cuDNN, a one-rank NCCL group) and on the CPU (gloo)
+    from one initial checkpoint, and a small fp32 AlexNet's val step
+    (crop 64, batch 4) on the same parameters on both: the losses and
+    the val numbers must agree within ``CNN_REF_RTOL``."""
+    import numpy as np
+
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.models.wresnet import WResNet
+    from theanompi_tpu_torch.parallel.mesh import destroy_group
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        init = Path(tmp) / "init"
+        WResNet.save_init_checkpoint(CNN_SMALL, init)
+        losses = []
+        for where, devices in (("card", [dev.index]), ("cpu", ["cpu"])):
+            d = Path(tmp) / where
+            shutil.copytree(init, d)
+            out = bsp(devices, CNN_SMALL, model=WRESNET,
+                      checkpoint_dir=str(d), resume=True, verbose=False)
+            losses.append(out["recorder"].train_losses)
+    ok = len(losses[0]) == 3 and np.allclose(losses[0], losses[1],
+                                             rtol=CNN_REF_RTOL, atol=0)
+    log(f"reference [cnn] WResNet-10-1 fp32, 3 BSP steps, card {losses[0]} "
+        f"vs CPU {losses[1]} (rtol {CNN_REF_RTOL}): "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError("cnn: WResNet card and CPU losses differ")
+
+    cfg = dict(crop=64, batch_size=4, n_train=4, n_val=4,
+               compute_dtype="float32", seed=3)
+    vals, trees = [], None
+    for device in ("cpu", dev):
+        model = AlexNet(cfg, device=device)
+        model.build_model()
+        if trees is None:
+            trees = model.checkpoint_trees()
+        else:
+            model.restore_trees(trees)
+        model.compile_iter_fns()
+        vals.append(model.val_iter(0, None))
+        destroy_group()
+    ok = np.allclose(vals[1], vals[0], rtol=CNN_REF_RTOL, atol=1e-6)
+    log(f"reference [cnn] AlexNet fp32 crop 64 val (loss, err, err5), card "
+        f"{vals[1]} vs CPU {vals[0]} (rtol {CNN_REF_RTOL}): "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError("cnn: AlexNet card and CPU val differ")
+
+
+def run_cnn(dev, name: str, model: dict, cfg: dict) -> tuple[dict, object]:
+    """One epoch of ``model`` at ``cfg`` through ``BSP().init`` on the
+    card: each step timed with the device synchronized around it, then
+    the val batches; losses finite and val numbers in range.  Returns
+    (numbers, the trained model)."""
+    import torch
+
+    from theanompi_tpu_torch.models.base import ClassifierModel
+
+    times = []
+    train_iter = ClassifierModel.train_iter
+
+    def timed(self, count, recorder):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_iter(self, count, recorder)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    ClassifierModel.train_iter = timed
+    try:
+        out = bsp([dev.index], cfg, model=model, print_freq=1)
+    finally:
+        ClassifierModel.train_iter = train_iter
+    trained = out["model"]
+    losses, val = out["recorder"].train_losses, out["final_val"]
+    med = statistics.median(times[1:])
+    res = {
+        "model": name, "config": cfg,
+        "params_m": sum(p.numel() for p in trained.params) / 1e6,
+        "losses": losses, "val": val, "step_s": times,
+        "median_step_s": med,
+        "images_per_s": trained.data.global_batch / med,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"[cnn {name}] {json.dumps(res)} on {card_line()}")
+    if len(losses) != CNN_STEPS or not all(math.isfinite(x)
+                                           for x in losses):
+        raise AssertionError(f"cnn {name}: losses {losses}")
+    if not (math.isfinite(val["loss"])
+            and 0.0 <= val["err_top5"] <= val["err"] <= 1.0):
+        raise AssertionError(f"cnn {name}: val {val}")
+    return res, trained
+
+
+def run_cnn_phase(dev) -> None:
+    """The cnn phase (module docstring, item 6)."""
+    import torch
+
+    from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
+
+    data_dir = ROOT / "build" / "no_data"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    if any(data_dir.iterdir()):
+        raise AssertionError(f"{data_dir} must be empty (synthetic data)")
+    os.environ["TM_DATA_DIR"] = str(data_dir)
+    check_cnn_reference(dev)
+
+    # the group outlives the runs, so the profile can take more steps
+    init_group(dev)
+    res, model = run_cnn(dev, "resnet50", RESNET50, RESNET50_CFG)
+    got = {"first": res["losses"][0], "last": res["losses"][-1],
+           "val": res["val"]["loss"]}
+    rel = {k: abs(got[k] - v) / v for k, v in CNN_TRAJECTORY.items()}
+    log(f"[cnn resnet50] losses {got} against {CNN_TRAJECTORY}: relative "
+        f"differences {rel} (rtol {CNN_TRAJECTORY_RTOL})")
+    if max(rel.values()) > CNN_TRAJECTORY_RTOL:
+        raise AssertionError("cnn: ResNet-50 losses left the reference "
+                             "trajectory")
+    profile_training(model, name="cnn resnet50")
+    # the momentum update alone (zero gradients, lr 0): its device time
+    # is the optimizer's share, which kernel names cannot separate from
+    # the other elementwise passes
+    grads = [torch.zeros_like(p) for p in model.params]
+    opt_ms = time_ms(lambda: model.optimizer.update(
+        model.params, grads, model.opt_state, 0.0), reps=5, warmup=1)
+    log(f"[cnn resnet50] momentum update alone: {opt_ms:.3f} ms over "
+        f"{res['params_m']:.2f} M fp32 parameters on {card_line()}")
+    del model, grads
+    torch.cuda.empty_cache()
+    _, model = run_cnn(dev, "alexnet", ALEXNET, ALEXNET_CFG)
+    del model
+    destroy_group()
+    torch.cuda.empty_cache()
 
 
 # -- phase 1: what the compiler made of the kernels -------------------------
@@ -1065,7 +1273,11 @@ def main(argv=None) -> int:
             # K1 runs on two paths: its count is the sum of both runs
             records["K1"]["launches"] = sum(by_path.values())
 
-    # phase 6: the kernels line, the card, the result
+    if "cnn" in ns.phases:
+        # phase 6: the image-classifier path (no TPU kernel on it)
+        run_cnn_phase(dev)
+
+    # phase 7: the kernels line, the card, the result
     log(json.dumps({"kernels": [
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
                              "K3 fp32", "K4")

@@ -1,5 +1,8 @@
-"""Models of the port: Llama (serving and BSP training)."""
+"""Models of the port: Llama (serving and BSP training) and the image
+classifiers WResNet, ResNet-50 and AlexNet (BSP training)."""
 
+from theanompi_tpu_torch.models.alex_net import AlexNet
+from theanompi_tpu_torch.models.base import ClassifierModel
 from theanompi_tpu_torch.models.llama import (
     LLAMA3_8B,
     Llama,
@@ -8,6 +11,9 @@ from theanompi_tpu_torch.models.llama import (
     params_from_jax,
     params_to_jax,
 )
+from theanompi_tpu_torch.models.resnet50 import ResNet50
+from theanompi_tpu_torch.models.wresnet import WResNet
 
-__all__ = ["LLAMA3_8B", "Llama", "opt_state_from_jax", "opt_state_to_jax",
+__all__ = ["AlexNet", "ClassifierModel", "LLAMA3_8B", "Llama", "ResNet50",
+           "WResNet", "opt_state_from_jax", "opt_state_to_jax",
            "params_from_jax", "params_to_jax"]

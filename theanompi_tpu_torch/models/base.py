@@ -1,5 +1,6 @@
-"""The model contract the workers drive (port of the ``TMModel`` subset
-of ``theanompi_tpu/models/base.py`` that the BSP path uses).
+"""The model contract the workers drive (port of ``TMModel`` and
+``ClassifierModel`` of ``theanompi_tpu/models/base.py``, the parts the
+BSP path uses).
 
 Workers drive a duck-typed model exposing ``build_model /
 compile_iter_fns / train_iter / val_iter / adjust_hyperp / save / load
@@ -9,22 +10,89 @@ JAX package's metadata (``epoch``, ``lr``, ``world_size``,
 ``n_devices``, ``global_batch``, the recorder state); only rank 0 of
 the process group writes.  ``load`` restores the newest checkpoint
 that verifies, through the model's ``restore_trees`` hook.
+
+``ClassifierModel`` is the generic image classifier the CNN zoo
+(``wresnet``, ``resnet50``, ``alex_net``) subclasses: a net of
+``ops.layers`` in fp32 master weights run in the compute dtype, the
+synthetic or file-backed data modules, momentum SGD, and the JAX step's
+exchange (gradients by the named strategy, BN running statistics,
+loss and error averaged over the ranks every step).  Its checkpoints
+hold the JAX trees (``params``, ``net_state``, ``opt_state``) in the
+JAX layout under JAX keystr keys, so they load in either package.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from theanompi_tpu_torch.ops import optimizers as opt_lib
+from theanompi_tpu_torch.ops.layers import (
+    accuracy,
+    from_jax_layout,
+    softmax_cross_entropy,
+    to_jax_layout,
+)
+from theanompi_tpu_torch.parallel.exchange import allreduce_mean
+from theanompi_tpu_torch.parallel.mesh import init_group, resolve_device
+from theanompi_tpu_torch.parallel.strategies import (
+    get_strategy,
+    resolve_bucket_mb,
+    resolve_compression,
+)
 from theanompi_tpu_torch.utils import checkpoint as ckpt
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(name) -> torch.dtype:
+    """The ``compute_dtype`` config value as a torch dtype."""
+    if str(name) not in DTYPES:
+        raise ValueError(
+            f"compute_dtype must be one of {sorted(DTYPES)}, got {name!r}"
+        )
+    return DTYPES[str(name)]
+
+
+#: config knobs of the JAX package that the port does not run yet
+UNPORTED_KNOBS = {
+    "elastic": "A9 (elastic resume, supervisor and fault drills)",
+    "trace": "A13 (span tracing)",
+    "step_profile": "A13 (step-phase profiler)",
+    "device_data_cache": "A7 (device-resident data cache)",
+}
+
+
+def refuse_unported(cfg: dict) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for a config
+    knob of a feature the port does not run yet."""
+    for knob, item in UNPORTED_KNOBS.items():
+        if cfg.get(knob):
+            raise NotImplementedError(
+                f"config {knob}={cfg[knob]!r} is not ported yet "
+                f"(ROADMAP.md {item})"
+            )
+    if int(cfg.get("loader_pipeline", 0) or 0) >= 2:
+        raise NotImplementedError(
+            "loader_pipeline >= 2 (the streaming loader) is not ported yet "
+            "(ROADMAP.md A7)"
+        )
+    if int(cfg.get("steps_per_call", 0) or 0) > 1:
+        raise NotImplementedError(
+            "steps_per_call > 1 (the scanned multi-step train_chunk over the "
+            "device-resident data) is not ported yet (ROADMAP.md A7)"
+        )
 
 
 class TMModel:
     """Abstract contract; subclass or duck-type it."""
 
     data: Any
+    #: ``restore_trees`` takes each group as ``{keystr: array}``
+    flat_checkpoint: bool = False
     epoch: int = 0
     n_epochs: int = 1
     current_lr: float = 0.0
@@ -83,7 +151,8 @@ class TMModel:
     def load(self, directory: str, recorder=None) -> bool:
         """Restore the newest checkpoint under ``directory`` that
         verifies; False when there is none."""
-        found = ckpt.load_latest(directory, tuple(self.checkpoint_trees()))
+        found = ckpt.load_latest(directory, tuple(self.checkpoint_trees()),
+                                 self.flat_checkpoint)
         if found is None:
             return False
         _, trees, meta = found
@@ -104,3 +173,252 @@ def _to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
+
+
+# -- the image classifier ------------------------------------------------------
+
+def _nest(flat: dict) -> dict:
+    """``{key path: array}`` -> nested dicts (int keys for the JAX
+    tree's list nodes, which ``checkpoint.tree_to_flat`` writes under
+    the same keystr keys as a list)."""
+    tree: dict = {}
+    for path, arr in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def _as_flat(tree) -> dict:
+    """A group as ``{keystr: array}``: a nested tree (e.g.
+    ``jax.device_get(model.params)``) is flattened, a flat checkpoint
+    group passes through."""
+    if isinstance(tree, dict) and all(
+            isinstance(k, str) and k.startswith("[") for k in tree):
+        return tree
+    return ckpt.tree_to_flat(tree)
+
+
+class ClassifierModel(TMModel):
+    """Generic image classifier satisfying the contract.
+
+    Subclasses set, in ``build_model``: ``self.net`` (an
+    ``ops.layers.Layer`` ending in logits), ``self.input_shape`` (per
+    example, ``(H, W, C)``) and ``self.data``, then call
+    ``_init_params``.  Config knobs follow the JAX package:
+    ``batch_size`` (per rank), ``n_epochs``, ``lr``, ``lr_schedule``,
+    ``momentum``, ``weight_decay``, ``compute_dtype``, ``seed``,
+    ``exch_strategy``, ``exchange_bucket_mb``.  ``device`` defaults to
+    the card; ``device="cpu"`` runs on the CPU.
+    """
+
+    flat_checkpoint = True
+
+    def __init__(self, config: dict | None = None, device=None):
+        self.config = dict(config or {})
+        refuse_unported(self.config)
+        self.n_epochs = int(self.config.get("n_epochs", 10))
+        self.epoch = 0
+        self.current_lr = float(self.config.get("lr", 0.1))
+        self.compute_dtype = resolve_dtype(
+            self.config.get("compute_dtype", "bfloat16"))
+        self.seed = int(self.config.get("seed", 42))
+        self.net = None
+        self.data = None
+        self.input_shape: tuple = ()
+        self.optimizer = opt_lib.momentum(
+            mu=float(self.config.get("momentum", 0.9)),
+            weight_decay=float(self.config.get("weight_decay", 1e-4)),
+        )
+        self.params: list | None = None
+        self.opt_state = None
+        self._mean = None             # the data's device_mean, at compile
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+
+    # -- construction -------------------------------------------------------
+
+    def build_model(self, n_replicas: int = 1) -> None:
+        """Define ``self.net``/``self.data`` and initialize params."""
+        raise NotImplementedError
+
+    def _init_params(self) -> None:
+        """Draw the net's parameters from ``self.generator`` reseeded
+        with ``seed`` (the JAX init's distributions, not its numbers),
+        and fresh optimizer state."""
+        self.generator.manual_seed(self.seed)
+        self._out_shape = self.net.init(self.generator, self.input_shape)
+        self._params_at = self.net.jax_entries("params")
+        self._state_at = self.net.jax_entries("state")
+        self.params = [t for t, _ in self._params_at.values()]
+        self.net_state = [t for t, _ in self._state_at.values()]
+        self.opt_state = self.optimizer.init(self.params)
+
+    def compile_iter_fns(self, exch_strategy: str | None = None,
+                         **unknown) -> None:
+        """Resolve the exchange and join (or create, one rank) the
+        process group; each rank takes rows ``[r*B, (r+1)*B)`` of the
+        global batch, as the JAX ``shard_map`` splits it."""
+        if unknown:
+            raise TypeError(
+                f"{type(self).__name__}.compile_iter_fns: unknown kwargs "
+                f"{sorted(unknown)}"
+            )
+        if self.net is None:
+            raise RuntimeError("call build_model() before compile_iter_fns()")
+        self._strategy = get_strategy(
+            exch_strategy or self.config.get("exch_strategy", "ici32"))
+        resolve_compression(self.config)
+        self._bucket_elems = self._strategy.bucket_elems(
+            resolve_bucket_mb(self.config))
+        if not dist.is_initialized():
+            init_group(self.device)        # a one-rank group of its own
+        self._rank, self._world = dist.get_rank(), dist.get_world_size()
+        if self._world * self.data.batch_size != self.data.global_batch:
+            raise ValueError(
+                f"{self._world} ranks x per-rank batch "
+                f"{self.data.batch_size} != global batch "
+                f"{self.data.global_batch} (build_model n_replicas must "
+                f"match the group)"
+            )
+        if self.params is None:
+            self._init_params()
+        # dropout masks: one stream per rank, as the JAX step folds the
+        # device index into its key
+        self._dropout_gen = torch.Generator(device=self.device)
+        self._dropout_gen.manual_seed(self.seed * 1000003 + self._rank)
+        m = getattr(self.data, "device_mean", None)
+        self._mean = None if m is None else torch.as_tensor(
+            np.asarray(m), device=self.device).to(self.compute_dtype)
+
+    # -- loss hooks ---------------------------------------------------------
+
+    def prep_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The raw NHWC batch cast to the compute dtype, minus the data's
+        ``device_mean`` when it has one (uint8 batches), as the NCHW-
+        indexed ``channels_last`` view the net takes."""
+        x = x.to(self.compute_dtype)
+        if self._mean is not None:
+            x = x - self._mean
+        return x.permute(0, 3, 1, 2)
+
+    def primary_logits(self, out):
+        """The main logits of the net output (default: identity)."""
+        return out
+
+    def compute_loss(self, out, y):
+        return softmax_cross_entropy(self.primary_logits(out), y)
+
+    # -- iteration ----------------------------------------------------------
+
+    def put_batch(self, batch):
+        """This rank's rows of a global (x, y) host batch, on the
+        device."""
+        b = self.data.batch_size
+        lo = self._rank * b
+        x, y = (torch.from_numpy(np.ascontiguousarray(a[lo:lo + b]))
+                for a in batch)
+        return x.to(self.device), y.to(self.device).long()
+
+    def _rank_mean(self, *xs) -> torch.Tensor:
+        stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                             device=self.device)
+                             for x in xs])
+        dist.all_reduce(stats)
+        return stats / self._world
+
+    def train_iter(self, count: int, recorder) -> None:
+        recorder.start()
+        x, y = self.put_batch(self.data.train_batch(count))
+        recorder.end("wait")
+        recorder.start()
+        out = self.net(self.prep_input(x), train=True, gen=self._dropout_gen)
+        loss = self.compute_loss(out, y)
+        err = 1.0 - accuracy(self.primary_logits(out).detach(), y)
+        # a conv's weight gradient may come back in channels_last
+        # strides; the exchange packs flat views
+        grads = [g.contiguous()
+                 for g in torch.autograd.grad(loss, self.params)]
+        # BN running statistics ride the step's reduce, every step, so
+        # every rank evaluates with the same statistics
+        allreduce_mean(self.net_state)
+        self._strategy(grads, bucket_elems=self._bucket_elems)
+        self.opt_state = self.optimizer.update(self.params, grads,
+                                               self.opt_state,
+                                               self.current_lr)
+        stats = self._rank_mean(loss.detach(), err)
+        recorder.end("calc")
+        recorder.train_error(count, stats[0], stats[1])
+
+    @torch.no_grad()
+    def val_iter(self, count: int, recorder):
+        x, y = self.put_batch(self.data.val_batch(count))
+        logits = self.primary_logits(self.net(self.prep_input(x)))
+        stats = self._rank_mean(
+            softmax_cross_entropy(logits, y),
+            1.0 - accuracy(logits, y),
+            1.0 - accuracy(logits, y, k=5),
+        )
+        return tuple(float(v) for v in stats)
+
+    # -- checkpoint: the JAX trees ------------------------------------------
+
+    def _jax_tree(self, at: dict, tensors=None) -> dict:
+        """The tensors of ``at`` (or ``tensors``, one per entry of
+        ``at``, e.g. the momentum velocity) as a JAX-layout tree."""
+        if tensors is None:
+            tensors = [t for t, _ in at.values()]
+        return _nest({path: to_jax_layout(t, layout) for (path, (_, layout)),
+                      t in zip(at.items(), tensors)})
+
+    def checkpoint_trees(self) -> dict:
+        return {"params": self._jax_tree(self._params_at),
+                "net_state": self._jax_tree(self._state_at),
+                # the momentum velocity is a params-shaped tree, SGD's
+                # state the empty tuple, in either package
+                "opt_state": (self._jax_tree(self._params_at, self.opt_state)
+                              if self.opt_state else ())}
+
+    @torch.no_grad()
+    def _copy_in(self, at: dict, tree, tensors=None, what="params") -> None:
+        """Copy a JAX-layout group (nested or ``{keystr: array}``) into
+        the tensors of ``at`` (or ``tensors``), key path by key path:
+        every leaf the net has must be there with its shape, and
+        nothing else."""
+        flat = _as_flat(tree)
+        keys = {ckpt.keystr(path): e for path, e in at.items()}
+        if set(flat) != set(keys):
+            raise ValueError(
+                f"{what}: checkpoint keys do not match the net: missing "
+                f"{sorted(set(keys) - set(flat))[:5]}, unexpected "
+                f"{sorted(set(flat) - set(keys))[:5]}"
+            )
+        if tensors is None:
+            tensors = [t for t, _ in at.values()]
+        for (key, (_, layout)), t in zip(keys.items(), tensors):
+            src = from_jax_layout(flat[key], layout)
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{what} {key}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(t.shape)}")
+            t.copy_(src)
+
+    def restore_trees(self, trees: dict) -> None:
+        self._copy_in(self._params_at, trees["params"])
+        self._copy_in(self._state_at, trees["net_state"], what="net_state")
+        if self.opt_state:
+            self._copy_in(self._params_at, trees["opt_state"],
+                          self.opt_state, "opt_state")
+
+    @classmethod
+    def save_init_checkpoint(cls, config: dict, directory) -> None:
+        """Write the model's seeded initial state — fp32 parameters drawn
+        on the CPU, fresh BN statistics and optimizer state — as
+        checkpoint 0 stamped epoch -1, which a run with ``resume=True``
+        starts epoch 0 from.  Runs on different devices start from the
+        same parameters this way (a generator draws other numbers on
+        the card than on the CPU)."""
+        model = cls(config, device="cpu")
+        model.build_model()
+        ckpt.save_checkpoint(directory, 0, model.checkpoint_trees(),
+                             {"epoch": -1, "lr": model.current_lr})

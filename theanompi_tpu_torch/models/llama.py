@@ -39,7 +39,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from theanompi_tpu_torch.models.base import TMModel
+from theanompi_tpu_torch.models.base import DTYPES, TMModel, resolve_dtype
 from theanompi_tpu_torch.models.data.lm_synthetic import MarkovLMData
 from theanompi_tpu_torch.ops import optimizers as opt_lib
 from theanompi_tpu_torch.ops.attention import flash_attention
@@ -50,8 +50,6 @@ from theanompi_tpu_torch.parallel.strategies import (
     resolve_bucket_mb,
     resolve_compression,
 )
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
               "w_gate", "w_up", "w_down")
@@ -139,13 +137,7 @@ class Llama(TMModel):
         self.seq_len = int(c.get("seq_len", 256))
         self.head_dim = self.dim // self.n_heads
         self.seed = int(c.get("seed", 42))
-        dtype = str(c.get("compute_dtype", "bfloat16"))
-        if dtype not in DTYPES:
-            raise ValueError(
-                f"compute_dtype must be one of {sorted(DTYPES)}, got "
-                f"{dtype!r}"
-            )
-        self.compute_dtype = DTYPES[dtype]
+        self.compute_dtype = resolve_dtype(c.get("compute_dtype", "bfloat16"))
         if self.dim % self.n_heads:
             raise ValueError(
                 f"dim {self.dim} must divide by n_heads {self.n_heads}"

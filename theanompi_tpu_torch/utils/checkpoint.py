@@ -64,12 +64,15 @@ def _listify(node):
     return out
 
 
-def load_group(path: str | Path, group: str = "params") -> dict:
+def load_group(path: str | Path, group: str = "params",
+               flat: bool = False) -> dict:
     """One group of an npz checkpoint as a nested dict/list tree of
-    numpy arrays.  Every array of the group must match its sidecar
-    digest when the sidecar stamps digests (``ValueError`` otherwise;
-    checkpoints from before digest stamping load unchecked, as in the
-    JAX package)."""
+    numpy arrays, or with ``flat=True`` as ``{keystr: array}`` (a tree
+    whose empty nodes left no key, such as the ``{}`` of a stateless
+    layer in a list of layers, is rebuilt by its reader).  Every array
+    of the group must match its sidecar digest when the sidecar stamps
+    digests (``ValueError`` otherwise; checkpoints from before digest
+    stamping load unchecked, as in the JAX package)."""
     path = Path(path)
     digests = {}
     meta_path = path.with_suffix(".json")
@@ -88,12 +91,15 @@ def load_group(path: str | Path, group: str = "params") -> dict:
                     raise ValueError(f"{path}: no digest for {name!r}")
                 if array_digest(arr) != int(digests[name]):
                     raise ValueError(f"{path}: digest mismatch at {name!r}")
+            if flat:
+                tree[name[len(prefix):]] = arr
+                continue
             *parents, leaf = parse_keystr(name[len(prefix):])
             node = tree
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = arr
-    return _listify(tree)
+    return tree if flat else _listify(tree)
 
 
 def checkpoints(directory: Path) -> list[Path]:
@@ -163,11 +169,12 @@ def checkpoint_meta(path: str | Path) -> dict:
     return meta
 
 
-def load_latest(directory: str | Path, groups: tuple[str, ...]):
+def load_latest(directory: str | Path, groups: tuple[str, ...],
+                flat: bool = False):
     """``(path, {group: tree}, meta)`` of the newest checkpoint under
-    ``directory`` whose groups all verify, or None when there is none.
-    A group with no arrays (SGD's empty optimizer state) loads as
-    ``()``.  A checkpoint that fails its digests is reported and
+    ``directory`` whose groups all verify, or None when there is none;
+    ``flat`` as in :func:`load_group`.  A group with no arrays (SGD's
+    empty optimizer state) loads as ``()``.  A checkpoint that fails its digests is reported and
     skipped (an older one is used)."""
     directory = Path(directory)
     if not directory.is_dir():
@@ -177,7 +184,7 @@ def load_latest(directory: str | Path, groups: tuple[str, ...]):
             trees = {}
             for g in groups:
                 try:
-                    trees[g] = load_group(path, g)
+                    trees[g] = load_group(path, g, flat)
                 except KeyError:
                     trees[g] = ()
             return path, trees, checkpoint_meta(path)

@@ -25,6 +25,7 @@ from typing import Any, Sequence
 
 import torch
 
+from theanompi_tpu_torch.models.base import refuse_unported
 from theanompi_tpu_torch.parallel.mesh import (
     destroy_group,
     init_group,
@@ -37,32 +38,10 @@ from theanompi_tpu_torch.parallel.strategies import (
 )
 from theanompi_tpu_torch.utils import Recorder
 
-#: config knobs of the JAX worker that the port does not run yet
-UNPORTED_KNOBS = {
-    "elastic": "A9 (elastic resume, supervisor and fault drills)",
-    "trace": "A13 (span tracing)",
-    "step_profile": "A13 (step-phase profiler)",
-    "device_data_cache": "A7 (device-resident data cache)",
-}
-
 
 def _resolve_model(modelfile: str, modelclass: str):
     mod = importlib.import_module(modelfile)
     return getattr(mod, modelclass)
-
-
-def _refuse_unported(cfg: dict) -> None:
-    for knob, item in UNPORTED_KNOBS.items():
-        if cfg.get(knob):
-            raise NotImplementedError(
-                f"config {knob}={cfg[knob]!r} is not ported yet "
-                f"(ROADMAP.md {item})"
-            )
-    if int(cfg.get("loader_pipeline", 0) or 0) >= 2:
-        raise NotImplementedError(
-            "loader_pipeline >= 2 (the streaming loader) is not ported yet "
-            "(ROADMAP.md A7)"
-        )
 
 
 def _resume(model, recorder, checkpoint_dir, resume, verbose):
@@ -110,7 +89,7 @@ def run(
     strat = get_strategy(exch_strategy or cfg.get("exch_strategy", "ici32"))
     bucket_mb = resolve_bucket_mb(cfg)
     resolve_compression(cfg)
-    _refuse_unported(cfg)
+    refuse_unported(cfg)
     devs = resolve_devices(devices)
     world = len(devs) if world_size is None else int(world_size)
     if world != len(devs):
