@@ -43,16 +43,24 @@ cnn; the card-and-build phase always runs):
 6. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
    (``TM_DATA_DIR`` points at an empty directory under ``build/``): a
    small fp32 WResNet trained 3 BSP steps on the card and on the CPU
-   (losses compared) and a small fp32 AlexNet's val step on both; then
+   (losses compared), and the val step of small fp32 AlexNet, VGG16
+   and GoogLeNet (with its train-mode loss and aux terms) on both; then
    ``BSP().init`` on the card with ResNet-50 at its published config
    (crop 224, 1000 classes, batch 128, bf16 compute, fp32 master
-   weights, momentum 0.9, weight decay 1e-4, lr 0.1, ``ici32``): 8
-   steps, each timed, and 2 val batches, with the median step,
-   images/s and peak memory, the losses held to ``CNN_TRAJECTORY``;
-   AlexNet at its published config (crop 224, batch 128, bf16) the
-   same way; a 2-step ResNet-50 profile with device time by kind of
-   kernel.  No TPU kernel lies on this path: convolutions and matmuls
-   are cuDNN's and cuBLAS's, BN, pooling and LRN plain PyTorch;
+   weights, momentum 0.9, weight decay 1e-4, lr 0.1, ``ici32``) under
+   each of the three feeds (the pinned stager inside the step,
+   ``loader_pipeline=2``, ``device_data_cache=True``): 8 steps, each
+   timed with its Recorder wait and calc segments, and 2 val batches,
+   with the median step, images/s, peak memory, the feed's counts and
+   a 2-step profile (busy share, memcpy time); the losses held to
+   ``CNN_TRAJECTORY``, the batches the net took bitwise equal across
+   the feeds (a checksum of each on the card); AlexNet at its
+   published config the same way; VGG16 and GoogLeNet at their JAX
+   defaults (crop 224, batch 32, bf16, lr 0.01) the same way, each with
+   a profile, their losses held to ``VGG16_TRAJECTORY`` and
+   ``GOOGLENET_TRAJECTORY``.  No TPU kernel lies on this path:
+   convolutions and matmuls are cuDNN's and cuBLAS's, BN, pooling and
+   LRN plain PyTorch, the staging copies;
 7. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
@@ -95,6 +103,8 @@ REDUCED = {
     "dataset (cnn)": "synthetic, 8 x 128 train and 2 x 128 val images "
     "for ResNet-50 and AlexNet (ImageNet: 1.28 M / 50 k): no ImageNet "
     "files in the repository; a cut of the dataset's size, not a width",
+    "dataset (cnn, VGG16 and GoogLeNet)": "synthetic, 8 x 32 train and "
+    "2 x 32 val images (ImageNet: 1.28 M / 50 k): as above",
 }
 # per-step losses of the small fp32 model trained on the card and on
 # the CPU from one initial state: fp32 summation order differs between
@@ -117,6 +127,11 @@ CNN_REF_RTOL = 1e-4
 # algorithms, or split-K weight gradients, from run to run)
 CNN_TRAJECTORY = {"first": 6.92595, "last": 7.25439, "val": 7.42520}
 CNN_TRAJECTORY_RTOL = 1e-2
+# the same for VGG16 and GoogLeNet at their JAX defaults (batch 32,
+# lr 0.01, seed 0, synthetic data), as the first run of the cnn phase
+# with them gave them on an H100; held at CNN_TRAJECTORY_RTOL
+VGG16_TRAJECTORY = {"first": 7.15341, "last": 6.91443, "val": 6.95076}
+GOOGLENET_TRAJECTORY = {"first": 11.3753, "last": 11.0767, "val": 6.90323}
 PHASES = ("kernels", "serving", "training", "cnn")
 
 
@@ -864,15 +879,22 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_training(model, steps: int = 2, name: str = "training") -> dict:
+def profile_training(model, steps: int = 2, name: str = "training",
+                     start: int = 0) -> dict:
     """Where a training step's time goes: ``steps`` more steps of the
     trained model traced as ``trace_steps`` does, with the device time
-    also summed by kind of kernel."""
+    also summed by kind of kernel.  The steps take batches ``start``,
+    ``start + 1``, ... in order (wrapping at the epoch's end), so a
+    streaming feed's ring keeps running across them."""
+    import itertools
+
     from theanompi_tpu_torch.utils import Recorder
 
     rec = Recorder(verbose=False)
-    out, kernels = trace_steps(lambda i: model.train_iter(i, rec), steps,
-                               top=10)
+    nb = model.data.n_batch_train
+    order = itertools.count(start)
+    out, kernels = trace_steps(
+        lambda i: model.train_iter(next(order) % nb, rec), steps, top=10)
     by_kind, names = {}, {}
     for k, ms in kernels:
         by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
@@ -895,6 +917,10 @@ RESNET50 = dict(modelfile="theanompi_tpu_torch.models.resnet50",
                 modelclass="ResNet50")
 ALEXNET = dict(modelfile="theanompi_tpu_torch.models.alex_net",
                modelclass="AlexNet")
+VGG16 = dict(modelfile="theanompi_tpu_torch.models.vgg16",
+             modelclass="VGG16")
+GOOGLENET = dict(modelfile="theanompi_tpu_torch.models.googlenet",
+                 modelclass="GoogLeNet")
 CNN_SMALL = dict(depth=10, widen=1, batch_size=8, n_train=24, n_val=8,
                  compute_dtype="float32", seed=3, lr=0.02)
 # the published configs: ImageNet shapes (crop 224, 1000 classes),
@@ -906,19 +932,76 @@ RESNET50_CFG = dict(crop=224, batch_size=CNN_BATCH,
                     compute_dtype="bfloat16", lr=0.1, momentum=0.9,
                     weight_decay=1e-4, exch_strategy="ici32", seed=0)
 ALEXNET_CFG = dict(RESNET50_CFG, lr=0.01, weight_decay=5e-4)
+# VGG16 and GoogLeNet at the JAX package's defaults: batch 32 a card,
+# lr 0.01, weight decay 5e-4 / 2e-4
+VGG_BATCH = 32
+VGG16_CFG = dict(RESNET50_CFG, batch_size=VGG_BATCH,
+                 n_train=CNN_STEPS * VGG_BATCH,
+                 n_val=CNN_VAL_BATCHES * VGG_BATCH, lr=0.01,
+                 weight_decay=5e-4)
+GOOGLENET_CFG = dict(VGG16_CFG, weight_decay=2e-4)
+# the three feeds of the ResNet-50 run: the pinned stager inside the
+# step, the streaming feed (a producer thread, 2 slots), the train set
+# on the card gathered there
+FEEDS = {"synchronous": {}, "pipelined": {"loader_pipeline": 2},
+         "device_cache": {"device_data_cache": True}}
+
+
+def card_vs_cpu_val(dev, cls, cfg, train_loss: bool = False) -> None:
+    """``cls`` at ``cfg`` (fp32) built on the CPU, its parameters copied
+    to a second copy on the card: the val numbers of batch 0 and, with
+    ``train_loss``, the train-mode loss (every ``Dropout`` at rate 0)
+    on that batch must agree within ``CNN_REF_RTOL``."""
+    import numpy as np
+    import torch
+
+    from theanompi_tpu_torch.ops.layers import Dropout
+    from theanompi_tpu_torch.parallel.mesh import destroy_group
+
+    vals, trees = [], None
+    for device in ("cpu", dev):
+        model = cls(cfg, device=device)
+        model.build_model()
+        if trees is None:
+            trees = model.checkpoint_trees()
+        else:
+            model.restore_trees(trees)
+        model.compile_iter_fns()
+        got = list(model.val_iter(0, None))
+        if train_loss:
+            for m in model.net.modules():
+                if isinstance(m, Dropout):
+                    m.rate = 0.0
+            x, y = model.put_batch(model.data.val_batch(0))
+            with torch.no_grad():
+                got.append(model.compute_loss(
+                    model.net(model.prep_input(x), train=True), y).item())
+        vals.append(got)
+        destroy_group()
+    ok = np.allclose(vals[1], vals[0], rtol=CNN_REF_RTOL, atol=1e-6)
+    what = "val (loss, err, err5)" + (", train loss" if train_loss else "")
+    log(f"reference [cnn] {cls.__name__} fp32 crop {cfg['crop']} {what}, "
+        f"card {vals[1]} vs CPU {vals[0]} (rtol {CNN_REF_RTOL}): "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError(f"cnn: {cls.__name__} card and CPU differ")
 
 
 def check_cnn_reference(dev) -> None:
     """A small fp32 WResNet-10-1 (crop 32, batch 8) trained 3 BSP steps
     on the card (cuDNN, a one-rank NCCL group) and on the CPU (gloo)
-    from one initial checkpoint, and a small fp32 AlexNet's val step
-    (crop 64, batch 4) on the same parameters on both: the losses and
-    the val numbers must agree within ``CNN_REF_RTOL``."""
+    from one initial checkpoint: the losses must agree within
+    ``CNN_REF_RTOL``; then AlexNet (crop 64, batch 4), VGG16 (crop 32,
+    batch 2) and GoogLeNet (fused, crop 96, batch 2: its aux heads'
+    VALID 5x5 pool needs inception 4a, at crop/16, to be 5 or more)
+    on one set of parameters on both, their val numbers and
+    GoogLeNet's train-mode loss with the aux terms."""
     import numpy as np
 
     from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.models.vgg16 import VGG16 as VGG16Model
     from theanompi_tpu_torch.models.wresnet import WResNet
-    from theanompi_tpu_torch.parallel.mesh import destroy_group
 
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         init = Path(tmp) / "init"
@@ -937,53 +1020,63 @@ def check_cnn_reference(dev) -> None:
         f"{'equal' if ok else 'DIFFER'}")
     if not ok:
         raise AssertionError("cnn: WResNet card and CPU losses differ")
+    small = dict(n_train=4, n_val=4, compute_dtype="float32", seed=3)
+    card_vs_cpu_val(dev, AlexNet, dict(small, crop=64, batch_size=4))
+    card_vs_cpu_val(dev, VGG16Model, dict(small, crop=32, batch_size=2))
+    card_vs_cpu_val(dev, GoogLeNet, dict(small, crop=96, batch_size=2,
+                                         fused_inception=True),
+                    train_loss=True)
 
-    cfg = dict(crop=64, batch_size=4, n_train=4, n_val=4,
-               compute_dtype="float32", seed=3)
-    vals, trees = [], None
-    for device in ("cpu", dev):
-        model = AlexNet(cfg, device=device)
-        model.build_model()
-        if trees is None:
-            trees = model.checkpoint_trees()
-        else:
-            model.restore_trees(trees)
-        model.compile_iter_fns()
-        vals.append(model.val_iter(0, None))
-        destroy_group()
-    ok = np.allclose(vals[1], vals[0], rtol=CNN_REF_RTOL, atol=1e-6)
-    log(f"reference [cnn] AlexNet fp32 crop 64 val (loss, err, err5), card "
-        f"{vals[1]} vs CPU {vals[0]} (rtol {CNN_REF_RTOL}): "
-        f"{'equal' if ok else 'DIFFER'}")
-    if not ok:
-        raise AssertionError("cnn: AlexNet card and CPU val differ")
+
+def bits_checksum(x) -> int:
+    """A position-weighted sum of the bits of ``x`` (bf16 or fp32): equal
+    for equal tensors, and moved by a changed or moved element."""
+    import torch
+
+    flat = x.contiguous().view(-1)
+    ints = flat.view(torch.int16 if flat.element_size() == 2
+                     else torch.int32).long()
+    w = torch.arange(ints.numel(), device=x.device) % 65521 + 1
+    return int((ints * w).sum())
 
 
 def run_cnn(dev, name: str, model: dict, cfg: dict) -> tuple[dict, object]:
     """One epoch of ``model`` at ``cfg`` through ``BSP().init`` on the
-    card: each step timed with the device synchronized around it, then
-    the val batches; losses finite and val numbers in range.  Returns
-    (numbers, the trained model)."""
+    card: each step timed with the device synchronized around it (its
+    Recorder wait and calc segments read around it too, and a checksum
+    of the batch the net took, in the compute dtype, taken after it),
+    then the val batches; losses finite and val numbers in range.
+    Returns (numbers, the trained model)."""
     import torch
 
     from theanompi_tpu_torch.models.base import ClassifierModel
 
-    times = []
-    train_iter = ClassifierModel.train_iter
+    times, segs, sums, seen = [], [], [], []
+    train_iter, prep = ClassifierModel.train_iter, ClassifierModel.prep_input
 
     def timed(self, count, recorder):
+        seen.clear()
+        before = dict(recorder.total_segments)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         train_iter(self, count, recorder)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        segs.append({k: recorder.total_segments[k] - before[k]
+                     for k in ("wait", "calc")})
+        sums.append(bits_checksum(seen[0].to(self.compute_dtype)))
+
+    def stash(self, x):
+        seen.append(x)
+        return prep(self, x)
 
     torch.cuda.reset_peak_memory_stats()
-    ClassifierModel.train_iter = timed
+    ClassifierModel.train_iter, ClassifierModel.prep_input = timed, stash
     try:
         out = bsp([dev.index], cfg, model=model, print_freq=1)
     finally:
         ClassifierModel.train_iter = train_iter
+        ClassifierModel.prep_input = prep
     trained = out["model"]
     losses, val = out["recorder"].train_losses, out["final_val"]
     med = statistics.median(times[1:])
@@ -993,7 +1086,11 @@ def run_cnn(dev, name: str, model: dict, cfg: dict) -> tuple[dict, object]:
         "losses": losses, "val": val, "step_s": times,
         "median_step_s": med,
         "images_per_s": trained.data.global_batch / med,
+        "median_wait_s": statistics.median(s["wait"] for s in segs[1:]),
+        "median_calc_s": statistics.median(s["calc"] for s in segs[1:]),
+        "loader": out["loader"],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "batch_checksums": sums,
     }
     log(f"[cnn {name}] {json.dumps(res)} on {card_line()}")
     if len(losses) != CNN_STEPS or not all(math.isfinite(x)
@@ -1003,6 +1100,38 @@ def run_cnn(dev, name: str, model: dict, cfg: dict) -> tuple[dict, object]:
             and 0.0 <= val["err_top5"] <= val["err"] <= 1.0):
         raise AssertionError(f"cnn {name}: val {val}")
     return res, trained
+
+
+def check_trajectory(name: str, res: dict, want: dict) -> None:
+    """First and last training loss and the val loss of ``res`` against
+    ``want`` within ``CNN_TRAJECTORY_RTOL``."""
+    got = {"first": res["losses"][0], "last": res["losses"][-1],
+           "val": res["val"]["loss"]}
+    rel = {k: abs(got[k] - v) / v for k, v in want.items()}
+    log(f"[cnn {name}] losses {got} against {want}: relative "
+        f"differences {rel} (rtol {CNN_TRAJECTORY_RTOL})")
+    if max(rel.values()) > CNN_TRAJECTORY_RTOL:
+        raise AssertionError(f"cnn: {name} losses left the reference "
+                             f"trajectory")
+
+
+def profile_feed(model, name: str) -> dict:
+    """The trained model's feed rebuilt (the run closed it), one warm
+    step, then ``profile_training`` over the next batches in order; the
+    busy share and the memcpy device time a step."""
+    from theanompi_tpu_torch.utils import Recorder
+
+    model.compile_iter_fns()
+    try:
+        model.train_iter(0, Recorder(verbose=False))
+        prof = profile_training(model, name=name, start=1)
+    finally:
+        model.close_feed()
+    by_kind = prof["device_ms_per_step_by_kind"]
+    return {"busy_share": prof["busy_share"],
+            "wall_ms_per_step": prof["wall_ms_per_step"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "memcpy_ms_per_step": by_kind.get("memcpy/memset", 0.0)}
 
 
 def run_cnn_phase(dev) -> None:
@@ -1018,30 +1147,56 @@ def run_cnn_phase(dev) -> None:
     os.environ["TM_DATA_DIR"] = str(data_dir)
     check_cnn_reference(dev)
 
-    # the group outlives the runs, so the profile can take more steps
+    # the group outlives the runs, so the profiles can take more steps
     init_group(dev)
-    res, model = run_cnn(dev, "resnet50", RESNET50, RESNET50_CFG)
-    got = {"first": res["losses"][0], "last": res["losses"][-1],
-           "val": res["val"]["loss"]}
-    rel = {k: abs(got[k] - v) / v for k, v in CNN_TRAJECTORY.items()}
-    log(f"[cnn resnet50] losses {got} against {CNN_TRAJECTORY}: relative "
-        f"differences {rel} (rtol {CNN_TRAJECTORY_RTOL})")
-    if max(rel.values()) > CNN_TRAJECTORY_RTOL:
-        raise AssertionError("cnn: ResNet-50 losses left the reference "
-                             "trajectory")
-    profile_training(model, name="cnn resnet50")
-    # the momentum update alone (zero gradients, lr 0): its device time
-    # is the optimizer's share, which kernel names cannot separate from
-    # the other elementwise passes
-    grads = [torch.zeros_like(p) for p in model.params]
-    opt_ms = time_ms(lambda: model.optimizer.update(
-        model.params, grads, model.opt_state, 0.0), reps=5, warmup=1)
-    log(f"[cnn resnet50] momentum update alone: {opt_ms:.3f} ms over "
-        f"{res['params_m']:.2f} M fp32 parameters on {card_line()}")
-    del model, grads
-    torch.cuda.empty_cache()
+    feeds = {}
+    for feed, knobs in FEEDS.items():
+        res, model = run_cnn(dev, f"resnet50 {feed}", RESNET50,
+                             dict(RESNET50_CFG, **knobs))
+        check_trajectory(f"resnet50 {feed}", res, CNN_TRAJECTORY)
+        res["profile"] = profile_feed(model, f"cnn resnet50 {feed}")
+        feeds[feed] = res
+        if feed == "synchronous":
+            # the momentum update alone (zero gradients, lr 0): its
+            # device time is the optimizer's share, which kernel names
+            # cannot separate from the other elementwise passes
+            grads = [torch.zeros_like(p) for p in model.params]
+            opt_ms = time_ms(lambda: model.optimizer.update(
+                model.params, grads, model.opt_state, 0.0), reps=5,
+                warmup=1)
+            log(f"[cnn resnet50] momentum update alone: {opt_ms:.3f} ms "
+                f"over {res['params_m']:.2f} M fp32 parameters on "
+                f"{card_line()}")
+            del grads
+        del model
+        torch.cuda.empty_cache()
+    summary = {feed: {k: r[k] for k in ("median_step_s", "images_per_s",
+                                        "median_wait_s", "median_calc_s",
+                                        "loader", "profile")}
+               for feed, r in feeds.items()}
+    log(f"[cnn resnet50 feeds] {json.dumps(summary)} on {card_line()}")
+    loader = feeds["pipelined"]["loader"]
+    if loader is None or loader["staged"] + loader["starved"] != CNN_STEPS \
+            or loader["starved"] > 1:
+        raise AssertionError(f"cnn: pipelined feed delivered {loader}")
+    sums = {feed: r["batch_checksums"] for feed, r in feeds.items()}
+    if len({tuple(v) for v in sums.values()}) != 1:
+        raise AssertionError(f"cnn: the feeds staged other batches: {sums}")
+    log(f"[cnn resnet50 feeds] the {CNN_STEPS} staged batches are bitwise "
+        f"equal across {list(FEEDS)}")
+
     _, model = run_cnn(dev, "alexnet", ALEXNET, ALEXNET_CFG)
     del model
+    torch.cuda.empty_cache()
+    for name, spec, cfg, want in (
+            ("vgg16", VGG16, VGG16_CFG, VGG16_TRAJECTORY),
+            ("googlenet", GOOGLENET, GOOGLENET_CFG, GOOGLENET_TRAJECTORY)):
+        res, model = run_cnn(dev, name, spec, cfg)
+        check_trajectory(name, res, want)
+        res["profile"] = profile_feed(model, f"cnn {name}")
+        log(f"[cnn {name}] profile {json.dumps(res['profile'])}")
+        del model
+        torch.cuda.empty_cache()
     destroy_group()
     torch.cuda.empty_cache()
 
@@ -1117,6 +1272,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ns = parse_args(argv)
     import torch
 
@@ -1282,6 +1438,7 @@ def main(argv=None) -> int:
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
                              "K3 fp32", "K4")
         if k in records]}))
+    log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

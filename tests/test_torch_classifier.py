@@ -462,14 +462,15 @@ def test_entry_points_train_on_the_cpu_and_want_the_card_by_default(
     assert (tmp_path / "ckpt_0.npz").exists()
 
 
-@pytest.mark.parametrize("model,config,match", [
-    (WResNet, dict(device_data_cache=True), "A7"),
-    (WResNet, dict(steps_per_call=4), "A7"),
-    (WResNet, dict(loader_pipeline=2), "A7"),
-    (ResNet50, dict(stage1_width=128), "A5"),
+@pytest.mark.parametrize("model,config,error,match", [
+    (WResNet, dict(loader_pipeline=1), ValueError, "at least 2 ring slots"),
+    (WResNet, dict(steps_per_call=4), NotImplementedError, "A7"),
+    (WResNet, dict(device_data_cache=True, steps_per_call=4),
+     NotImplementedError, "A7"),
+    (ResNet50, dict(stage1_width=128), NotImplementedError, "A5"),
 ])
-def test_unported_knobs_raise(model, config, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_knobs_raise(model, config, error, match):
+    with pytest.raises(error, match=match):
         model(dict(TINY, **config), device="cpu")
 
 

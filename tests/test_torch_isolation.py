@@ -47,6 +47,11 @@ def test_import_leaves_jax_out_of_sys_modules():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert len(MODULES) >= 15
+    assert {"theanompi_tpu_torch.data", "theanompi_tpu_torch.data.pipeline",
+            "theanompi_tpu_torch.data.sharding",
+            "theanompi_tpu_torch.parallel.debug",
+            "theanompi_tpu_torch.models.vgg16",
+            "theanompi_tpu_torch.models.googlenet"} <= set(MODULES)
 
 
 def imported_names(path: Path) -> set:
@@ -179,8 +184,8 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
      "exchange_bucket_mb"),
     (dict(config=dict(TRAIN, elastic=True)), NotImplementedError, "A9"),
     (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
-    (dict(config=dict(TRAIN, loader_pipeline=2)), NotImplementedError,
-     "A7"),
+    (dict(config=dict(TRAIN, loader_pipeline=1)), ValueError,
+     "at least 2 ring slots"),
     (dict(devices=["meta"]), ValueError, "unsupported device"),
     (dict(devices=["cpu", "cpu"]), ValueError, "one process per device"),
 ])
@@ -196,6 +201,19 @@ def test_bad_values_fail_before_the_model_is_built(monkeypatch, kwargs,
     kw.update(kwargs)
     with pytest.raises(error, match=match):
         bsp_worker.run(**kw)
+
+
+def test_fault_drills_fail_before_the_model_is_built(monkeypatch):
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    def built(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(Llama, "build_model", built)
+    monkeypatch.setenv("TM_FAULT_AT", "0:2")
+    with pytest.raises(NotImplementedError, match="A9"):
+        bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
+                       **LLAMA)
 
 
 def test_unported_rules_and_modes_raise():

@@ -4,31 +4,42 @@ BSP path uses).
 
 Workers drive a duck-typed model exposing ``build_model /
 compile_iter_fns / train_iter / val_iter / adjust_hyperp / save / load
-/ data / epoch / n_epochs``.  This base supplies the shared pieces: the
-lr schedule and the npz checkpoint round trip.  ``save`` stamps the
-JAX package's metadata (``epoch``, ``lr``, ``world_size``,
-``n_devices``, ``global_batch``, the recorder state); only rank 0 of
-the process group writes.  ``load`` restores the newest checkpoint
-that verifies, through the model's ``restore_trees`` hook.
+/ data / epoch / n_epochs / close_feed``.  This base supplies the shared
+pieces: the lr schedule, the feed (a ``data.HostStager`` and, with
+``loader_pipeline``, a ``data.StreamingLoader``) and the npz checkpoint
+round trip.  ``save`` stamps the JAX package's metadata (``epoch``,
+``lr``, ``world_size``, ``n_devices``, ``global_batch``, the feed's
+``loader_cursor``, the recorder state); only rank 0 of the process
+group writes.  ``load`` restores the newest checkpoint that verifies,
+through the model's ``restore_trees`` hook.
 
 ``ClassifierModel`` is the generic image classifier the CNN zoo
-(``wresnet``, ``resnet50``, ``alex_net``) subclasses: a net of
-``ops.layers`` in fp32 master weights run in the compute dtype, the
-synthetic or file-backed data modules, momentum SGD, and the JAX step's
-exchange (gradients by the named strategy, BN running statistics,
-loss and error averaged over the ranks every step).  Its checkpoints
-hold the JAX trees (``params``, ``net_state``, ``opt_state``) in the
-JAX layout under JAX keystr keys, so they load in either package.
+(``wresnet``, ``resnet50``, ``alex_net``, ``vgg16``, ``googlenet``)
+subclasses: a net of ``ops.layers`` in fp32 master weights run in the
+compute dtype, the synthetic or file-backed data modules fed through
+the stager, the streaming feed or the device-resident train set
+(``device_data_cache``), momentum SGD, and the JAX step's exchange
+(gradients by the named strategy, BN running statistics, loss and
+error averaged over the ranks every step).  Its checkpoints hold the
+JAX trees (``params``, ``net_state``, ``opt_state``) in the JAX layout
+under JAX keystr keys, so they load in either package.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Any
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from theanompi_tpu_torch.data.pipeline import (
+    HostStager,
+    StreamingLoader,
+    resolve_loader_depth,
+)
 from theanompi_tpu_torch.ops import optimizers as opt_lib
 from theanompi_tpu_torch.ops.layers import (
     accuracy,
@@ -62,27 +73,28 @@ UNPORTED_KNOBS = {
     "elastic": "A9 (elastic resume, supervisor and fault drills)",
     "trace": "A13 (span tracing)",
     "step_profile": "A13 (step-phase profiler)",
-    "device_data_cache": "A7 (device-resident data cache)",
 }
 
 
 def refuse_unported(cfg: dict) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a config
-    knob of a feature the port does not run yet."""
+    knob (or ``TM_FAULT_AT``) of a feature the port does not run yet,
+    and ``ValueError`` for a bad ``loader_pipeline``."""
     for knob, item in UNPORTED_KNOBS.items():
         if cfg.get(knob):
             raise NotImplementedError(
                 f"config {knob}={cfg[knob]!r} is not ported yet "
                 f"(ROADMAP.md {item})"
             )
-    if int(cfg.get("loader_pipeline", 0) or 0) >= 2:
+    if os.environ.get("TM_FAULT_AT"):
         raise NotImplementedError(
-            "loader_pipeline >= 2 (the streaming loader) is not ported yet "
-            "(ROADMAP.md A7)"
+            f"TM_FAULT_AT={os.environ['TM_FAULT_AT']!r}: the fault drills "
+            f"are not ported yet (ROADMAP.md A9)"
         )
+    resolve_loader_depth(cfg)
     if int(cfg.get("steps_per_call", 0) or 0) > 1:
         raise NotImplementedError(
-            "steps_per_call > 1 (the scanned multi-step train_chunk over the "
+            "steps_per_call > 1 (several steps a call over the "
             "device-resident data) is not ported yet (ROADMAP.md A7)"
         )
 
@@ -96,6 +108,11 @@ class TMModel:
     epoch: int = 0
     n_epochs: int = 1
     current_lr: float = 0.0
+    #: the host→device path and, with ``loader_pipeline``, the
+    #: streaming feed (built by ``compile_iter_fns``)
+    _stager: HostStager | None = None
+    _feed: StreamingLoader | None = None
+    _device_cache = None
 
     def build_model(self, n_replicas: int = 1) -> None:
         raise NotImplementedError
@@ -132,6 +149,59 @@ class TMModel:
                 gamma ** (epoch // every)
             )
 
+    # -- the feed (theanompi_tpu_torch/data: the data plane) ---------------
+
+    def _init_feed(self, batch_size: int, dtypes=None) -> None:
+        """Build the host→device path of this compile: a
+        :class:`HostStager` over this rank's ``batch_size`` rows always,
+        plus a :class:`StreamingLoader` feed when ``loader_pipeline``
+        asks for one and no device-resident dataset is live (that path
+        moves no batch bytes a step: a feed behind it would only burn a
+        thread)."""
+        self.close_feed()
+        depth = resolve_loader_depth(getattr(self, "config", {}))
+        self._stager = HostStager(self.device, batch_size, self._rank,
+                                  dtypes=dtypes, slots=depth + 1)
+        if not depth:
+            return
+        if self._device_cache is not None:
+            warnings.warn(
+                "loader_pipeline requested alongside an active "
+                "device_data_cache path; the device cache already moves "
+                "zero bytes per step — streaming feed disabled",
+                stacklevel=3,
+            )
+            return
+        data = self.data
+        # a synthetic set builds its train arrays at the first read
+        # (seconds at ImageNet shapes, past the feed's timeout): build
+        # them here, before the producer starts
+        perm = getattr(data, "epoch_permutation", None)
+        if perm is not None:
+            perm()
+        self._feed = StreamingLoader(
+            data.train_batch,
+            self._stager.stage,
+            n_batches=lambda: data.n_batch_train,
+            depth=depth,
+            global_batch=int(data.global_batch),
+            sample_ids=getattr(data, "batch_indices", None),
+            journal_meta=self._feed_meta,
+            device=self.device,
+        )
+
+    def _feed_meta(self) -> dict:
+        """Journal stamp of the feed's sample-id accounting: the epoch,
+        and the world each delivery happened under."""
+        return {"epoch": int(self.epoch), "world": int(self._world)}
+
+    def close_feed(self) -> None:
+        """Stop the streaming feed's producer thread (run exit,
+        recompiles).  Idempotent; a no-op on the synchronous feed."""
+        if self._feed is not None:
+            self._feed.stop()
+        self._feed = None
+
     # -- checkpoint / resume ------------------------------------------------
 
     def save(self, directory: str, recorder=None) -> None:
@@ -141,6 +211,11 @@ class TMModel:
         gb = getattr(getattr(self, "data", None), "global_batch", None)
         if gb is not None:
             meta["global_batch"] = int(gb)
+        # the stream cursor: epoch + next sample offset identify the
+        # position exactly (the permutation is reseeded by shuffle)
+        if self._feed is not None:
+            meta["loader_cursor"] = dict(self._feed.cursor(),
+                                         epoch=self.epoch)
         if recorder is not None:
             meta["recorder"] = recorder.state_dict()
         if dist.is_initialized() and dist.get_rank() != 0:
@@ -209,8 +284,9 @@ class ClassifierModel(TMModel):
     ``_init_params``.  Config knobs follow the JAX package:
     ``batch_size`` (per rank), ``n_epochs``, ``lr``, ``lr_schedule``,
     ``momentum``, ``weight_decay``, ``compute_dtype``, ``seed``,
-    ``exch_strategy``, ``exchange_bucket_mb``.  ``device`` defaults to
-    the card; ``device="cpu"`` runs on the CPU.
+    ``exch_strategy``, ``exchange_bucket_mb``, ``loader_pipeline``,
+    ``device_data_cache``.  ``device`` defaults to the card;
+    ``device="cpu"`` runs on the CPU.
     """
 
     flat_checkpoint = True
@@ -291,6 +367,47 @@ class ClassifierModel(TMModel):
         m = getattr(self.data, "device_mean", None)
         self._mean = None if m is None else torch.as_tensor(
             np.asarray(m), device=self.device).to(self.compute_dtype)
+        self._device_cache = None
+        if self.config.get("device_data_cache"):
+            self._init_device_cache()
+        self._init_feed(self.data.batch_size, dtypes=(None, torch.int64))
+
+    def _init_device_cache(self) -> None:
+        """Put the whole train set on the device once
+        (``device_data_cache``): floats in the compute dtype, labels as
+        int64.  Each step then gathers its rows there from the epoch
+        permutation (put there once an epoch), so steady-state steps
+        move no image bytes from the host."""
+        get = getattr(self.data, "dataset_arrays", None)
+        arrays = get("train") if get is not None else None
+        if arrays is None:
+            warnings.warn(
+                "device_data_cache requested but the data object does "
+                "not expose dataset_arrays(); falling back to per-step "
+                "staging",
+                stacklevel=2,
+            )
+            return
+        xs, ys = (torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+        xs = xs.to(self.device)
+        if xs.is_floating_point():
+            xs = xs.to(self.compute_dtype)
+        self._device_cache = (xs, ys.to(self.device, torch.int64))
+        self._perm_src = self._perm_dev = None
+
+    def _cached_batch(self, count: int):
+        """This rank's rows of train batch ``count``, gathered on the
+        device: the rows ``[r*B, (r+1)*B)`` of the global batch, as the
+        staged path takes them."""
+        perm = self.data.epoch_permutation()
+        if perm is not self._perm_src:
+            self._perm_src = perm
+            self._perm_dev = torch.from_numpy(
+                np.asarray(perm, np.int64)).to(self.device)
+        b = self.data.batch_size
+        lo = count * self.data.global_batch + self._rank * b
+        idx = self._perm_dev[lo:lo + b]
+        return tuple(a.index_select(0, idx) for a in self._device_cache)
 
     # -- loss hooks ---------------------------------------------------------
 
@@ -313,13 +430,9 @@ class ClassifierModel(TMModel):
     # -- iteration ----------------------------------------------------------
 
     def put_batch(self, batch):
-        """This rank's rows of a global (x, y) host batch, on the
-        device."""
-        b = self.data.batch_size
-        lo = self._rank * b
-        x, y = (torch.from_numpy(np.ascontiguousarray(a[lo:lo + b]))
-                for a in batch)
-        return x.to(self.device), y.to(self.device).long()
+        """This rank's rows of a global (x, y) host batch, on the device
+        through the compile's :class:`HostStager` (labels as int64)."""
+        return self._stager.stage(batch).wait()
 
     def _rank_mean(self, *xs) -> torch.Tensor:
         stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
@@ -330,7 +443,14 @@ class ClassifierModel(TMModel):
 
     def train_iter(self, count: int, recorder) -> None:
         recorder.start()
-        x, y = self.put_batch(self.data.train_batch(count))
+        if self._device_cache is not None:
+            x, y = self._cached_batch(count)
+        elif self._feed is not None:
+            # fetched and staged by the producer thread under the last
+            # step: the wait segment is a ring pop
+            x, y = self._feed.next(count).wait()
+        else:
+            x, y = self.put_batch(self.data.train_batch(count))
         recorder.end("wait")
         recorder.start()
         out = self.net(self.prep_input(x), train=True, gen=self._dropout_gen)

@@ -25,7 +25,9 @@ weights ``[in, out]`` so every product is ``x @ w``.
   allreduce-mean of the gradients by the named strategy over the
   process group, and the optimizer update.  Each rank takes rows
   ``[r*B, (r+1)*B)`` of the global batch, as the JAX ``batch_spec``
-  shards it; loss and error are means over the ranks.
+  shards it, staged as int64 ids through ``data.HostStager`` (or the
+  streaming feed, with ``loader_pipeline``); loss and error are means
+  over the ranks.
 
 tp/sp/pp > 1, MoE and selective remat (``remat_save``) are not ported
 yet (ROADMAP.md).
@@ -116,11 +118,11 @@ class Llama(TMModel):
     vocab, seq_len, compute_dtype, seed`` and, for training,
     ``batch_size`` (per rank), ``n_train, n_val, n_epochs, lr,
     optimizer, weight_decay, remat, xent_chunks, exch_strategy,
-    exchange_bucket_mb, lr_schedule``.  Serving parameters are drawn
-    from ``self.generator`` (seeded with ``seed``) at first use unless
-    ``params`` is given (e.g. from :func:`params_from_jax` or a
-    checkpoint); training draws the same values in fp32 at
-    ``compile_iter_fns``.  ``device`` defaults to the card;
+    exchange_bucket_mb, lr_schedule, loader_pipeline``.  Serving
+    parameters are drawn from ``self.generator`` (seeded with ``seed``)
+    at first use unless ``params`` is given (e.g. from
+    :func:`params_from_jax` or a checkpoint); training draws the same
+    values in fp32 at ``compile_iter_fns``.  ``device`` defaults to the card;
     ``device="cpu"`` runs on the CPU.
     """
 
@@ -154,6 +156,11 @@ class Llama(TMModel):
                 f"the port runs tp=sp=pp=1 without MoE; {unported} is not "
                 f"ported yet (ROADMAP.md A11-A12: tp>1 serving, parallel "
                 f"layouts, MoE)"
+            )
+        if c.get("device_data_cache"):
+            raise NotImplementedError(
+                "device_data_cache for Llama is not ported yet (ROADMAP.md "
+                "A7: the JAX Llama cache runs steps_per_call steps a call)"
             )
         if c.get("remat_save"):
             raise NotImplementedError(
@@ -354,17 +361,9 @@ class Llama(TMModel):
             t.requires_grad_(True)
         self._params = params
         self.opt_state = self.optimizer.init(list(_leaves(params)))
-
-    def _local_batch(self, batch):
-        """This rank's rows of a global (inputs, targets) batch, on the
-        device."""
-        b = int(self.config.get("batch_size", 8))
-        lo = self._rank * b
-        return tuple(
-            torch.as_tensor(np.ascontiguousarray(a[lo:lo + b]),
-                            device=self.device).long()
-            for a in batch
-        )
+        # this rank's rows of each global (inputs, targets) batch, as
+        # int64 ids, through the stager (and the feed, when asked for)
+        self._init_feed(b, dtypes=(torch.int64, torch.int64))
 
     def _rank_mean(self, *xs) -> torch.Tensor:
         stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
@@ -375,7 +374,9 @@ class Llama(TMModel):
 
     def train_iter(self, count: int, recorder) -> None:
         recorder.start()
-        x, y = self._local_batch(self.data.train_batch(count))
+        staged = (self._feed.next(count) if self._feed is not None
+                  else self._stager.stage(self.data.train_batch(count)))
+        x, y = staged.wait()
         recorder.end("wait")
         recorder.start()
         leaves = list(_leaves(self.params))
@@ -390,7 +391,7 @@ class Llama(TMModel):
 
     @torch.no_grad()
     def val_iter(self, count: int, recorder):
-        x, y = self._local_batch(self.data.val_batch(count))
+        x, y = self._stager.stage(self.data.val_batch(count)).wait()
         h = self._forward(self.params, x)
         logits = tp_lib.col_parallel(h, self.params["lm_head"])
         stats = self._rank_mean(

@@ -7,9 +7,11 @@ gloo on the CPU) owns device ``r`` and takes rows ``[r*B, (r+1)*B)`` of
 each global batch.  The loop is the JAX one: per epoch
 ``data.shuffle(epoch)``, ``train_iter`` over the batches (forward,
 backward, allreduce-mean by the named strategy, optimizer update), the
-val pass, ``adjust_hyperp``, ``save``; ``resume`` restarts from the
-newest checkpoint (after its epoch, or inside it at a stamped
-``next_iter``).
+val pass, the replica check (``TM_DEBUG_SYNC=1``), ``adjust_hyperp``,
+``save``; ``resume`` restarts from the newest checkpoint (after its
+epoch, or inside it at a stamped ``next_iter``).  The streaming feed's
+cursor is read and its producer thread stopped when the run ends, on
+an exception too; the cursor is the summary's ``loader``.
 
 A run in this process uses one device; ``launcher.launch(mode=
 "subprocess")`` starts one process per device and hands each its rank.
@@ -26,6 +28,7 @@ from typing import Any, Sequence
 import torch
 
 from theanompi_tpu_torch.models.base import refuse_unported
+from theanompi_tpu_torch.parallel.debug import check_replicas_synced
 from theanompi_tpu_torch.parallel.mesh import (
     destroy_group,
     init_group,
@@ -89,7 +92,7 @@ def run(
     strat = get_strategy(exch_strategy or cfg.get("exch_strategy", "ici32"))
     bucket_mb = resolve_bucket_mb(cfg)
     resolve_compression(cfg)
-    refuse_unported(cfg)
+    refuse_unported(cfg)            # loader_pipeline is validated here
     devs = resolve_devices(devices)
     world = len(devs) if world_size is None else int(world_size)
     if world != len(devs):
@@ -107,6 +110,7 @@ def run(
         # oversubscribe
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     created = init_group(device, rank, world, init_method)
+    model = None
     try:
         model = Model(cfg, device=device)
         model.build_model(n_replicas=world)
@@ -142,10 +146,21 @@ def run(
                         tot[k] += v
                 recorder.val_error(*(t / data.n_batch_val for t in tot))
             recorder.end_epoch(epoch)
+            if os.environ.get("TM_DEBUG_SYNC") == "1":
+                # the ranks must hold equal params after an epoch of
+                # exchanges
+                spread = check_replicas_synced(model.params, strict=True)
+                if verbose:
+                    print(f"debug-sync epoch {epoch}: spread={spread:g}",
+                          flush=True)
             model.adjust_hyperp(epoch + 1)
             if checkpoint_dir:
                 model.save(checkpoint_dir, recorder)
             model.epoch += 1
+        # the stream cursor (staged/starved counts), read before the
+        # producer is parked below
+        feed = getattr(model, "_feed", None)
+        loader = feed.cursor() if feed is not None else None
         last_val = recorder.val_records[-1] if recorder.val_records else {}
         return {
             "epochs": model.epoch,
@@ -161,10 +176,15 @@ def run(
             "world_size": world,
             "rank": rank,
             "device": str(device),
+            "loader": loader,
             "recorder": recorder,
             "model": model,
         }
     finally:
+        # no producer thread outlives the run, on an exception too
+        close = getattr(model, "close_feed", None)
+        if close is not None:
+            close()
         if created:
             destroy_group()
 
