@@ -6,9 +6,10 @@ NVIDIA card.
     python3 chip_smoke.py --phases kernels     # build + kernel checks only
     python3 chip_smoke.py --layers 2           # shallower full-width models
     python3 chip_smoke.py --phases cnn         # build + the CNN phase only
+    python3 chip_smoke.py --phases async       # build + the async rules
 
 Phases (``--phases`` takes a comma list of kernels, serving, training,
-cnn; the card-and-build phase always runs):
+cnn, async; the card-and-build phase always runs):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
@@ -61,7 +62,24 @@ cnn; the card-and-build phase always runs):
    ``GOOGLENET_TRAJECTORY``.  No TPU kernel lies on this path:
    convolutions and matmuls are cuDNN's and cuBLAS's, BN, pooling and
    LRN plain PyTorch, the staging copies;
-7. the kernels line — one JSON object with every kernel's numbers.
+7. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
+   replicas stacked on the card, on synthetic data: first a tiny fp32
+   LSTM under GoSGD (W = 2, staleness 1) and WResNet-10-1 under EASGD
+   (W = 2, ``speeds`` set) trained on the card and on the CPU from one
+   init checkpoint (losses, val loss and scores compared); then
+   BASELINE.json config 4, ``GOSGD().init`` with the IMDB LSTM at the
+   JAX defaults (vocab 10000, embedding and hidden 128, maxlen 100,
+   batch 32 a worker, dropout 0.5, bf16, push probability 0.25), and
+   config 3, ``EASGD().init`` with ResNet-50 at the cnn phase's
+   published config (alpha 1/4, tau 4): 8 steps each, every iteration
+   timed with its Recorder wait, calc and comm segments, and 2 val
+   batches, with the median step, reviews or images a second, the
+   gossip rounds or center merges, peak memory and a 2-step profile of
+   the replica steps (busy share); the losses held to
+   ``LSTM_GOSGD_TRAJECTORY`` and ``RESNET50_EASGD_TRAJECTORY``.  The
+   kernels' launch counts over the phase are printed: no kernel of the
+   package lies on this path;
+8. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
 Any failure raises and the exit code is not 0.  Without a CUDA device,
@@ -105,6 +123,14 @@ REDUCED = {
     "files in the repository; a cut of the dataset's size, not a width",
     "dataset (cnn, VGG16 and GoogLeNet)": "synthetic, 8 x 32 train and "
     "2 x 32 val images (ImageNet: 1.28 M / 50 k): as above",
+    "dataset (async, LSTM)": "the synthetic IMDB task, 8 x 128 train and "
+    "2 x 128 val reviews (IMDB: 25 k / 25 k): no imdb.pkl in the "
+    "repository; a cut of the dataset's size, not a width",
+    "dataset (async, ResNet-50)": "synthetic, 8 x 512 train and 2 x 512 "
+    "val images (ImageNet: 1.28 M / 50 k): as above",
+    "workers (async)": "4 replicas stacked on one card (the reference "
+    "ran one worker process per GPU, the JAX package one replica per "
+    "mesh device): the run has one card",
 }
 # per-step losses of the small fp32 model trained on the card and on
 # the CPU from one initial state: fp32 summation order differs between
@@ -132,7 +158,7 @@ CNN_TRAJECTORY_RTOL = 1e-2
 # with them gave them on an H100; held at CNN_TRAJECTORY_RTOL
 VGG16_TRAJECTORY = {"first": 7.15341, "last": 6.91443, "val": 6.95076}
 GOOGLENET_TRAJECTORY = {"first": 11.3753, "last": 11.0767, "val": 6.90323}
-PHASES = ("kernels", "serving", "training", "cnn")
+PHASES = ("kernels", "serving", "training", "cnn", "async")
 
 
 def log(*a):
@@ -879,22 +905,11 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_training(model, steps: int = 2, name: str = "training",
-                     start: int = 0) -> dict:
-    """Where a training step's time goes: ``steps`` more steps of the
-    trained model traced as ``trace_steps`` does, with the device time
-    also summed by kind of kernel.  The steps take batches ``start``,
-    ``start + 1``, ... in order (wrapping at the epoch's end), so a
-    streaming feed's ring keeps running across them."""
-    import itertools
-
-    from theanompi_tpu_torch.utils import Recorder
-
-    rec = Recorder(verbose=False)
-    nb = model.data.n_batch_train
-    order = itertools.count(start)
-    out, kernels = trace_steps(
-        lambda i: model.train_iter(next(order) % nb, rec), steps, top=10)
+def profile_step(step, steps: int, name: str) -> dict:
+    """Where a step's time goes: ``steps`` calls of ``step(i)`` traced
+    as ``trace_steps`` does, with the device time also summed by kind
+    of kernel."""
+    out, kernels = trace_steps(step, steps, top=10)
     by_kind, names = {}, {}
     for k, ms in kernels:
         by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
@@ -907,6 +922,23 @@ def profile_training(model, steps: int = 2, name: str = "training",
                                   for kind, top in names.items()}
     log(f"[{name}] step profile {json.dumps(out)} on {card_line()}")
     return out
+
+
+def profile_training(model, steps: int = 2, name: str = "training",
+                     start: int = 0) -> dict:
+    """``profile_step`` over ``steps`` more steps of the trained model.
+    The steps take batches ``start``, ``start + 1``, ... in order
+    (wrapping at the epoch's end), so a streaming feed's ring keeps
+    running across them."""
+    import itertools
+
+    from theanompi_tpu_torch.utils import Recorder
+
+    rec = Recorder(verbose=False)
+    nb = model.data.n_batch_train
+    order = itertools.count(start)
+    return profile_step(lambda i: model.train_iter(next(order) % nb, rec),
+                        steps, name)
 
 
 # -- the CNN classifier path -------------------------------------------------
@@ -1108,10 +1140,10 @@ def check_trajectory(name: str, res: dict, want: dict) -> None:
     got = {"first": res["losses"][0], "last": res["losses"][-1],
            "val": res["val"]["loss"]}
     rel = {k: abs(got[k] - v) / v for k, v in want.items()}
-    log(f"[cnn {name}] losses {got} against {want}: relative "
+    log(f"[{name}] losses {got} against {want}: relative "
         f"differences {rel} (rtol {CNN_TRAJECTORY_RTOL})")
     if max(rel.values()) > CNN_TRAJECTORY_RTOL:
-        raise AssertionError(f"cnn: {name} losses left the reference "
+        raise AssertionError(f"{name}: losses left the reference "
                              f"trajectory")
 
 
@@ -1134,17 +1166,23 @@ def profile_feed(model, name: str) -> dict:
             "memcpy_ms_per_step": by_kind.get("memcpy/memset", 0.0)}
 
 
+def use_synthetic_data() -> None:
+    """Point ``TM_DATA_DIR`` at an empty directory: every data module
+    takes its synthetic path."""
+    data_dir = ROOT / "build" / "no_data"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    if any(data_dir.iterdir()):
+        raise AssertionError(f"{data_dir} must be empty (synthetic data)")
+    os.environ["TM_DATA_DIR"] = str(data_dir)
+
+
 def run_cnn_phase(dev) -> None:
     """The cnn phase (module docstring, item 6)."""
     import torch
 
     from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
 
-    data_dir = ROOT / "build" / "no_data"
-    data_dir.mkdir(parents=True, exist_ok=True)
-    if any(data_dir.iterdir()):
-        raise AssertionError(f"{data_dir} must be empty (synthetic data)")
-    os.environ["TM_DATA_DIR"] = str(data_dir)
+    use_synthetic_data()
     check_cnn_reference(dev)
 
     # the group outlives the runs, so the profiles can take more steps
@@ -1153,7 +1191,7 @@ def run_cnn_phase(dev) -> None:
     for feed, knobs in FEEDS.items():
         res, model = run_cnn(dev, f"resnet50 {feed}", RESNET50,
                              dict(RESNET50_CFG, **knobs))
-        check_trajectory(f"resnet50 {feed}", res, CNN_TRAJECTORY)
+        check_trajectory(f"cnn resnet50 {feed}", res, CNN_TRAJECTORY)
         res["profile"] = profile_feed(model, f"cnn resnet50 {feed}")
         feeds[feed] = res
         if feed == "synchronous":
@@ -1192,13 +1230,221 @@ def run_cnn_phase(dev) -> None:
             ("vgg16", VGG16, VGG16_CFG, VGG16_TRAJECTORY),
             ("googlenet", GOOGLENET, GOOGLENET_CFG, GOOGLENET_TRAJECTORY)):
         res, model = run_cnn(dev, name, spec, cfg)
-        check_trajectory(name, res, want)
+        check_trajectory(f"cnn {name}", res, want)
         res["profile"] = profile_feed(model, f"cnn {name}")
         log(f"[cnn {name}] profile {json.dumps(res['profile'])}")
         del model
         torch.cuda.empty_cache()
     destroy_group()
     torch.cuda.empty_cache()
+
+
+# -- the asynchronous rules (BASELINE.json configs 3 and 4) -------------------
+
+LSTM_SPEC = dict(modelfile="theanompi_tpu_torch.models.lstm",
+                 modelclass="LSTM")
+ASYNC_STEPS, ASYNC_VAL_BATCHES, ASYNC_W = 8, 2, 4
+# config 4: GoSGD x the IMDB LSTM at the JAX defaults (the published
+# width), 32 reviews a worker
+LSTM_BATCH = 32
+LSTM_GOSGD_CFG = dict(vocab=10000, emb_dim=128, hidden=128, maxlen=100,
+                      batch_size=LSTM_BATCH, dropout=0.5,
+                      compute_dtype="bfloat16", lr=0.1, weight_decay=0.0,
+                      n_train=ASYNC_STEPS * ASYNC_W * LSTM_BATCH,
+                      n_val=ASYNC_VAL_BATCHES * ASYNC_W * LSTM_BATCH, seed=0)
+GOSGD_KW = dict(push_prob=0.25)
+# config 3: EASGD x ResNet-50 at its published config (the cnn phase's),
+# 128 images a worker, alpha 1/W, tau 4: two center merges in 8 steps
+RESNET50_EASGD_CFG = dict(RESNET50_CFG,
+                          n_train=ASYNC_STEPS * ASYNC_W * CNN_BATCH,
+                          n_val=ASYNC_VAL_BATCHES * ASYNC_W * CNN_BATCH)
+EASGD_KW = dict(alpha=1.0 / ASYNC_W, tau=4)
+# first and last training loss and the val loss of both runs (seed 0,
+# synthetic data), as the first run of the async phase gave them on an
+# H100: later runs must stay within CNN_TRAJECTORY_RTOL (bf16 products;
+# the embedding's backward accumulates with atomics)
+LSTM_GOSGD_TRAJECTORY = {"first": 0.693033, "last": 0.681746,
+                         "val": 0.697183}
+RESNET50_EASGD_TRAJECTORY = {"first": 6.91676, "last": 7.13119,
+                             "val": 6.98087}
+# the card-vs-CPU checks of both rules: fp32, dropout 0, per-step losses,
+# val loss and GoSGD's final scores differ by summation order only,
+# carried over 4 steps and the merges
+ASYNC_REF_RTOL = 1e-4
+ASYNC_SMALL = {
+    "gosgd lstm": ("gosgd", LSTM_SPEC,
+                   dict(vocab=64, emb_dim=16, hidden=16, maxlen=20,
+                        batch_size=8, n_train=64, n_val=16, dropout=0.0,
+                        compute_dtype="float32", seed=3),
+                   dict(push_prob=0.5, staleness=1)),
+    "easgd wresnet": ("easgd", WRESNET,
+                      dict(CNN_SMALL, batch_size=4, n_train=32, n_val=8,
+                           lr_schedule=None),
+                      dict(tau=2, speeds=[1.0, 0.5])),
+}
+
+
+def async_run(rule: str, devices, config, model, **kw) -> dict:
+    """One in-process run of ``rule`` ("easgd" or "gosgd") through the
+    rule API; its summary."""
+    from theanompi_tpu_torch import EASGD, GOSGD
+
+    r = {"easgd": EASGD, "gosgd": GOSGD}[rule]()
+    r.init(devices=devices, launch="inprocess", config=config, n_epochs=1,
+           **model, **kw)
+    return r.wait()
+
+
+def check_async_reference(dev) -> None:
+    """A tiny fp32 LSTM under GoSGD (W = 2, staleness 1) and WResNet-10-1
+    under EASGD (W = 2, ``speeds`` set: BN state per replica), each
+    trained 4 steps with both replicas on the card and on the CPU from
+    one init checkpoint: losses, val loss and GoSGD's scores must agree
+    within ``ASYNC_REF_RTOL``."""
+    import importlib
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, (rule, spec, cfg, kw) in ASYNC_SMALL.items():
+            cls = getattr(importlib.import_module(spec["modelfile"]),
+                          spec["modelclass"])
+            init = Path(tmp) / name / "init"
+            cls.save_init_checkpoint(cfg, init)
+            got = []
+            for where, devices in (("card", [dev.index] * 2),
+                                   ("cpu", ["cpu"] * 2)):
+                d = Path(tmp) / name / where
+                shutil.copytree(init, d)
+                out = async_run(rule, devices, cfg, spec,
+                                checkpoint_dir=str(d), resume=True,
+                                verbose=False, **kw)
+                got.append({"losses": out["recorder"].train_losses,
+                            "val": out["final_val"]["loss"],
+                            "scores": out.get("scores")})
+            card, cpu = got
+            ok = len(card["losses"]) == 4 and all(
+                np.allclose(card[k], cpu[k], rtol=ASYNC_REF_RTOL, atol=0)
+                for k in ("losses", "val")
+                + (("scores",) if rule == "gosgd" else ()))
+            log(f"reference [async] {name} fp32, W=2, {kw}: card {card} vs "
+                f"CPU {cpu} (rtol {ASYNC_REF_RTOL}): "
+                f"{'equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"async: {name} card and CPU differ")
+
+
+def run_async(dev, name: str, rule: str, model: dict, cfg: dict, kw: dict,
+              unit: str, want) -> tuple[dict, object]:
+    """One epoch of ``rule`` x ``model`` with ``ASYNC_W`` replicas on the
+    card: each iteration (wait + the W replica steps + any exchange)
+    timed from one printed step to the next with the device
+    synchronized, its Recorder segments read alike; then the val
+    batches.  Losses finite, val numbers in range, exchanges made, and
+    the losses held to ``want``.  Returns (numbers, the run's replica
+    engine)."""
+    import torch
+
+    from theanompi_tpu_torch.utils.recorder import Recorder
+    from theanompi_tpu_torch.workers.replica_engine import ReplicaEngine
+
+    marks, engines = [], []
+    print_info, init = Recorder.print_train_info, ReplicaEngine.__init__
+
+    def mark(self, count):
+        print_info(self, count)
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), dict(self.total_segments)))
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        engines.append(self)
+
+    torch.cuda.reset_peak_memory_stats()
+    Recorder.print_train_info, ReplicaEngine.__init__ = mark, keep
+    try:
+        out = async_run(rule, [dev.index] * ASYNC_W, cfg, model,
+                        print_freq=1, **kw)
+    finally:
+        Recorder.print_train_info, ReplicaEngine.__init__ = print_info, init
+    (engine,) = engines
+    losses, val = out["recorder"].train_losses, out["final_val"]
+    steps = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    segs = [{k: b[1][k] - a[1][k] for k in ("wait", "calc", "comm")}
+            for a, b in zip(marks, marks[1:])]
+    med = statistics.median(steps)
+    gb = engine.model.data.global_batch
+    res = {
+        "run": name, "config": cfg, "rule_kwargs": kw,
+        "n_workers": out["n_workers"], "global_batch": gb,
+        "params_m": sum(p.numel() for p in engine.model.params) / 1e6,
+        "losses": losses, "val": val, "step_s": steps,
+        "median_step_s": med, f"{unit}_per_s": gb / med,
+        **{f"median_{k}_s": statistics.median(s[k] for s in segs)
+           for k in ("wait", "calc", "comm")},
+        "total_segments_s": dict(out["recorder"].total_segments),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    if rule == "gosgd":
+        res.update(gossip_rounds=out["gossip_rounds"], scores=out["scores"],
+                   best_worker=out["best_worker"])
+    else:
+        res["center_merges"] = out["exchanges"] // out["n_workers"]
+    n_exch = res.get("gossip_rounds", res.get("center_merges"))
+    res["comm_s_per_exchange"] = (res["total_segments_s"]["comm"] / n_exch
+                                  if n_exch else None)
+    log(f"[async {name}] {json.dumps(res)} on {card_line()}")
+    if len(losses) != ASYNC_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"async {name}: losses {losses}")
+    if not (math.isfinite(val["loss"])
+            and 0.0 <= val["err_top5"] <= val["err"] <= 1.0):
+        raise AssertionError(f"async {name}: val {val}")
+    if not n_exch:
+        raise AssertionError(f"async {name}: no exchange")
+    if rule == "easgd" and res["center_merges"] != ASYNC_STEPS // kw["tau"]:
+        raise AssertionError(f"async {name}: {res['center_merges']} merges")
+    check_trajectory(f"async {name}", res, want)
+    return res, engine
+
+
+def profile_engine(engine, name: str, steps: int = 2) -> dict:
+    """``profile_step`` over ``steps`` more training steps of the run's
+    replica engine (each the W replica steps on a staged batch); the
+    busy share and the wall and device time a step."""
+    data, lr = engine.model.data, engine.model.current_lr
+    prof = profile_step(
+        lambda i: engine.train_step(data.train_batch(i % data.n_batch_train),
+                                    lr), steps, f"async {name}")
+    return {k: prof[k] for k in ("busy_share", "wall_ms_per_step",
+                                 "device_ms_per_step")}
+
+
+def run_async_phase(dev, counters) -> None:
+    """The async phase (module docstring, item 7)."""
+    import torch
+
+    use_synthetic_data()
+    reset_counts(*counters)
+    check_async_reference(dev)
+    summary = {}
+    for name, rule, model, cfg, kw, unit, want in (
+            ("gosgd lstm", "gosgd", LSTM_SPEC, LSTM_GOSGD_CFG, GOSGD_KW,
+             "reviews", LSTM_GOSGD_TRAJECTORY),
+            ("easgd resnet50", "easgd", RESNET50, RESNET50_EASGD_CFG,
+             EASGD_KW, "images", RESNET50_EASGD_TRAJECTORY)):
+        res, engine = run_async(dev, name, rule, model, cfg, kw, unit, want)
+        res["profile"] = profile_engine(engine, name)
+        summary[name] = {k: v for k, v in res.items()
+                         if k.startswith(("median_", "peak_", "gossip",
+                                          "center", "comm_", "profile"))
+                         or k.endswith("_per_s")}
+        del engine
+        torch.cuda.empty_cache()
+    log(f"[async] {json.dumps(summary)} on {card_line()}")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"[async] launches of the package's kernels over the phase: "
+        f"{launches} (no kernel of the package lies on this path)")
 
 
 # -- phase 1: what the compiler made of the kernels -------------------------
@@ -1433,7 +1679,12 @@ def main(argv=None) -> int:
         # phase 6: the image-classifier path (no TPU kernel on it)
         run_cnn_phase(dev)
 
-    # phase 7: the kernels line, the card, the result
+    if "async" in ns.phases:
+        # phase 7: EASGD and GoSGD in one process (no TPU kernel on it)
+        run_async_phase(dev, (flash_fwd_cuda, flash_bwd_dkv_cuda,
+                              flash_bwd_dq_cuda, paged_attend_cuda))
+
+    # phase 8: the kernels line, the card, the result
     log(json.dumps({"kernels": [
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
                              "K3 fp32", "K4")

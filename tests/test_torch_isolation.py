@@ -51,7 +51,13 @@ def test_import_leaves_jax_out_of_sys_modules():
             "theanompi_tpu_torch.data.sharding",
             "theanompi_tpu_torch.parallel.debug",
             "theanompi_tpu_torch.models.vgg16",
-            "theanompi_tpu_torch.models.googlenet"} <= set(MODULES)
+            "theanompi_tpu_torch.models.googlenet",
+            "theanompi_tpu_torch.models.lstm",
+            "theanompi_tpu_torch.models.data.imdb",
+            "theanompi_tpu_torch.ops.recurrent",
+            "theanompi_tpu_torch.workers.replica_engine",
+            "theanompi_tpu_torch.workers.easgd_worker",
+            "theanompi_tpu_torch.workers.gosgd_worker"} <= set(MODULES)
 
 
 def imported_names(path: Path) -> set:
@@ -217,11 +223,16 @@ def test_fault_drills_fail_before_the_model_is_built(monkeypatch):
 
 
 def test_unported_rules_and_modes_raise():
+    """The async rules run in one process: one process per device (the
+    multi-process rules) is refused, naming ROADMAP A10."""
     from theanompi_tpu_torch import EASGD, GOSGD, BSP
 
+    lstm = dict(modelfile="theanompi_tpu_torch.models.lstm",
+                modelclass="LSTM")
     for rule in (EASGD(), GOSGD()):
         with pytest.raises(NotImplementedError, match="A10"):
-            rule.init(devices=["cpu"], **LLAMA)
+            rule.init(devices=["cpu"] * 2, launch="inprocess", world_size=2,
+                      init_method="tcp://localhost:1", **lstm)
     with pytest.raises(NotImplementedError, match="A9"):
         BSP().init(devices=["cpu"], launch="supervised", **LLAMA)
     with pytest.raises(RuntimeError, match="init"):

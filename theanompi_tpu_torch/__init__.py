@@ -8,15 +8,25 @@ the same path.  Ported so far:
   by ``serving.Engine``;
 - BSP training: ``BSP().init(...)`` -> ``launcher.launch`` ->
   ``workers.bsp_worker.run`` -> the model's ``train_iter``, one process
-  per device over ``torch.distributed``, for Llama and for the image
+  per device over ``torch.distributed``, for Llama and for the
   classifiers of ``models.base.ClassifierModel`` (``models.wresnet``,
-  ``models.resnet50``, ``models.alex_net``) over ``ops.layers``.
+  ``models.resnet50``, ``models.alex_net``, ``models.vgg16``,
+  ``models.googlenet`` over ``ops.layers``; ``models.lstm``, the IMDB
+  LSTM over ``ops.recurrent`` and ``models.data.imdb``), fed through
+  ``data`` (pinned staging, the streaming loader);
+- the asynchronous rules in one process: ``EASGD().init(...)`` /
+  ``GOSGD().init(...)`` -> ``launcher.launch`` ->
+  ``workers.easgd_worker.run`` / ``workers.gosgd_worker.run`` ->
+  ``workers.replica_engine.ReplicaEngine`` (W replicas stacked on one
+  device, ``devices=["cpu"] * W`` or ``[0] * W``), exchanging through
+  the ``parallel.exchange`` merges (``elastic_*``, ``gossip_*``).
 
 The TPU kernels on those paths are hand-written CUDA C++ in
 ``csrc/``: the flash-attention forward and backward (``ops.attention``)
 and the paged attention (``serving.paged_attention``).  The classifier
-path runs no TPU kernel: its convolutions and matmuls are cuDNN's and
-cuBLAS's, its BN, pooling and LRN plain PyTorch.
+and async paths run no TPU kernel: their convolutions and matmuls are
+cuDNN's and cuBLAS's, BN, pooling, LRN and the LSTM cell plain
+PyTorch.
 
 The package imports ``torch`` and ``numpy`` only, never ``jax`` and
 nothing of ``theanompi_tpu``.  Entry points run on ``cuda`` by default;

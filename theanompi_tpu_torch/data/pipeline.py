@@ -28,8 +28,11 @@ Port of ``theanompi_tpu/data/pipeline.py``.  Two pieces:
 
 Neither the producer nor ``next()`` reads a device value: the ring
 bounds batches in flight by COUNT, and the step waits on the copy's
-event on the device, not on a host fence.  ``engine_feed`` (the async
-rules' feed) waits for the replica engine (ROADMAP.md A10).
+event on the device, not on a host fence.
+
+:func:`engine_feed` is the asynchronous rules' feed: a
+:class:`StreamingLoader` over ``data.train_batch`` and the replica
+engine's ``put_batch``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "HostStager", "StagedBatch", "StreamingLoader", "resolve_loader_depth",
+    "HostStager", "StagedBatch", "StreamingLoader", "engine_feed",
+    "resolve_loader_depth",
 ]
 
 
@@ -75,6 +79,39 @@ def resolve_loader_depth(cfg: dict) -> int:
             f"(double buffering); got {depth}"
         )
     return depth
+
+
+def engine_feed(cfg: dict, data, engine, *, epoch_of=None, world=None):
+    """The in-process async loops' feed (EASGD/GoSGD): a
+    :class:`StreamingLoader` over ``(data.train_batch,
+    engine.put_batch)`` whose staged batches go straight to
+    ``ReplicaEngine.train_step_staged``.  None when the
+    ``loader_pipeline`` knob is off (the synchronous default)."""
+    depth = resolve_loader_depth(cfg)
+    if not depth:
+        return None
+    journal_meta = None
+    if epoch_of is not None:
+        def journal_meta():
+            m = {"epoch": int(epoch_of())}
+            if world is not None:
+                m["world"] = int(world)
+            return m
+    # a synthetic set builds its train arrays at the first read: build
+    # them before the producer starts (see ClassifierModel._init_feed)
+    perm = getattr(data, "epoch_permutation", None)
+    if perm is not None:
+        perm()
+    return StreamingLoader(
+        data.train_batch,
+        engine.put_batch,
+        n_batches=lambda: data.n_batch_train,
+        depth=depth,
+        global_batch=int(data.global_batch),
+        sample_ids=getattr(data, "batch_indices", None),
+        journal_meta=journal_meta,
+        device=engine.device,
+    )
 
 
 class StagedBatch:

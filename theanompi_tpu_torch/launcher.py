@@ -3,12 +3,14 @@
 
 ``launch`` runs a worker
 
-- ``mode="inprocess"``: in this process, on one device (blocking;
-  ``wait()`` returns the worker's summary), or
-- ``mode="subprocess"``: one process per device (``rule.init()``
-  returns at once and ``wait()`` joins them), each given its rank, the
-  world size and a ``tcp://localhost:<port>`` rendezvous for its
-  ``torch.distributed`` group.
+- ``mode="inprocess"``: in this process (blocking; ``wait()`` returns
+  the worker's summary), or
+- ``mode="subprocess"``: detached (``rule.init()`` returns at once and
+  ``wait()`` joins).  BSP takes one process per device, each given its
+  rank, the world size and a ``tcp://localhost:<port>`` rendezvous for
+  its ``torch.distributed`` group.  A worker module marked
+  ``SINGLE_CONTROLLER`` (EASGD, GoSGD: every worker a replica in one
+  process) takes one process for all its workers.
 
 ``devices=None`` means every visible card (an error without one); a
 list of ``"cpu"`` entries is the only way onto the CPU.  The
@@ -58,6 +60,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _single_controller(worker_module: str) -> bool:
+    """Whether the worker runs all its workers in one process."""
+    mod = importlib.import_module(worker_module)
+    return bool(getattr(mod, "SINGLE_CONTROLLER", False))
+
+
 def launch(
     worker_module: str,
     devices: Sequence[Any] | None,
@@ -82,13 +90,20 @@ def launch(
             **rule_kwargs,
         ))
     if mode == "subprocess":
+        env = os.environ.copy()
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        if _single_controller(worker_module):
+            spec = json.dumps({"devices": devices, "modelfile": modelfile,
+                               "modelclass": modelclass,
+                               "kwargs": rule_kwargs})
+            return LaunchHandle(mode=mode, procs=[subprocess.Popen(
+                [sys.executable, "-m", worker_module, "--spec-json", spec],
+                env=env)])
         devs = [str(d) for d in resolve_devices(devices)]
         spec = json.dumps({"devices": devs, "modelfile": modelfile,
                            "modelclass": modelclass, "kwargs": rule_kwargs})
         init = f"tcp://localhost:{_free_port()}"
-        env = os.environ.copy()
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
         procs = [
             subprocess.Popen(
                 [sys.executable, "-m", worker_module, "--spec-json", spec,
@@ -123,7 +138,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("modelclass", help="e.g. Llama")
     ap.add_argument("--devices", default=None,
                     help="card count, or a comma list of devices "
-                    "('cpu', 'cpu,cpu', '0,1'); default: every card")
+                    "('cpu', 'cpu,cpu', '0,1'; for EASGD/GOSGD one entry "
+                    "per worker: 'cpu,cpu', '0,0'); default: every card")
     ap.add_argument("--kwargs", default="{}",
                     help="JSON dict of extra rule/worker kwargs")
     ap.add_argument("--supervise", action="store_true",
@@ -134,13 +150,15 @@ def main(argv: Sequence[str] | None = None) -> int:
 
     rule = getattr(tm, ns.rule)()
     devices = _parse_devices(ns.devices)
-    n = len(resolve_devices(devices))
+    # BSP: one process per device; EASGD/GoSGD: every worker in this one
+    one = (_single_controller(rule.worker_module)
+           or len(resolve_devices(devices)) == 1)
     rule.init(
         devices=devices,
         modelfile=ns.modelfile,
         modelclass=ns.modelclass,
         launch="supervised" if ns.supervise
-        else "inprocess" if n == 1 else "subprocess",
+        else "inprocess" if one else "subprocess",
         **json.loads(ns.kwargs),
     )
     rule.wait()

@@ -364,13 +364,18 @@ class ClassifierModel(TMModel):
         # device index into its key
         self._dropout_gen = torch.Generator(device=self.device)
         self._dropout_gen.manual_seed(self.seed * 1000003 + self._rank)
-        m = getattr(self.data, "device_mean", None)
-        self._mean = None if m is None else torch.as_tensor(
-            np.asarray(m), device=self.device).to(self.compute_dtype)
+        self._init_input_mean()
         self._device_cache = None
         if self.config.get("device_data_cache"):
             self._init_device_cache()
         self._init_feed(self.data.batch_size, dtypes=(None, torch.int64))
+
+    def _init_input_mean(self) -> None:
+        """The data's ``device_mean`` (uint8 batches) on the device in the
+        compute dtype, for ``prep_input`` to subtract."""
+        m = getattr(self.data, "device_mean", None)
+        self._mean = None if m is None else torch.as_tensor(
+            np.asarray(m), device=self.device).to(self.compute_dtype)
 
     def _init_device_cache(self) -> None:
         """Put the whole train set on the device once

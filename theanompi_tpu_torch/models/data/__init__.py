@@ -3,8 +3,9 @@ package): the same seed gives both packages the same batches."""
 
 from theanompi_tpu_torch.models.data.cifar10 import Cifar10Data
 from theanompi_tpu_torch.models.data.imagenet import ImageNetData
+from theanompi_tpu_torch.models.data.imdb import ImdbData
 from theanompi_tpu_torch.models.data.lm_synthetic import MarkovLMData
 from theanompi_tpu_torch.models.data.synthetic import SyntheticClassData
 
-__all__ = ["Cifar10Data", "ImageNetData", "MarkovLMData",
+__all__ = ["Cifar10Data", "ImageNetData", "ImdbData", "MarkovLMData",
            "SyntheticClassData"]

@@ -6,6 +6,10 @@ single controller.  The port runs one process per device instead: rank
 and gloo on the CPU.  A one-rank group is still a group, so a one-card
 run goes through the same exchange code as a multi-card run.
 
+The asynchronous rules run W replicas in one process instead
+(:func:`resolve_replica_devices`): their ``devices`` list has one entry
+per worker, and every entry names the same device.
+
 The card is the default: the CPU is used only when a caller asks for
 it, and a missing card is an error rather than a quiet fall back to
 the CPU.
@@ -64,6 +68,31 @@ def resolve_devices(devices=None) -> list[torch.device]:
     if len(set(out)) != len(out) and out[0].type == "cuda":
         raise ValueError(f"a card appears twice in {devices}")
     return out
+
+
+def resolve_replica_devices(devices=None) -> tuple[torch.device, int]:
+    """``(device, n_workers)`` of an in-process async run: one entry
+    of ``devices`` per worker (``["cpu"] * 4``, ``[0, 0]``), all naming
+    one device, on which the replicas are stacked tensors.  ``None``
+    means one worker per visible card.  Workers spread over several
+    devices are the multi-process rules (ROADMAP.md A10)."""
+    if devices is None:
+        devs = resolve_devices(None)
+    else:
+        devs = [resolve_device(f"cuda:{d}" if isinstance(d, int) else d)
+                for d in devices]
+        if not devs:
+            raise ValueError("devices is empty")
+        cards = [d for d in devs if d.type == "cuda"]
+        n = torch.cuda.device_count() if cards else 0
+        if any(d.index >= n for d in cards):
+            raise ValueError(f"requested {devices}, have {n} cards")
+    if len(set(devs)) > 1:
+        raise NotImplementedError(
+            f"async workers on several devices ({sorted(map(str, set(devs)))}"
+            f") are not ported yet (ROADMAP.md A10: the multi-process "
+            f"rules); list one device once per worker")
+    return devs[0], len(devs)
 
 
 def init_group(device: torch.device, rank: int = 0, world_size: int = 1,

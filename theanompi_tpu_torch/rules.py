@@ -6,11 +6,14 @@
               modelclass="Llama", launch="inprocess", n_epochs=1)
     rule.wait()
 
-``init`` launches one process per device (``launch="subprocess"``, the
-default: it returns at once and ``wait()`` joins) or runs the worker in
-this process on one device (``launch="inprocess"``: ``wait()`` returns
-its summary).  ``EASGD`` and ``GOSGD`` are not ported yet (ROADMAP.md
-A10).
+``init`` starts the run in processes of its own (``launch=
+"subprocess"``, the default: it returns at once and ``wait()`` joins
+them) or runs the worker in this process (``launch="inprocess"``:
+``wait()`` returns its summary).  BSP takes one process per device.
+``EASGD`` and ``GOSGD`` run all their workers in one process, as
+replicas on one device: ``devices`` lists that device once per worker
+(``["cpu"] * 4``, ``[0, 0, 0, 0]``); their multi-process form is not
+ported yet (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -66,17 +69,32 @@ class BSP(Rule):
     worker_module = "theanompi_tpu_torch.workers.bsp_worker"
 
 
-class _Unported(Rule):
-    def init(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet (ROADMAP.md A10: the "
-            f"asynchronous rules)"
-        )
+class EASGD(Rule):
+    """Elastic-averaging SGD (Zhang et al. 2015): W replicas exchanging
+    with a center every ``tau`` steps.  ``init`` accepts ``server=...``
+    and ``workers=[...]`` as the reference's async launch did; the
+    center lives in the controller, so ``server`` is ignored."""
+
+    worker_module = "theanompi_tpu_torch.workers.easgd_worker"
+
+    def init(  # type: ignore[override]
+        self,
+        server: Any = None,
+        workers: Sequence[Any] | None = None,
+        devices: Sequence[Any] | None = None,
+        modelfile: str = "",
+        modelclass: str = "",
+        **kwargs: Any,
+    ) -> None:
+        if devices is None and workers is not None:
+            devices = list(workers)
+        kwargs.setdefault("server_device", server)
+        super().init(devices=devices, modelfile=modelfile,
+                     modelclass=modelclass, **kwargs)
 
 
-class EASGD(_Unported):
-    """Elastic-averaging SGD (not ported yet)."""
+class GOSGD(Rule):
+    """Gossip SGD (Blot et al. 2016): randomized peer push and
+    score-weighted merge between W replicas."""
 
-
-class GOSGD(_Unported):
-    """Gossip SGD (not ported yet)."""
+    worker_module = "theanompi_tpu_torch.workers.gosgd_worker"

@@ -96,7 +96,7 @@ class Recorder:
         self.flush()
         return self._train_errors
 
-    def _timed_flush(self) -> None:
+    def timed_flush(self) -> None:
         """Flush and charge the wait for the device to ``calc``."""
         t0 = time.perf_counter()
         self.flush()
@@ -107,7 +107,7 @@ class Recorder:
                 self.n_iter < self._last_print + self.print_freq:
             return
         self._last_print = self.n_iter
-        self._timed_flush()
+        self.timed_flush()
         if not self._window:
             return
         losses, errs = zip(*self._window)
@@ -131,7 +131,7 @@ class Recorder:
     def end_epoch(self, epoch: int) -> None:
         if self._epoch_start is None:
             return
-        self._timed_flush()   # epoch wall time includes all device work
+        self.timed_flush()   # epoch wall time includes all device work
         wall = time.perf_counter() - self._epoch_start
         self.epoch_times.append(wall)
         if self.verbose:

@@ -1,1 +1,2 @@
-"""Training workers of the port (``bsp_worker``)."""
+"""Training workers of the port (``bsp_worker``; ``easgd_worker`` and
+``gosgd_worker`` over ``replica_engine``)."""

@@ -189,10 +189,11 @@ def run(
             destroy_group()
 
 
-def worker_main() -> None:
+def worker_main(run_fn=None) -> None:
     """Entry for ``python -m theanompi_tpu_torch.workers.bsp_worker
     --spec-json ... --rank r --world-size n --init-method tcp://...``
-    (one process of a ``launcher`` subprocess run)."""
+    (one process of a ``launcher`` subprocess run); ``run_fn`` is the
+    worker module's ``run`` (default: this one)."""
     import argparse
     import json
 
@@ -203,10 +204,10 @@ def worker_main() -> None:
     ap.add_argument("--init-method", default=None)
     ns = ap.parse_args()
     spec = json.loads(ns.spec_json)
-    run(devices=spec.get("devices"), modelfile=spec["modelfile"],
-        modelclass=spec["modelclass"], rank=ns.rank,
-        world_size=ns.world_size, init_method=ns.init_method,
-        **spec.get("kwargs", {}))
+    (run_fn or run)(devices=spec.get("devices"), modelfile=spec["modelfile"],
+                    modelclass=spec["modelclass"], rank=ns.rank,
+                    world_size=ns.world_size, init_method=ns.init_method,
+                    **spec.get("kwargs", {}))
 
 
 if __name__ == "__main__":
