@@ -8,9 +8,11 @@ NVIDIA card.
     python3 chip_smoke.py --phases cnn         # build + the CNN phase only
     python3 chip_smoke.py --phases async       # build + the async rules
     python3 chip_smoke.py --phases async_dist  # ... across processes
+    python3 chip_smoke.py --phases serving_ext # speculation, handoffs, ...
 
-Phases (``--phases`` takes a comma list of kernels, serving, training,
-cnn, async, async_dist; the card-and-build phase always runs):
+Phases (``--phases`` takes a comma list of kernels, serving,
+serving_ext, training, cnn, async, async_dist; the card-and-build phase
+always runs):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
@@ -35,14 +37,36 @@ cnn, async, async_dist; the card-and-build phase always runs):
    chunked prefill, the same requests plus 4 sharing a system prompt:
    prefix-cache hits, batched == alone, K4's launches counted; a
    decode-only profile with K4's share of the device time;
-5. training — ``BSP().init`` on the card with the port's Llama at
+5. serving_ext — the rest of one-engine serving.  First the small fp32
+   model on the card and on the CPU from one init: speculative
+   (``speculate_k`` = 4) and one-token greedy ids equal on each device
+   and across them, ``verify``'s token matrix equal on both, a prompt
+   prefilled ``prefill_only`` on one decoder and decoded from its KV
+   handoff on another giving the unified ids, a traced engine giving
+   one connected span tree per request.  Then phase 4's model (bf16,
+   ``--layers`` deep) and 16 requests (32 tokens each, prefix caching
+   off): one-token decode, then ``speculate_k`` = 4 off the same
+   decoder, with decode tokens/s, the accept rate, tokens per step,
+   the median verify and decode steps, K4's launches (layers x verify
+   steps, all on the tensor cores at 16 rows), how many requests agree
+   and where the first divergence is, the wall ratio, and what can
+   make a verify row differ from decode (K4's row against the same row
+   of a decode launch, a 32-row product's rows against an 8-row one's,
+   and the two logit rows at the first divergence); decode and verify
+   step profiles (busy share); prefill on a second decoder and decode
+   from the handoffs (ids equal to the unified run's, bytes, export and
+   import times); tokens/s with the tracer off, on, on, off (a Chrome
+   trace under ``build/``, every request one connected tree); and three
+   ``submit_text`` requests through ``ByteTokenizer`` against
+   ``submit(encode(text))``;
+6. training — ``BSP().init`` on the card with the port's Llama at
    Llama-3-8B widths, ``--layers`` deep (8 by default), seq 2048,
    batch 2, bf16, Adam, remat, the chunked head, ``ici32``: one epoch
    of 8 steps and 2 val batches, with each step's loss, the step time,
    tokens/s, peak memory and K1/K2/K3 launches (checked against
    2L/L/L per step, every launch on the tensor-core route), the losses
    held to ``TRAIN_TRAJECTORY``; then a 2-step profile;
-6. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
+7. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
    (``TM_DATA_DIR`` points at an empty directory under ``build/``): a
    small fp32 WResNet trained 3 BSP steps on the card and on the CPU
    (losses compared), and the val step of small fp32 AlexNet, VGG16
@@ -63,7 +87,7 @@ cnn, async, async_dist; the card-and-build phase always runs):
    ``GOOGLENET_TRAJECTORY``.  No TPU kernel lies on this path:
    convolutions and matmuls are cuDNN's and cuBLAS's, BN, pooling and
    LRN plain PyTorch, the staging copies;
-7. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
+8. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
    replicas stacked on the card, on synthetic data: first a tiny fp32
    LSTM under GoSGD (W = 2, staleness 1) and WResNet-10-1 under EASGD
    (W = 2, ``speeds`` set) trained on the card and on the CPU from one
@@ -80,7 +104,7 @@ cnn, async, async_dist; the card-and-build phase always runs):
    ``LSTM_GOSGD_TRAJECTORY`` and ``RESNET50_EASGD_TRAJECTORY``.  The
    kernels' launch counts over the phase are printed: no kernel of the
    package lies on this path;
-8. async_dist — the asynchronous rules across processes, each process
+9. async_dist — the asynchronous rules across processes, each process
    one worker on the card: first EASGD's ``_run_distributed`` in one
    process (a world of one, the center on 127.0.0.1, alpha 0.5, tau 2)
    on a tiny fp32 LSTM, on the card and on the CPU from one init
@@ -101,7 +125,7 @@ cnn, async, async_dist; the card-and-build phase always runs):
    deliveries, and exactly the best-scoring process saved.  These runs
    measure the TCP exchange and the host on one card, not scaling
    across cards;
-9. the kernels line — one JSON object with every kernel's numbers.
+10. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
 Any failure raises and the exit code is not 0.  Without a CUDA device,
@@ -184,7 +208,8 @@ CNN_TRAJECTORY_RTOL = 1e-2
 # with them gave them on an H100; held at CNN_TRAJECTORY_RTOL
 VGG16_TRAJECTORY = {"first": 7.15341, "last": 6.91443, "val": 6.95076}
 GOOGLENET_TRAJECTORY = {"first": 11.3753, "last": 11.0767, "val": 6.90323}
-PHASES = ("kernels", "serving", "training", "cnn", "async", "async_dist")
+PHASES = ("kernels", "serving", "serving_ext", "training", "cnn", "async",
+          "async_dist")
 
 
 def log(*a):
@@ -607,17 +632,11 @@ def serve(dec, prompts, *, max_tokens, seeds, prefix_caching=True):
     return out, eng.recorder.summary(), eng.paging_stats(), wall
 
 
-def check_reference(dev) -> None:
-    """A small fp32 model served on the card (through both kernels) and
-    on the CPU (through their plain versions), same weights and
-    prompts: the greedy ids must agree."""
-    import numpy as np
-
+def small_pair(dev):
+    """The small fp32 model on the card, and a copy of its weights on
+    the CPU."""
     from theanompi_tpu_torch.models import Llama
 
-    rng = np.random.default_rng(11)
-    prompts = [rng.integers(0, SMALL["vocab"], size=n).tolist()
-               for n in (5, 17, 40, 100)]
     gpu = Llama(SMALL, device=dev)
     cpu_params = {
         "embed": gpu.params["embed"].cpu(),
@@ -626,7 +645,19 @@ def check_reference(dev) -> None:
         "final_norm": gpu.params["final_norm"].cpu(),
         "lm_head": gpu.params["lm_head"].cpu(),
     }
-    cpu = Llama(SMALL, device="cpu", params=cpu_params)
+    return gpu, Llama(SMALL, device="cpu", params=cpu_params)
+
+
+def check_reference(dev) -> None:
+    """A small fp32 model served on the card (through both kernels) and
+    on the CPU (through their plain versions), same weights and
+    prompts: the greedy ids must agree."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, SMALL["vocab"], size=n).tolist()
+               for n in (5, 17, 40, 100)]
+    gpu, cpu = small_pair(dev)
     for paged in (False, True):
         kw = dict(max_slots=4, max_seq=128)
         if paged:
@@ -657,11 +688,14 @@ def make_requests(vocab: int):
 
 
 def reset_counts(*wrappers) -> None:
-    """Zero each kernel wrapper's launch counts (all routes)."""
+    """Zero each kernel wrapper's launch counts (all routes, all row
+    counts)."""
     for fn in wrappers:
         fn.launches = 0
         if hasattr(fn, "tc_launches"):
             fn.tc_launches = 0
+        if hasattr(fn, "launches_by_rows"):
+            fn.launches_by_rows = {}
 
 
 def check_tc_route(what: str, fn) -> None:
@@ -745,13 +779,14 @@ def trace_steps(step, steps: int, top: int) -> tuple[dict, list]:
     }, kernels
 
 
-def profile_decode(name, dec, prompts, steps: int = 8) -> dict:
+def profile_decode(name, dec, prompts, steps: int = 8, **ekw) -> dict:
     """Where a decode step's time goes: fill every slot, run engine
     steps until no slot is prefilling, then trace ``steps`` decode-only
-    steps as ``trace_steps`` does."""
+    steps as ``trace_steps`` does (``ekw``: more ``Engine`` keywords;
+    with ``speculate_k`` the steps are verify steps)."""
     from theanompi_tpu_torch.serving import Engine
 
-    eng = Engine(dec, prefix_caching=False)
+    eng = Engine(dec, prefix_caching=False, **ekw)
     for i, p in enumerate(prompts[:dec.max_slots]):
         eng.submit(p[:1024], max_tokens=dec.max_seq, seed=i)
     eng.step()
@@ -759,6 +794,7 @@ def profile_decode(name, dec, prompts, steps: int = 8) -> dict:
         eng.step()
 
     out, kernels = trace_steps(lambda i: eng.step(), steps, top=6)
+    eng.abandon_all()               # free the slots: the decoder serves on
     out = {"decoder": name, **out}
     if dec.paged:
         # K4 is its split and merge kernels
@@ -767,6 +803,561 @@ def profile_decode(name, dec, prompts, steps: int = 8) -> dict:
         out["k4_share_of_device"] = k4 / out["device_ms_per_step"]
     log(f"[{name}] decode profile {json.dumps(out)} on {card_line()}")
     return out
+
+
+# -- serving_ext: speculation, KV handoffs, tracing, the tokenizer ----------
+
+SPEC_K = 4             # the JAX bench's default window: 16 K4 rows at rep 4
+
+
+def small_ext_prompts(vocab: int) -> list:
+    """Prompts for the small model's serving_ext checks: two that repeat
+    a short motif (what self-drafting feeds on) and two random ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    motifs = [rng.integers(0, vocab, size=m).tolist() for m in (3, 5)]
+    return ([(motifs[0] * 10)[:20], (motifs[1] * 20)[:70]]
+            + [rng.integers(0, vocab, size=n).tolist() for n in (9, 33)])
+
+
+def ext_run(dec, prompts, *, max_tokens=32, handoffs=None,
+            prefill_only=False, **ekw):
+    """Serve every prompt (request i with seed i, and ``handoffs[i]``
+    when given) through one ``Engine(dec, prefix_caching=False,
+    **ekw)`` until idle.  Returns (results, engine, wall seconds); raises
+    unless every request finished as asked with ids in the vocab."""
+    import torch
+
+    from theanompi_tpu_torch.serving import Engine, Request
+
+    eng = Engine(dec, prefix_caching=False, **ekw)
+    futs = [eng.submit(Request(
+        prompt=list(p), max_tokens=max_tokens, seed=i,
+        prefill_only=prefill_only,
+        handoff=handoffs[i] if handoffs else None))
+        for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    if dec.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = ("prefilled", 1) if prefill_only else ("max_tokens", max_tokens)
+    out = []
+    for i, f in enumerate(futs):
+        r = f.result(timeout=0)
+        if (r.status, r.finish_reason, len(r.tokens)) != ("ok", *want):
+            raise AssertionError(f"request {i}: {r.status}/"
+                                 f"{r.finish_reason}, {len(r.tokens)} "
+                                 f"tokens, want {want}")
+        if not all(0 <= t < dec.model.vocab for t in r.tokens):
+            raise AssertionError(f"request {i}: token id out of range")
+        out.append(r)
+    return out, eng, wall
+
+
+class Calls:
+    """Counts the calls of one decoder method and times each on the
+    host clock with the device synchronized after it (patched on the
+    instance; ``undo`` restores the class's method)."""
+
+    def __init__(self, obj, name: str):
+        import torch
+
+        fn = getattr(obj, name)
+        self.ms: list = []
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(obj, name, timed)
+        self.undo = lambda: delattr(obj, name)
+
+    @property
+    def n(self) -> int:
+        return len(self.ms)
+
+
+def verify_matrix(dec, prompts):
+    """Prefill each prompt into its own slot, then one verify step over
+    windows [first token, the prompt's last 3 tokens]: the [S, K] token
+    matrix."""
+    import numpy as np
+
+    mgr = dec.manager
+    s = dec.max_slots
+    tokens = np.zeros((s, SPEC_K), np.int64)
+    lengths = np.zeros((s,), np.int64)
+    n_valid = np.zeros((s,), np.int64)
+    for slot, p in enumerate(prompts[:s]):
+        mgr.assign(slot, [], mgr.blocks_for(len(p) + SPEC_K))
+        pos, tok = 0, None
+        while pos < len(p):
+            c = min(dec.prefill_chunk, len(p) - pos)
+            tok = dec.prefill(mgr.tables[slot], p[pos:pos + c], pos, c,
+                              slot, 0.0)
+            pos += c
+        tokens[slot] = [int(tok)] + p[-(SPEC_K - 1):]
+        lengths[slot] = len(p)
+        n_valid[slot] = SPEC_K
+    out = dec.verify(tokens, lengths, np.arange(s), np.zeros(s, np.float32),
+                     mgr.tables, n_valid)
+    for slot in range(min(s, len(prompts))):
+        mgr.free_slot(slot)
+    return out
+
+
+def check_serving_ext_reference(dev) -> None:
+    """The small fp32 model on the card and on the CPU from one init:
+    speculative (k = SPEC_K) greedy ids equal one-token decode's on each
+    device and the card's equal the CPU's; ``verify``'s token matrix is
+    equal on both; a prompt prefilled ``prefill_only`` on decoder A and
+    decoded from its handoff on decoder B gives the unified ids; a
+    traced engine gives one connected span tree per request."""
+    import numpy as np
+
+    from theanompi_tpu_torch.obs import span_tree
+
+    gpu, cpu = small_pair(dev)
+    prompts = small_ext_prompts(SMALL["vocab"])
+    kw = dict(max_slots=4, max_seq=128, block_size=16, prefill_chunk=32)
+    ids, mats = {}, {}
+    for name, m in (("card", gpu), ("cpu", cpu)):
+        plain = [r.tokens for r in ext_run(m.make_decoder(paged=True, **kw),
+                                           prompts, max_tokens=16)[0]]
+        rs, eng, _ = ext_run(m.make_decoder(paged=True, **kw), prompts,
+                             max_tokens=16, speculate_k=SPEC_K)
+        summ = eng.recorder.summary()
+        same = [r.tokens for r in rs] == plain
+        log(f"reference [serving_ext] small fp32 model on the {name}: "
+            f"speculative vs one-token greedy ids "
+            f"{'equal' if same else 'DIFFER'} (accept rate "
+            f"{summ['accept_rate']}, tokens per step "
+            f"{summ['tokens_per_step']})")
+        if not same:
+            raise AssertionError(f"serving_ext {name}: speculative ids "
+                                 f"differ from one-token decode's")
+        ids[name] = plain
+        mats[name] = verify_matrix(m.make_decoder(paged=True, **kw), prompts)
+    same = ids["card"] == ids["cpu"]
+    same_mat = np.array_equal(mats["card"], mats["cpu"])
+    log(f"reference [serving_ext] card vs CPU: greedy ids "
+        f"{'equal' if same else 'DIFFER'}; verify matrices "
+        f"{'equal' if same_mat else 'DIFFER'}")
+    if not (same and same_mat):
+        raise AssertionError(f"serving_ext: card and CPU differ: ids "
+                             f"{ids}, verify {mats}")
+    pre, _, _ = ext_run(gpu.make_decoder(paged=True, **kw), prompts,
+                        max_tokens=16, prefill_only=True)
+    got = [r.tokens for r in ext_run(
+        gpu.make_decoder(paged=True, **kw), prompts, max_tokens=16,
+        handoffs=[r.handoff for r in pre])[0]]
+    log(f"reference [serving_ext] prefill on A, decode on B vs unified "
+        f"ids on the card: {'equal' if got == ids['card'] else 'DIFFER'}")
+    if got != ids["card"]:
+        raise AssertionError("serving_ext: disaggregated ids differ")
+    rs, _, _ = ext_run(gpu.make_decoder(paged=True, **kw), prompts,
+                       max_tokens=16, trace_sample=1)
+    trees = [span_tree(r.spans, r.spans[0]["trace_id"]) if r.spans else {}
+             for r in rs]
+    ok = all(t.get("connected") and t["root_name"] == "request"
+             for t in trees)
+    log(f"reference [serving_ext] traced engine on the card: "
+        f"{[t.get('n_spans') for t in trees]} spans a request, each one "
+        f"connected tree: {ok}")
+    if not ok:
+        raise AssertionError(f"serving_ext: span trees broken: {trees}")
+
+
+def first_divergence(a: list, b: list):
+    """(request, token index) of the first id where two runs' token
+    lists differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return i, j
+    return None
+
+
+def mlp_ops(x, p, m: int) -> dict:
+    """Each op of a layer's MLP on every row of ``x`` against the same op
+    on its first ``m`` rows alone (the decode step's batch): the largest
+    |difference| over those rows."""
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.models.llama import rms_norm
+
+    def ops(x):
+        xn = rms_norm(x, p["mlp_norm"])
+        gate, up = xn @ p["w_gate"], xn @ p["w_up"]
+        h = F.silu(gate) * up
+        return {"rms_norm": xn, "gate": gate, "up": up, "silu_mul": h,
+                "down": h @ p["w_down"]}
+
+    full, part = ops(x), ops(x[:m])
+    return {k: (full[k][:m].float() - part[k].float()).abs().max().item()
+            for k in full}
+
+
+def equality_causes(dec) -> dict:
+    """What could make a verify row differ from decode at one position,
+    each on random inputs at the serving shape: K4 (every row of a
+    16-row verify launch against the same row alone in a 4-row decode
+    launch), the products of layer 0 and the head (rows 8-15 of a
+    32-row product against an 8-row product of the same rows), and each
+    op of layer 0's MLP (``mlp_ops``)."""
+    import torch
+
+    from theanompi_tpu_torch.kernels.tune import paged_inputs
+    from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
+
+    dev = dec.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, kp, vp, tables, pos = paged_inputs(dev, torch.bfloat16, gen, SPEC_K)
+    o_verify = paged_attend_cuda(q, kp, vp, tables, pos)
+    k4 = max(
+        (o_verify[:, j:j + 1].float() - paged_attend_cuda(
+            q[:, j:j + 1].contiguous(), kp, vp, tables,
+            pos[:, j:j + 1].contiguous()).float()).abs().max().item()
+        for j in range(SPEC_K))
+    s = dec.max_slots
+    p = dec.model.params
+    gemm = {}
+    for name, w in dict(p["layers"][0], lm_head=p["lm_head"]).items():
+        if w.dim() == 2:
+            x = torch.randn((s * SPEC_K, w.shape[0]), generator=gen,
+                            device=dev).to(w.dtype)
+            gemm[name] = ((x @ w)[s:2 * s].float()
+                          - (x[s:2 * s] @ w).float()).abs().max().item()
+    x = torch.randn((s * SPEC_K, p["embed"].shape[1]), generator=gen,
+                    device=dev).to(dec._cdtype)
+    return {"k4_rows_verify_vs_decode_max_abs": k4,
+            "gemm_rows_m32_vs_m8_max_abs": gemm,
+            "mlp0_ops_m32_vs_m8_max_abs": mlp_ops(x, p["layers"][0], s)}
+
+
+def first_window(dec, prompt) -> dict:
+    """From one state (``prompt`` prefilled into slot 0 alone), the
+    decode step and the verify window the engine runs first (its first
+    token, no draft: ``n_valid`` 1) at the same position: the largest
+    |difference| of row 0's logits and of row 0's K4 output in layer 0,
+    the logits' top-2 gap, and each op of layer 0's MLP on the window's
+    own 32 input rows against the same op on its first 8 rows."""
+    import numpy as np
+
+    import theanompi_tpu_torch.serving.decoder as decoder_mod
+    from theanompi_tpu_torch.serving.paged_attention import paged_attend
+
+    mgr = dec.manager
+    s, n = dec.max_slots, len(prompt)
+    mgr.assign(0, [], mgr.blocks_for(n + SPEC_K))
+    first = None
+    for pos in range(0, n, dec.prefill_chunk):
+        c = min(dec.prefill_chunk, n - pos)
+        first = dec.prefill(mgr.tables[0], prompt[pos:pos + c], pos, c, 0,
+                            0.0)
+    sample, mlp = type(dec)._sample, type(dec)._mlp
+    logits, k4, mlp_in = [], [], []
+
+    def keep_logits(lg, *a, **k):
+        logits.append(lg.float()[0].cpu())
+        return sample(dec, lg, *a, **k)
+
+    def keep_k4(q, *a):         # layer 0 of the decode, then the verify
+        o = paged_attend(q, *a)
+        if len(k4) < 2 and (not k4 or q.shape[1] != k4[0][0]):
+            k4.append((q.shape[1], o[:, :1].clone()))
+        return o
+
+    def keep_mlp(p_, x):
+        if len(mlp_in) < 2 and (not mlp_in or len(x) != len(mlp_in[0][0])):
+            mlp_in.append((x.clone(), p_))
+        return mlp(dec, p_, x)
+
+    dec._sample, dec._mlp = keep_logits, keep_mlp
+    decoder_mod.paged_attend = keep_k4
+    try:
+        tokens, lengths = np.zeros((s,), np.int64), np.zeros((s,), np.int64)
+        zeros, temps = np.zeros((s,), np.int64), np.zeros((s,), np.float32)
+        tokens[0], lengths[0] = int(first), n
+        active = np.arange(s) == 0
+        dec.decode(tokens, lengths, zeros, temps, mgr.tables, active)
+        window = np.zeros((s, SPEC_K), np.int64)
+        window[0, 0] = tokens[0]
+        n_valid = np.zeros((s,), np.int64)
+        n_valid[0] = 1
+        dec.verify(window, lengths, zeros, temps, mgr.tables, n_valid)
+    finally:
+        del dec._sample, dec._mlp
+        decoder_mod.paged_attend = paged_attend
+        mgr.free_slot(0)
+    top2 = logits[0].topk(2).values
+    (xd, _), (xv, p0) = mlp_in
+    return {"logits_row0_max_abs": (logits[0] - logits[1]).abs().max()
+            .item(),
+            "logits_top2_gap": (top2[0] - top2[1]).item(),
+            "k4_layer0_row0_max_abs": (k4[0][1][0].float()
+                                       - k4[1][1][0].float()).abs().max()
+            .item(),
+            "mlp0_in_row0_equal": bool((xd[0] == xv[0]).all()),
+            "mlp0_ops_m32_vs_m8_max_abs": mlp_ops(xv, p0, s)}
+
+
+def replay_alone(dec, prompt, max_tokens: int) -> dict:
+    """Serve one request alone three times — one-token, speculative,
+    one-token again — keeping the logits of every emitted token: for the
+    speculative run and for the second one-token run, the first token
+    whose logits differ bitwise from the first run's and the window row
+    that emitted it."""
+    import torch
+
+    from theanompi_tpu_torch.serving import Engine
+
+    sample = type(dec)._sample
+    runs = []
+    for k in (0, SPEC_K, 0):
+        steps = []
+
+        def keep(logits, *a, **kw):
+            n = 1 if k == 0 else SPEC_K
+            if logits.shape[0] == dec.max_slots * n:    # not a prefill
+                steps.append(logits.float().reshape(dec.max_slots, n, -1)[0]
+                             .cpu())
+            return sample(dec, logits, *a, **kw)
+
+        dec._sample = keep
+        try:
+            eng = Engine(dec, prefix_caching=False, speculate_k=k)
+            fut = eng.submit(prompt, max_tokens=max_tokens)
+            eng.run_until_idle()
+        finally:
+            del dec._sample
+        rows = []               # (logits, window row) of tokens 1, 2, ...
+        for lg, st in zip(steps, eng.recorder.steps):
+            rows += [(lg[j], j) for j in range(st["tokens"])]
+        runs.append((fut.result(timeout=0).tokens, rows))
+
+    def against_first(ids, rows) -> dict:
+        ids0, rows0 = runs[0]
+        first = next((i for i, ((a, _), (b, _)) in enumerate(zip(rows0, rows))
+                      if not torch.equal(a, b)), None)
+        out = {"ids_equal": ids == ids0,
+               "first_token_with_other_logits": None if first is None
+               else first + 1}
+        if first is not None:
+            a, (b, j) = rows0[first][0], rows[first]
+            out.update(window_row=j, max_abs_logit_diff=(a - b).abs().max()
+                       .item())
+        return out
+
+    return {"speculative": against_first(*runs[1]),
+            "one_token_again": against_first(*runs[2])}
+
+
+def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
+    """Phase serving_ext at Llama-3-8B width, bf16, ``n_layers`` deep
+    under ``PagedLlamaDecoder``, phase 4's 16 requests (32 tokens each,
+    prefix caching off so every run does the same work): one-token
+    decode, then ``speculate_k = SPEC_K`` off the same decoder (K4
+    launched at 16 rows by every verify step), then prefill on a second
+    decoder and decode from the handoffs, then tracing on and off and
+    the tokenizer front door."""
+    import torch
+
+    from theanompi_tpu_torch.models import LLAMA3_8B, Llama
+    from theanompi_tpu_torch.obs import span_tree, write_chrome_trace
+    from theanompi_tpu_torch.serving import (
+        ByteTokenizer,
+        Engine,
+        PagedLlamaDecoder,
+        handoff_bytes,
+    )
+    from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
+
+    card = card_line()
+    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
+    if n_layers:
+        cfg["n_layers"] = n_layers
+    t0 = time.perf_counter()
+    model = Llama(cfg, device=dev)
+    model.params
+    torch.cuda.synchronize()
+    log(f"[serving_ext] model: {cfg['n_layers']} layers at Llama-3-8B "
+        f"width, bf16, random init in {time.perf_counter() - t0:.1f} s")
+    prompts, shared = make_requests(model.vocab)
+    reqs = shared[:1] + prompts + shared[1:]
+    kw = dict(max_slots=8, max_seq=2048, block_size=16, prefill_chunk=64)
+    dec = PagedLlamaDecoder(model, **kw)
+    rows = SPEC_K * dec._rep
+    ext_run(dec, [prompts[0][:40]], max_tokens=8)                # warm-up
+    ext_run(dec, [prompts[0][:40]], max_tokens=8, speculate_k=SPEC_K)
+
+    out = {}
+    # one-token decode, then speculation, each counted alone
+    reset_counts(paged_attend_cuda)
+    decodes = Calls(dec, "decode")
+    plain, peng, plain_wall = ext_run(dec, reqs)
+    decodes.undo()
+    plain_launches = paged_attend_cuda.launches
+    reset_counts(paged_attend_cuda)
+    verifies = Calls(dec, "verify")
+    spec, seng, spec_wall = ext_run(dec, reqs, speculate_k=SPEC_K)
+    verifies.undo()
+    launches = paged_attend_cuda.launches
+    by_rows = dict(paged_attend_cuda.launches_by_rows)
+    tc = paged_attend_cuda.tc_launches
+    ps, ss = peng.recorder.summary(), seng.recorder.summary()
+    plain_ids = [r.tokens for r in plain]
+    spec_ids = [r.tokens for r in spec]
+    same = sum(a == b for a, b in zip(plain_ids, spec_ids))
+    div = first_divergence(plain_ids, spec_ids)
+    out["speculation"] = {
+        "speculate_k": SPEC_K, "k4_rows": rows,
+        "decode_tokens_per_s": {"one_token": ps["tokens_per_sec"],
+                                "speculative": ss["tokens_per_sec"]},
+        "decode_s": {"one_token": ps["decode_s"],
+                     "speculative": ss["decode_s"]},
+        "accept_rate": ss["accept_rate"],
+        "tokens_per_step": ss["tokens_per_step"],
+        "drafted": ss["drafted_tokens"], "accepted": ss["accepted_tokens"],
+        "median_step_ms": {
+            "decode": statistics.median(
+                st["dt_s"] for st in peng.recorder.steps) * 1e3,
+            "verify": statistics.median(
+                st["dt_s"] for st in seng.recorder.steps) * 1e3},
+        "median_call_ms": {"decode": statistics.median(decodes.ms),
+                           "verify": statistics.median(verifies.ms)},
+        "calls": {"decode": decodes.n, "verify": verifies.n},
+        "k4_launches": {"one_token": plain_launches, "speculative": launches,
+                        "speculative_by_rows": by_rows,
+                        "speculative_tensor_cores": tc},
+        "requests_equal": f"{same} of {len(reqs)}",
+        "first_divergence": div,
+        "wall_s": {"one_token": plain_wall, "speculative": spec_wall},
+        "wall_ratio": spec_wall / plain_wall,
+        "finish_reasons": ss["finish_reasons"],
+    }
+    log(f"[serving_ext speculation] {json.dumps(out['speculation'])} "
+        f"on {card}")
+    if launches != dec.model.n_layers * verifies.n or tc != launches \
+            or by_rows != {16: launches} or rows != 16:
+        raise AssertionError(
+            f"serving_ext: K4 launches {launches} (tensor cores {tc}, by "
+            f"rows {by_rows}), want {dec.model.n_layers} x {verifies.n} "
+            f"verify steps, all on the tensor cores at 16 rows")
+    if not (ss["accept_rate"] and ss["accept_rate"] > 0
+            and ss["tokens_per_step"] > 1):
+        raise AssertionError(f"serving_ext: speculation accepted nothing "
+                             f"({ss['accept_rate']}, "
+                             f"{ss['tokens_per_step']})")
+    # why a verify row may differ from decode on the card
+    r = div[0] if div is not None else 0
+    causes = equality_causes(dec)
+    causes["request"] = r
+    causes["alone"] = replay_alone(dec, reqs[r], 32)
+    causes["first_window"] = first_window(dec, reqs[r])
+    out["equality"] = causes
+    log(f"[serving_ext equality] {json.dumps(causes)} on {card}")
+    out["profile_decode"] = profile_decode("serving_ext decode", dec,
+                                           prompts)
+    out["profile_verify"] = profile_decode("serving_ext verify", dec,
+                                           prompts, speculate_k=SPEC_K)
+
+    # disaggregated: prefill on A, decode from the handoffs on B (= dec)
+    dec_a = PagedLlamaDecoder(model, **kw)
+    exports = Calls(dec_a, "export_blocks")
+    imports = Calls(dec, "import_blocks")
+    ext_run(dec_a, [prompts[0][:40]], max_tokens=8, prefill_only=True)
+    exports.ms.clear()
+    pre, _, pre_wall = ext_run(dec_a, reqs, prefill_only=True)
+    handoffs = [r.handoff for r in pre]
+    dis, _, dis_wall = ext_run(dec, reqs, handoffs=handoffs)
+    exports.undo()
+    imports.undo()
+    dis_ids = [r.tokens for r in dis]
+    nbytes = [handoff_bytes(h) for h in handoffs]
+    n_same = sum(a == b for a, b in zip(dis_ids, plain_ids))
+    out["disaggregated"] = {
+        "requests_equal_unified": f"{n_same} of {len(reqs)}",
+        "handoff_bytes": nbytes,
+        "prompt_tokens": [len(p) for p in reqs],
+        "export_ms": exports.ms, "import_ms": imports.ms,
+        "export_gb_per_s": sum(nbytes) / sum(exports.ms) / 1e6,
+        "import_gb_per_s": sum(nbytes) / sum(imports.ms) / 1e6,
+        "prefill_wall_s": pre_wall, "decode_wall_s": dis_wall,
+    }
+    log(f"[serving_ext disaggregated] {json.dumps(out['disaggregated'])} "
+        f"on {card}")
+    if dis_ids != plain_ids:
+        raise AssertionError(f"serving_ext: disaggregated ids differ from "
+                             f"unified ones at "
+                             f"{first_divergence(plain_ids, dis_ids)}")
+    del dec_a, pre, handoffs
+    torch.cuda.empty_cache()
+
+    # tracing off / on / on / off, then the tokenizer front door
+    rates, spans_per_req, traced_eng = {"off": [], "on": []}, [], None
+    for mode in ("off", "on", "on", "off"):
+        ekw = dict(trace_sample=1) if mode == "on" else {}
+        rs, eng, _ = ext_run(dec, reqs, **ekw)
+        rates[mode].append(eng.recorder.summary()["tokens_per_sec"])
+        if [r.tokens for r in rs] != plain_ids:
+            raise AssertionError(f"serving_ext: tracing {mode} changed ids")
+        if mode == "on":
+            traced_eng, traced = eng, rs
+    trees = [span_tree(r.spans, r.spans[0]["trace_id"]) for r in traced]
+    path = write_chrome_trace(
+        traced_eng.tracer.spans(), ROOT / "build" / "serving_ext_trace.json",
+        counters=traced_eng.recorder.counter_tracks())
+    out["tracing"] = {
+        "decode_tokens_per_s": rates,
+        "spans_per_request": [t["n_spans"] for t in trees],
+        "connected": all(t["connected"] for t in trees),
+        "chrome_trace": str(Path(path).relative_to(ROOT)),
+    }
+    log(f"[serving_ext tracing] {json.dumps(out['tracing'])} on {card}")
+    if not out["tracing"]["connected"] or any(
+            t["root_name"] != "request" for t in trees):
+        raise AssertionError(f"serving_ext: span trees broken: {trees}")
+    tok = ByteTokenizer()
+    texts = ["The quick brown fox", "jumps over the lazy dog, again.",
+             "speculative decoding on the H100"]
+    eng = Engine(dec, prefix_caching=False, tokenizer=tok)
+    try:
+        by_text = [eng.submit_text(x, max_tokens=8, seed=i)
+                   for i, x in enumerate(texts)]
+        by_ids = [eng.submit(tok.encode(x), max_tokens=8, seed=i)
+                  for i, x in enumerate(texts)]
+        eng.run_until_idle()
+    finally:
+        eng.stop()
+    a = [f.result(timeout=0).tokens for f in by_text]
+    b = [f.result(timeout=0).tokens for f in by_ids]
+    summ = eng.recorder.summary()
+    log(f"[serving_ext tokenizer] submit_text vs submit(encode) ids: "
+        f"{'equal' if a == b else 'DIFFER'}; tokenize items "
+        f"{summ['tokenize_items']}, items per sweep "
+        f"{summ['tokenize_items_per_sweep']}")
+    if a != b or not all(len(x) == 8 for x in a):
+        raise AssertionError("serving_ext: submit_text ids differ")
+    del dec, model
+    torch.cuda.empty_cache()
+    if "K4" in records:
+        rec = records["K4"]
+        by_path = rec.setdefault("launches_by_path", {})
+        by_path["serving_ext_decode"] = plain_launches
+        by_path["serving_ext_verify"] = launches
+        rec["launches"] = sum(by_path.values())
+        rec["verify_shape"]["launches"] = launches
+    log(f"[serving_ext] " + json.dumps({
+        k: out["speculation"][k] for k in ("decode_tokens_per_s",
+                                           "accept_rate", "tokens_per_step",
+                                           "median_step_ms", "wall_ratio")})
+        + f" on {card}")
 
 
 # -- training ----------------------------------------------------------------
@@ -1976,9 +2567,18 @@ def main(argv=None) -> int:
             records["K1"]["launches_by_path"] = {"serving_v1":
                                                  v1["launches"]}
             records["K4"]["launches"] = run["launches"]
+            records["K4"]["launches_by_path"] = {"serving_paged":
+                                                 run["launches"]}
+
+    if "serving_ext" in ns.phases:
+        # phase 5: speculation, handoffs, tracing, the tokenizer
+        check_serving_ext_reference(dev)
+        run_serving_ext(dev, ns.layers, records)
+        log(f"peak device memory (serving_ext) "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     if "training" in ns.phases:
-        # phase 5: BSP training at Llama-3-8B widths, then its profile
+        # phase 6: BSP training at Llama-3-8B widths, then its profile
         counters = {"K1": flash_fwd_cuda, "K2": flash_bwd_dkv_cuda,
                     "K3": flash_bwd_dq_cuda}
         # the group outlives the run, so the profile can take more steps
@@ -1998,19 +2598,19 @@ def main(argv=None) -> int:
             records["K1"]["launches"] = sum(by_path.values())
 
     if "cnn" in ns.phases:
-        # phase 6: the image-classifier path (no TPU kernel on it)
+        # phase 7: the image-classifier path (no TPU kernel on it)
         run_cnn_phase(dev)
 
     if "async" in ns.phases:
-        # phase 7: EASGD and GoSGD in one process (no TPU kernel on it)
+        # phase 8: EASGD and GoSGD in one process (no TPU kernel on it)
         run_async_phase(dev, (flash_fwd_cuda, flash_bwd_dkv_cuda,
                               flash_bwd_dq_cuda, paged_attend_cuda))
 
     if "async_dist" in ns.phases:
-        # phase 8: EASGD and GoSGD across processes (no TPU kernel on it)
+        # phase 9: EASGD and GoSGD across processes (no TPU kernel on it)
         run_async_dist_phase(dev)
 
-    # phase 9: the kernels line, the card, the result
+    # phase 10: the kernels line, the card, the result
     log(json.dumps({"kernels": [
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
                              "K3 fp32", "K4")

@@ -2,9 +2,10 @@
 equal greedy ids for a handful of requests (v1 and paged decoders,
 slots evicting and refilling mid-run), and a checkpoint saved by the
 JAX model loads through the port's ``decoder_from_checkpoint`` and
-serves the same ids.  Also the port's own serving guarantees: sampled
-requests batched equal the same requests alone, and unported features
-refuse loudly."""
+serves the same ids.  Speculation, tracing, the tokenizer front door
+and KV handoffs serve the JAX engine's ids too.  Also the port's own
+serving guarantees: sampled requests batched equal the same requests
+alone."""
 
 import json
 
@@ -12,7 +13,12 @@ import numpy as np
 import pytest
 
 from theanompi_tpu.serving import Engine as JaxEngine
-from theanompi_tpu_torch.serving import Engine, decoder_from_checkpoint
+from theanompi_tpu_torch.obs import Tracer
+from theanompi_tpu_torch.serving import (
+    ByteTokenizer,
+    Engine,
+    decoder_from_checkpoint,
+)
 
 from test_torch_decoder import PAGED_KW, SMALL, V1_KW, jax_model, port_model
 
@@ -29,9 +35,12 @@ def models(devices8):
     return jm, port_model(jm)
 
 
-def run_all(engine_cls, dec, requests, **kw):
+def run_all(engine_cls, dec, requests, handoffs=None, **kw):
     eng = engine_cls(dec)
-    futs = [eng.submit(p, max_tokens=n, **kw) for p, n in requests]
+    futs = [eng.submit(p, max_tokens=n,
+                       **(dict(handoff=handoffs[i]) if handoffs else {}),
+                       **kw)
+            for i, (p, n) in enumerate(requests)]
     eng.run_until_idle()
     results = [f.result(timeout=0) for f in futs]
     assert all(r.status == "ok" for r in results)
@@ -203,19 +212,47 @@ def test_background_loop_drains(models):
     assert late.result(timeout=0).finish_reason == "shutdown"
 
 
-@pytest.mark.parametrize("kw", [dict(speculate_k=2), dict(tracer=object()),
-                                dict(tokenizer=object())])
-def test_unported_engine_features_raise(models, kw):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tm.make_decoder(**V1_KW), **kw)
+@pytest.mark.parametrize("feature", ["speculate_k", "tracer", "tokenizer"])
+def test_engine_features_serve_the_jax_ids(models, feature):
+    """Speculation, span tracing and the tokenizer front door each serve
+    the JAX engine's greedy ids over the paged decoder."""
+    jm, tm = models
+    kw = {"speculate_k": dict(speculate_k=4),
+          "tracer": dict(tracer=Tracer(process="engine")),
+          "tokenizer": dict(tokenizer=ByteTokenizer(offset=0))}[feature]
+    want, _ = run_all(JaxEngine, jm.make_decoder(paged=True, **PAGED_KW),
+                      REQUESTS)
+    got, eng = run_all(lambda d: Engine(d, **kw),
+                       tm.make_decoder(paged=True, **PAGED_KW), REQUESTS)
+    assert got == want
+    if feature == "speculate_k":
+        assert eng.recorder.summary()["drafted_tokens"] > 0
+    if feature == "tracer":
+        assert len({s["trace_id"] for s in eng.tracer.spans()}) == len(
+            REQUESTS)
+    if feature == "tokenizer":
+        text = bytes(REQUESTS[0][0]).decode("ascii")
+        assert eng.decode_text(REQUESTS[0][0]) == text
+        f = eng.submit_text(text, max_tokens=REQUESTS[0][1])
+        eng.run_until_idle()
+        eng.stop()
+        assert f.result(timeout=0).tokens == want[0]
 
 
-def test_handoff_requests_raise(models):
-    _, tm = models
-    eng = Engine(tm.make_decoder(paged=True, **PAGED_KW))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([1, 2, 3], prefill_only=True)
+def test_handoff_requests_serve_the_jax_ids(models):
+    """prefill_only on one decoder, the handoff decoded on another: the
+    JAX engine's ids."""
+    jm, tm = models
+    want, _ = run_all(JaxEngine, jm.make_decoder(paged=True, **PAGED_KW),
+                      REQUESTS)
+    pre = Engine(tm.make_decoder(paged=True, **PAGED_KW))
+    futs = [pre.submit(p, max_tokens=n, prefill_only=True)
+            for p, n in REQUESTS]
+    pre.run_until_idle()
+    handoffs = [f.result(timeout=0).handoff for f in futs]
+    got, _ = run_all(Engine, tm.make_decoder(paged=True, **PAGED_KW),
+                     [(p, n) for p, n in REQUESTS], handoffs=handoffs)
+    assert got == want
 
 
 def test_paging_stats_shape(models):

@@ -15,7 +15,11 @@ Port of ``theanompi_tpu/serving/decoder.py``.  Two cache organisations:
   (``serving/blocks.py``) and the radix prefix cache.  Prompts prefill
   in fixed-size chunks (gather plus plain attention, as in the JAX
   package); decode attends through ``paged_attend`` — kernel K4 on the
-  card — which reads the pools through the tables.
+  card — which reads the pools through the tables.  The speculative
+  ``verify`` step scores k tokens a slot in one call through the same
+  kernel (Q = k query rows a slot), and ``export_blocks`` /
+  ``import_blocks`` move a prompt's K/V blocks between decoders (the
+  disaggregation handoff, ``serving/kv_transfer.py``).
 
 PyTorch runs eagerly, so the JAX package's jit/shard_map scaffolding
 (compiled variants, donation, compile counters) has no counterpart:
@@ -27,8 +31,7 @@ same ids as decoded alone; a prefix-cache hit gives the same ids as a
 cold prefill.  Sampling at temperature > 0 seeds each token's Gumbel
 draw with (request seed, position) — see ``parallel/tp.py``.
 
-Not ported yet (ROADMAP.md): the speculative ``verify`` step,
-``export_blocks``/``import_blocks`` (disaggregation) and tp > 1.
+Not ported yet (ROADMAP.md): tp > 1.
 """
 
 from __future__ import annotations
@@ -366,6 +369,55 @@ class PagedLlamaDecoder(LlamaDecoder):
         return self._sample(self._logits(x), seeds, host_lengths, temps,
                             greedy)
 
+    def _verify_body(self, tables, tokens, lengths, n_valid, seeds,
+                     host_pos, temps, greedy: bool):
+        """Speculative verify step: K tokens for all slots in one pass
+        (the multi-token sibling of ``_decode_body``).  ``tokens``
+        [S, K]: column 0 is the slot's committed token, the rest the
+        drafter's proposals; row (s, j) sits at position
+        ``lengths[s] + j``, and columns at or past ``n_valid[s]`` write
+        their K/V to the trash block (``n_valid`` 0: inactive slot).
+        ``host_pos`` [S*K] are those positions on the host (the
+        sampler's seed fold).  Returns out [S, K]: ``out[s, j]`` is the
+        token the model emits after ``tokens[s, :j+1]`` — row j computes
+        what ``decode`` computes at position ``lengths[s] + j`` (same
+        per-row math, position mask and seed fold), which makes
+        accept-by-equality reproduce sequential decode.
+
+        Rejected drafts need no rollback: positions past the first
+        rejection hold garbage K/V, but the engine commits its lengths
+        below them, and the next window's writes cover every garbage
+        position before any query row's mask reaches it (writes precede
+        the attention within each layer)."""
+        m = self.model
+        s, kq = tokens.shape
+        bs, hd, rep = self.block_size, self._hd, self._rep
+        n = s * kq
+        x = tp_lib.embed_lookup(tokens.reshape(n), m.params["embed"],
+                                m.vocab).to(self._cdtype)      # [S*K, D]
+        pos = lengths[:, None] + torch.arange(kq, device=self.device)
+        in_range = (torch.arange(kq, device=self.device)[None, :]
+                    < n_valid[:, None])
+        bidx = (pos // bs).clamp(0, self.max_blocks - 1)
+        wbid = torch.where(in_range, torch.gather(tables.long(), 1, bidx),
+                           self.trash_id).reshape(n)
+        woff = (pos % bs).reshape(n)
+        pos_f = pos.reshape(n)
+        pos_q = pos.to(torch.int32).contiguous()                 # [S, K]
+        for pool, p in zip(self.pools, m.params["layers"]):
+            q, k, v = self._qkv(p, x, n)
+            q = rope_at(q, pos_f)
+            k = rope_at(k, pos_f)
+            self._write_kv(pool, k, v, wbid, woff)
+            o = paged_attend(
+                q.reshape(s, kq, self._hkv, rep, hd), pool["k"], pool["v"],
+                tables, pos_q,
+            ).reshape(n, self._h * hd)
+            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = self._mlp(p, x)
+        return self._sample(self._logits(x), np.repeat(seeds, kq), host_pos,
+                            temps.repeat_interleave(kq), greedy).reshape(s, kq)
+
     def _prefill_body(self, table_row, ids, start: int, q_len: int,
                       seed: int, temp, greedy: bool):
         """One prefill chunk for one request: ids [C] (zero-padded past
@@ -467,6 +519,84 @@ class PagedLlamaDecoder(LlamaDecoder):
             self._tensor(active, torch.bool), bool(np.all(temps <= 0.0)),
         )
         return nxt.cpu().numpy()
+
+    @torch.no_grad()
+    def verify(self, tokens, lengths, seeds, temps, tables,
+               n_valid) -> np.ndarray:
+        """One speculative verify step for all slots: ``tokens`` [S, K]
+        (column 0 committed, the rest drafts), ``n_valid`` [S] (0 =
+        inactive slot).  Host arrays in, the host token matrix [S, K]
+        out (the read fences the step).  The engine owns accept and
+        reject; this is the device math."""
+        tokens = np.asarray(tokens, np.int64)
+        lengths = np.asarray(lengths, np.int64)
+        temps = np.asarray(temps, np.float32)
+        kq = tokens.shape[1]
+        host_pos = (lengths[:, None] + np.arange(kq)[None, :]).reshape(-1)
+        nxt = self._verify_body(
+            self._tensor(tables, torch.int32), self._tensor(tokens),
+            self._tensor(lengths), self._tensor(n_valid),
+            np.asarray(seeds), host_pos, self._tensor(temps, torch.float32),
+            bool(np.all(temps <= 0.0)),
+        )
+        return nxt.cpu().numpy()
+
+    # -- KV handoff (serving/kv_transfer.py) ----------------------------------
+
+    @torch.no_grad()
+    def export_blocks(self, block_ids) -> list[dict]:
+        """Read ``block_ids``' K/V out of the pools as host numpy arrays,
+        one {k, v} dict per layer of ``[n, Hkv, bs, hd]``: a gather of
+        the pools at the ids, then one device-to-host copy a layer.
+        fp32 pools give ``float32`` arrays; bf16 pools give the bits as
+        ``uint16`` (numpy has no bfloat16)."""
+        n = len(block_ids)
+        if not 1 <= n <= self.max_blocks:
+            raise ValueError(f"export of {n} blocks outside "
+                             f"[1, {self.max_blocks}]")
+        bids = self._tensor(block_ids)
+        out = []
+        for pool in self.pools:
+            kv = torch.stack([pool["k"][bids], pool["v"][bids]]).cpu()
+            if kv.dtype == torch.bfloat16:
+                kv = kv.view(torch.int16).numpy().view(np.uint16)
+            else:
+                kv = kv.numpy()
+            out.append({"k": kv[0], "v": kv[1]})
+        return out
+
+    @torch.no_grad()
+    def import_blocks(self, layers: list[dict], block_ids) -> None:
+        """Write exported K/V rows into this decoder's pools at
+        ``block_ids`` (freshly allocated by the caller): one
+        host-to-device copy a layer, then a scatter.  A bf16 pool takes
+        2-byte elements as bfloat16 bits (the ``uint16`` views
+        ``export_blocks`` gives)."""
+        n = len(block_ids)
+        shape = (n, self._hkv, self.block_size, self._hd)
+        if len(layers) != self.model.n_layers:
+            raise ValueError(f"{len(layers)} layers of K/V for a "
+                             f"{self.model.n_layers}-layer decoder")
+        bids = self._tensor(block_ids)
+        for pool, lkv in zip(self.pools, layers):
+            kv = np.stack([np.asarray(lkv["k"]), np.asarray(lkv["v"])])
+            if kv.shape[1:] != shape:
+                raise ValueError(f"K/V rows of shape {kv.shape[1:]}, "
+                                 f"want {shape}")
+            if self._cdtype == torch.bfloat16:
+                if kv.dtype.itemsize != 2:
+                    raise TypeError(f"a bfloat16 pool takes 2-byte bits, "
+                                    f"got {kv.dtype}")
+                host = torch.from_numpy(kv.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                host = torch.from_numpy(kv)
+                if host.dtype != self._cdtype:
+                    raise TypeError(f"a {self._cdtype} pool got {kv.dtype} "
+                                    f"K/V")
+            dev = host.to(self.device)
+            pool["k"][bids] = dev[0]
+            pool["v"][bids] = dev[1]
 
     # -- accounting -----------------------------------------------------------
 

@@ -64,7 +64,9 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
     pools f32 or bf16 of one dtype, 16-byte aligned; tables/pos int32):
     the split kernel, then the merge (see ``launch_with``).
     ``paged_attend_cuda.launches`` counts its calls (one per
-    split-and-merge pair)."""
+    split-and-merge pair), ``.tc_launches`` those on the tensor-core
+    route (bf16) and ``.launches_by_rows`` them by query rows per (slot,
+    kv head), Q * rep."""
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_attend_cuda needs CUDA tensors, got {q.device}"
@@ -119,10 +121,15 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
     out = launch_with(_paged_lib(), q, k_pool, v_pool, tables, pos,
                       ctas=ctas)
     paged_attend_cuda.launches += 1
+    paged_attend_cuda.tc_launches += q.dtype == torch.bfloat16
+    rows = paged_attend_cuda.launches_by_rows
+    rows[nq * rep] = rows.get(nq * rep, 0) + 1
     return out
 
 
 paged_attend_cuda.launches = 0
+paged_attend_cuda.tc_launches = 0
+paged_attend_cuda.launches_by_rows = {}
 
 
 def launch_with(lib, q, k_pool, v_pool, tables, pos, *, ctas=None):

@@ -10,9 +10,9 @@
   tracing, restart accounting (A9) and ``metrics_txt`` (A13).
 - ``Reservoir``/``ServingRecorder`` — copies of the serving section
   (numpy only): per-request TTFT/TPOT, tokens/s, slot occupancy, queue
-  depth and KV-block gauges.  Left out: ``FleetRecorder`` and
-  ``ServingRecorder.metrics_txt`` (the JAX package's ``obs`` layer,
-  not ported yet).
+  depth, KV-block gauges, the speculative accept rate, the tokenize
+  sweeps, and ``metrics_txt`` over ``obs/metrics.py``.  Left out:
+  ``FleetRecorder`` (with the fleet, not ported yet).
 """
 
 from __future__ import annotations
@@ -663,3 +663,55 @@ class ServingRecorder:
                     },
                 })
         return out
+
+    def metrics_txt(self, prefix: str = "tm_serving") -> str:
+        """Prometheus-style text exposition of the summary, the JAX
+        package's names and families (``obs/metrics.py``)."""
+        from theanompi_tpu_torch.obs.metrics import (
+            quantile_samples,
+            render_metrics,
+        )
+
+        s = self.summary()
+        p = prefix
+        return render_metrics([
+            (f"{p}_requests_total", "counter", [
+                ({"status": "ok"}, s["n_completed"]),
+                ({"status": "shed"}, s["n_shed"]),
+            ]),
+            (f"{p}_sheds_total", "counter", [
+                ({"reason": r}, n)
+                for r, n in sorted(s["shed_reasons"].items())
+            ]),
+            (f"{p}_finish_total", "counter", [
+                ({"reason": r}, n)
+                for r, n in sorted(s["finish_reasons"].items())
+            ]),
+            (f"{p}_tokens_generated_total", "counter",
+             [(None, s["tokens_generated"])]),
+            (f"{p}_tokens_completed_total", "counter",
+             [(None, s["tokens_completed"])]),
+            (f"{p}_decode_seconds_total", "counter",
+             [(None, s["decode_s"])]),
+            (f"{p}_ttft_seconds", "summary", quantile_samples(
+                {"0.5": s["ttft_p50_s"], "0.95": s["ttft_p95_s"]})),
+            (f"{p}_tpot_seconds", "summary", quantile_samples(
+                {"0.5": s["tpot_p50_s"], "0.95": s["tpot_p95_s"]})),
+            (f"{p}_tokens_per_sec", "gauge",
+             [(None, s["tokens_per_sec"])]),
+            (f"{p}_slot_occupancy", "gauge",
+             [(None, s["slot_occupancy"])]),
+            (f"{p}_queue_depth_max", "gauge",
+             [(None, s["queue_depth_max"])]),
+            (f"{p}_prefix_hit_rate", "gauge",
+             [(None, s["prefix_hit_rate"])]),
+            (f"{p}_accept_rate", "gauge", [(None, s["accept_rate"])]),
+            (f"{p}_blocks_in_use_max", "gauge",
+             [(None, s["blocks_in_use_max"])]),
+            (f"{p}_blocks_free_min", "gauge",
+             [(None, s["blocks_free_min"])]),
+            (f"{p}_tokenize_items_total", "counter",
+             [(None, s["tokenize_items"])]),
+            (f"{p}_tokenize_items_per_sweep", "gauge",
+             [(None, s["tokenize_items_per_sweep"])]),
+        ])
