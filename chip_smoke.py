@@ -9,10 +9,11 @@ NVIDIA card.
     python3 chip_smoke.py --phases async       # build + the async rules
     python3 chip_smoke.py --phases async_dist  # ... across processes
     python3 chip_smoke.py --phases serving_ext # speculation, handoffs, ...
+    python3 chip_smoke.py --phases serving_fleet  # router, replicas, ...
 
 Phases (``--phases`` takes a comma list of kernels, serving,
-serving_ext, training, cnn, async, async_dist; the card-and-build phase
-always runs):
+serving_ext, serving_fleet, training, cnn, async, async_dist; the
+card-and-build phase always runs):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
@@ -25,14 +26,18 @@ always runs):
    PyTorch call computing the same function, where there is one): K1,
    K2 and K3 on both routes (bf16 on the tensor cores, fp32 on the SIMT
    kernels), K4 (split and merge) at the decode shape and the 16-row
-   verify shape; then a small fp32 model served on the card and on the
+   verify shape, the serving RMS norm kernel (not a TPU kernel: every
+   norm of the serving decoder, one CTA a row) at 8, 32 and 64 rows
+   within one bf16 ulp or 1e-6 in fp32, a row bitwise the same in
+   launches of 1, 8 and 32 rows; then a small fp32 model served on the
    CPU (greedy ids compared) and trained 3 BSP steps on each (losses
    compared), the fp32 routes' launches counted over both;
 3. v1 serving — a Llama at Llama-3-8B width (random weights from a
-   seed, bf16, ``--layers`` deep, 32 by default) under ``LlamaDecoder``
+   seed, bf16, ``--layers`` deep, 8 by default) under ``LlamaDecoder``
    and ``Engine``: 12 greedy requests batched, 3 of them again alone,
-   ids compared; kernel K1's launches counted over the batched run; a
-   decode-only profile;
+   ids compared; kernel K1's launches counted over the batched run, and
+   the norm kernel's (2 a layer and the final norm, every prefill and
+   decode call); a decode-only profile;
 4. paged serving — the same model under ``PagedLlamaDecoder`` with
    chunked prefill, the same requests plus 4 sharing a system prompt:
    prefix-cache hits, batched == alone, K4's launches counted; a
@@ -48,25 +53,50 @@ always runs):
    off): one-token decode, then ``speculate_k`` = 4 off the same
    decoder, with decode tokens/s, the accept rate, tokens per step,
    the median verify and decode steps, K4's launches (layers x verify
-   steps, all on the tensor cores at 16 rows), how many requests agree
-   and where the first divergence is, the wall ratio, and what can
-   make a verify row differ from decode (K4's row against the same row
+   steps, all on the tensor cores at 16 rows), the norm kernel's (2 a
+   layer and the final norm, every decoder call), that every request
+   agrees (asserted: the norm kernel makes a row's rounding independent
+   of the call's row count; on a miss the phase first prints what can
+   make a verify row differ from decode: K4's row against the same row
    of a decode launch, a 32-row product's rows against an 8-row one's,
-   and the two logit rows at the first divergence); decode and verify
-   step profiles (busy share); prefill on a second decoder and decode
+   and the two logit rows at the first divergence), the wall ratio;
+   decode and verify step profiles (busy share), and a decode step's
+   device time with every norm through the kernel and through the
+   plain expression, in turns; prefill on a second decoder and decode
    from the handoffs (ids equal to the unified run's, bytes, export and
    import times); tokens/s with the tracer off, on, on, off (a Chrome
    trace under ``build/``, every request one connected tree); and three
    ``submit_text`` requests through ``ByteTokenizer`` against
    ``submit(encode(text))``;
-6. training — ``BSP().init`` on the card with the port's Llama at
+6. serving_fleet — the fleet.  First the kill-one-of-three drill on the
+   small fp32 model, on the card and on the CPU (ids equal across the
+   devices and to one replica's).  Then phase 4's model (bf16,
+   ``--layers`` deep) and 16 requests at 32 tokens, one
+   ``PagedLlamaDecoder`` a replica over one set of weights, each
+   replica an ``InProcessReplica`` thread behind a ``Router``: one
+   replica (the reference ids); a profile of three replicas decoding
+   (busy share, device time by kind); the drill
+   (``TM_FAULT_AT=1:2:die_replica``: every future resolves, requeues
+   and a failover recorded, replica 1 unhealthy, ids equal to one
+   replica's); round robin against prefix affinity with prefix caching
+   on (hit rates); a prefill replica and a decode replica (ids equal,
+   handoff bytes, export and import times); the autoscaler (one to two
+   replicas and back, exact token accounting, replica-seconds); a
+   ``ReplicaServer`` child process at full width and 2 layers,
+   restored from a checkpoint this run writes, killed with SIGKILL
+   mid-stream beside an in-process member (every future resolves, the
+   failover is recorded).  Each arm prints the ``FleetRecorder``
+   numbers (aggregate decode tokens/s, TTFT and TPOT p50/p95, requests
+   per replica) and checks K4's launches (layers x decode calls) and
+   the norm kernel's, summed over the replicas of this process;
+7. training — ``BSP().init`` on the card with the port's Llama at
    Llama-3-8B widths, ``--layers`` deep (8 by default), seq 2048,
    batch 2, bf16, Adam, remat, the chunked head, ``ici32``: one epoch
    of 8 steps and 2 val batches, with each step's loss, the step time,
    tokens/s, peak memory and K1/K2/K3 launches (checked against
    2L/L/L per step, every launch on the tensor-core route), the losses
    held to ``TRAIN_TRAJECTORY``; then a 2-step profile;
-7. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
+8. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
    (``TM_DATA_DIR`` points at an empty directory under ``build/``): a
    small fp32 WResNet trained 3 BSP steps on the card and on the CPU
    (losses compared), and the val step of small fp32 AlexNet, VGG16
@@ -87,7 +117,7 @@ always runs):
    ``GOOGLENET_TRAJECTORY``.  No TPU kernel lies on this path:
    convolutions and matmuls are cuDNN's and cuBLAS's, BN, pooling and
    LRN plain PyTorch, the staging copies;
-8. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
+9. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
    replicas stacked on the card, on synthetic data: first a tiny fp32
    LSTM under GoSGD (W = 2, staleness 1) and WResNet-10-1 under EASGD
    (W = 2, ``speeds`` set) trained on the card and on the CPU from one
@@ -104,7 +134,7 @@ always runs):
    ``LSTM_GOSGD_TRAJECTORY`` and ``RESNET50_EASGD_TRAJECTORY``.  The
    kernels' launch counts over the phase are printed: no kernel of the
    package lies on this path;
-9. async_dist — the asynchronous rules across processes, each process
+10. async_dist — the asynchronous rules across processes, each process
    one worker on the card: first EASGD's ``_run_distributed`` in one
    process (a world of one, the center on 127.0.0.1, alpha 0.5, tau 2)
    on a tiny fp32 LSTM, on the card and on the CPU from one init
@@ -125,7 +155,7 @@ always runs):
    deliveries, and exactly the best-scoring process saved.  These runs
    measure the TCP exchange and the host on one card, not scaling
    across cards;
-10. the kernels line — one JSON object with every kernel's numbers.
+11. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
 Any failure raises and the exit code is not 0.  Without a CUDA device,
@@ -160,6 +190,8 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 
 REDUCED = {
     "max_seq": "2048 (LLAMA3_8B.seq_len 8192): the run's time limit",
+    "n_layers (serving, v1 and paged)": "8 (32): the run's time limit; "
+    "the serving_ext and serving_fleet phases serve the 32 layers",
     "n_layers (training)": "8 (32): fp32 master weights, gradients and "
     "Adam moments of 8.03 B parameters come to 128.5 GB, over the "
     "card's 80 GB",
@@ -181,6 +213,12 @@ REDUCED = {
     "reference ran one per GPU): the run has one card",
     "dataset (async_dist)": "synthetic, 8 steps and 2 val batches a "
     "process (IMDB 25 k / 25 k, ImageNet 1.28 M / 50 k): as above",
+    "n_layers (serving_fleet, TCP replica)": "2 (32): the child process "
+    "restores the model from an fp32 checkpoint this run writes (6.0 GB "
+    "at 2 layers, 32.1 GB at 32); the width is Llama-3-8B's",
+    "replicas (serving_fleet)": "up to 3 in-process replicas sharing one "
+    "card and one model's weights (a deployment gives each its own "
+    "card): the run has one card",
 }
 # per-step losses of the small fp32 model trained on the card and on
 # the CPU from one initial state: fp32 summation order differs between
@@ -208,8 +246,10 @@ CNN_TRAJECTORY_RTOL = 1e-2
 # with them gave them on an H100; held at CNN_TRAJECTORY_RTOL
 VGG16_TRAJECTORY = {"first": 7.15341, "last": 6.91443, "val": 6.95076}
 GOOGLENET_TRAJECTORY = {"first": 11.3753, "last": 11.0767, "val": 6.90323}
-PHASES = ("kernels", "serving", "serving_ext", "training", "cnn", "async",
-          "async_dist")
+# depth of phases 3-4 (v1 and paged serving) unless --layers says
+SERVING_LAYERS = 8
+PHASES = ("kernels", "serving", "serving_ext", "serving_fleet", "training",
+          "cnn", "async", "async_dist")
 
 
 def log(*a):
@@ -594,6 +634,89 @@ def check_paged(dev, flush) -> dict:
     return record
 
 
+def ulp_bf16(ref):
+    """One bf16 ulp at each value of ``ref`` (fp32): 2**(exponent - 7)."""
+    import torch
+
+    mag = ref.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_rms_norm(dev, flush) -> dict:
+    """The serving RMS norm kernel against its plain version at the
+    serving shapes (8 rows a decode step, 32 a verify window, 64 a
+    prefill chunk, 4096 wide), within one bf16 ulp in bf16 and 1e-6
+    (absolute plus relative) in fp32; a row's output bitwise the same
+    in launches of 1, 8 and 32 rows; times at 8 x 4096 and 32 x 4096
+    bf16 (kernel, plain version, and ``F.rms_norm`` where PyTorch has
+    it).  Returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.ops.norm import rms_norm, rms_norm_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    d = 4096
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for rows in (8, 32, 64):
+            x = (torch.randn((rows, d), generator=gen, device=dev) * 3
+                 ).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+                 ).to(dtype)
+            got, ref = rms_norm_cuda(x, w).float(), rms_norm(x, w).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            lim = (ulp_bf16(ref) if dtype == torch.bfloat16
+                   else 1e-6 * (1 + ref.abs()))
+            ok = bool((err <= lim).all())
+            tol = "one bf16 ulp" if name == "bfloat16" else "1e-6 abs + rel"
+            log(f"rms_norm {name} [{rows}, {d}]: max_abs_err "
+                f"{err.max().item():.3e} ({tol}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"rms_norm disagrees with its plain "
+                                     f"version at {name} [{rows}, {d}]")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err.max().item())
+        x = torch.randn((32, d), generator=gen, device=dev).to(dtype)
+        full = rms_norm_cuda(x, w)
+        same = torch.equal(full[:8], rms_norm_cuda(x[:8].contiguous(), w))
+        for r in (0, 7, 8, 31):
+            same &= torch.equal(full[r:r + 1],
+                                rms_norm_cuda(x[r:r + 1].contiguous(), w))
+        log(f"rms_norm {name}: rows of a 32-row launch bitwise those of "
+            f"8- and 1-row launches: {same}")
+        if not same:
+            raise AssertionError(f"rms_norm {name}: a row depends on the "
+                                 f"launch's row count")
+    times = {}
+    for rows in (8, 32):
+        x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        w = torch.ones(d, device=dev, dtype=torch.bfloat16)
+        lib = (time_ms(lambda: F.rms_norm(x, (d,), w, 1e-5), flush=flush)
+               if hasattr(F, "rms_norm") else None)
+        # x read and the output written once, w once; the fp32 math
+        # (square, sum, scale, weight) on the CUDA cores
+        b_ms, b_by = bound(4 * rows * d, (2 * rows * d + d) * 2, "float32")
+        times[rows] = dict(
+            ms=time_ms(lambda: rms_norm_cuda(x, w), flush=flush),
+            plain_ms=time_ms(lambda: rms_norm(x, w), flush=flush),
+            library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        log(f"rms_norm times bf16 [{rows}, {d}]: {json.dumps(times[rows])}")
+    return {
+        "name": "rms_norm", "route": "cuda",
+        "source": "theanompi_tpu_torch/csrc/rms_norm.cu",
+        "replaces": "theanompi_tpu/models/llama.py:91",
+        "note": "not a TPU kernel: the serving norm, row-count "
+                "independent (repairs speculative equality)",
+        "shape": "[8, 4096] bf16 (a decode step; verify [32, 4096] in "
+                 "verify_shape)",
+        "launches": None, "max_abs_err": worst, **times[8],
+        "verify_shape": {"shape": "[32, 4096] bf16", **times[32]},
+    }
+
+
 # -- serving -----------------------------------------------------------------
 
 SMALL = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=512,
@@ -687,6 +810,14 @@ def make_requests(vocab: int):
     return prompts, shared
 
 
+def add_launches(record: dict, **by_path) -> None:
+    """Add main-path launch counts to a kernel's record: its
+    ``launches`` is the sum over every path counted."""
+    paths = record.setdefault("launches_by_path", {})
+    paths.update(by_path)
+    record["launches"] = sum(paths.values())
+
+
 def reset_counts(*wrappers) -> None:
     """Zero each kernel wrapper's launch counts (all routes, all row
     counts)."""
@@ -711,16 +842,29 @@ def run_serving(name, dec, prompts, alone_idx, counter) -> dict:
     """Drive one decoder through the engine: every prompt batched with
     ``counter`` (a kernel wrapper) reset just before and read just
     after, then a few prompts again alone; ids must agree.  A counter
-    with a tensor-core route must have taken it every time."""
+    with a tensor-core route must have taken it every time.  The RMS
+    norm kernel is counted over the batched run too: one launch a norm,
+    2 a layer and the final one, every prefill and decode call."""
+    from theanompi_tpu_torch.ops.norm import rms_norm_cuda
+
     card = card_line()
     seeds = list(range(len(prompts)))
-    reset_counts(counter)
+    reset_counts(counter, rms_norm_cuda)
+    calls = [Count(dec, "prefill"), Count(dec, "decode")]
     ids, summ, stats, wall = serve(dec, prompts, max_tokens=32, seeds=seeds)
-    launches = counter.launches
+    for c in calls:
+        c.undo()
+    launches, norms = counter.launches, rms_norm_cuda.launches
+    want = norm_launches_per_call(dec.model) * sum(c.n for c in calls)
     log(f"[{name}] {len(prompts)} requests batched in {wall:.2f} s; "
-        f"{counter.__name__} launches {launches}")
+        f"{counter.__name__} launches {launches}, rms_norm_cuda launches "
+        f"{norms} ({want} = {norm_launches_per_call(dec.model)} x "
+        f"{sum(c.n for c in calls)} prefill and decode calls)")
     if launches <= 0:
         raise AssertionError(f"{name}: {counter.__name__} never launched")
+    if norms != want:
+        raise AssertionError(f"{name}: rms_norm launches {norms}, want "
+                             f"{want}")
     if hasattr(counter, "tc_launches"):
         check_tc_route(name, counter)
     alone = [serve(dec, [prompts[i]], max_tokens=32, seeds=[seeds[i]],
@@ -736,8 +880,8 @@ def run_serving(name, dec, prompts, alone_idx, counter) -> dict:
     log(f"[{name}] {json.dumps({k: summ[k] for k in keys})} on {card}")
     if stats is not None:
         log(f"[{name}] paging {json.dumps(stats)}")
-    return {"launches": launches, "summary": summ, "stats": stats,
-            "wall_s": wall}
+    return {"launches": launches, "norm_launches": norms, "summary": summ,
+            "stats": stats, "wall_s": wall}
 
 
 def trace_steps(step, steps: int, top: int) -> tuple[dict, list]:
@@ -882,6 +1026,74 @@ class Calls:
         return len(self.ms)
 
 
+class Count:
+    """Counts the calls of one method on an instance (patched on the
+    instance, no synchronization; ``undo`` restores the class's)."""
+
+    def __init__(self, obj, name: str):
+        fn = getattr(obj, name)
+        self.n = 0
+
+        def counted(*a, **k):
+            self.n += 1
+            return fn(*a, **k)
+
+        setattr(obj, name, counted)
+        self.undo = lambda: delattr(obj, name)
+
+
+def norm_launches_per_call(model) -> int:
+    """RMS norm launches of one decoder call (a prefill chunk, a decode
+    or a verify step): two a layer and the final norm."""
+    return 2 * model.n_layers + 1
+
+
+def profile_norm_ab(dec, prompts, steps: int = 4) -> dict:
+    """The decode step's profile (``trace_steps``, as ``profile_decode``
+    gives it) with every serving norm through the kernel and through the
+    plain expression it replaced (PyTorch's mean over the row), in turns
+    plain, kernel, kernel, plain, over one engine's full decode batch:
+    device and wall ms a step, busy share, the norm kernel's ms a step;
+    the last kernel turn's top kernels and K4's share."""
+    import theanompi_tpu_torch.serving.decoder as decoder_mod
+    from theanompi_tpu_torch.ops.norm import rms_norm, rms_norm_rows
+    from theanompi_tpu_torch.serving import Engine
+
+    eng = Engine(dec, prefix_caching=False)
+    for i, p in enumerate(prompts[:dec.max_slots]):
+        eng.submit(p[:1024], max_tokens=dec.max_seq, seed=i)
+    eng.step()
+    while eng.n_prefilling():
+        eng.step()
+    out = {"plain": [], "kernel": []}
+    try:
+        for mode in ("plain", "kernel", "kernel", "plain"):
+            decoder_mod.rms_norm_rows = (rms_norm if mode == "plain"
+                                         else rms_norm_rows)
+            prof, kernels = trace_steps(lambda i: eng.step(), steps, top=6)
+            norm_ms = sum(ms for k, ms in kernels
+                          if kernel_kind(k) == "rms_norm")
+            out[mode].append({
+                "device_ms_per_step": prof["device_ms_per_step"],
+                "wall_ms_per_step": prof["wall_ms_per_step"],
+                "busy_share": prof["busy_share"],
+                "rms_norm_kernel_ms_per_step": norm_ms})
+            if mode == "kernel":
+                k4 = sum(ms for k, ms in kernels
+                         if kernel_kind(k).startswith("K4"))
+                out["kernel_top_kernels_ms_per_step"] = prof[
+                    "top_kernels_ms_per_step"]
+                dev_ms = prof["device_ms_per_step"]
+                out["kernel_k4_share_of_device"] = (k4 / dev_ms if dev_ms
+                                                    else None)
+    finally:
+        decoder_mod.rms_norm_rows = rms_norm_rows
+        eng.abandon_all()
+    log(f"[serving_ext norm a/b] decode step, 8 slots, "
+        f"{dec.model.n_layers} layers: {json.dumps(out)} on {card_line()}")
+    return out
+
+
 def verify_matrix(dec, prompts):
     """Prefill each prompt into its own slot, then one verify step over
     windows [first token, the prompt's last 3 tokens]: the [S, K] token
@@ -984,15 +1196,15 @@ def first_divergence(a: list, b: list):
 
 
 def mlp_ops(x, p, m: int) -> dict:
-    """Each op of a layer's MLP on every row of ``x`` against the same op
-    on its first ``m`` rows alone (the decode step's batch): the largest
-    |difference| over those rows."""
+    """Each op of a layer's MLP, as the serving decoder runs it, on every
+    row of ``x`` against the same op on its first ``m`` rows alone (the
+    decode step's batch): the largest |difference| over those rows."""
     import torch.nn.functional as F
 
-    from theanompi_tpu_torch.models.llama import rms_norm
+    from theanompi_tpu_torch.ops.norm import rms_norm_rows
 
     def ops(x):
-        xn = rms_norm(x, p["mlp_norm"])
+        xn = rms_norm_rows(x, p["mlp_norm"])
         gate, up = xn @ p["w_gate"], xn @ p["w_up"]
         h = F.silu(gate) * up
         return {"rms_norm": xn, "gate": gate, "up": up, "silu_mul": h,
@@ -1158,14 +1370,15 @@ def replay_alone(dec, prompt, max_tokens: int) -> dict:
             "one_token_again": against_first(*runs[2])}
 
 
-def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
+def run_serving_ext(dev, n_layers: int | None, records: dict) -> float:
     """Phase serving_ext at Llama-3-8B width, bf16, ``n_layers`` deep
     under ``PagedLlamaDecoder``, phase 4's 16 requests (32 tokens each,
     prefix caching off so every run does the same work): one-token
     decode, then ``speculate_k = SPEC_K`` off the same decoder (K4
     launched at 16 rows by every verify step), then prefill on a second
     decoder and decode from the handoffs, then tracing on and off and
-    the tokenizer front door."""
+    the tokenizer front door.  Returns the one-token run's decode
+    tokens/s."""
     import torch
 
     from theanompi_tpu_torch.models import LLAMA3_8B, Llama
@@ -1176,6 +1389,7 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
         PagedLlamaDecoder,
         handoff_bytes,
     )
+    from theanompi_tpu_torch.ops.norm import rms_norm_cuda
     from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
 
     card = card_line()
@@ -1197,16 +1411,23 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
     ext_run(dec, [prompts[0][:40]], max_tokens=8, speculate_k=SPEC_K)
 
     out = {}
+    per_call = norm_launches_per_call(model)
     # one-token decode, then speculation, each counted alone
-    reset_counts(paged_attend_cuda)
-    decodes = Calls(dec, "decode")
+    reset_counts(paged_attend_cuda, rms_norm_cuda)
+    decodes, prefills = Calls(dec, "decode"), Count(dec, "prefill")
     plain, peng, plain_wall = ext_run(dec, reqs)
     decodes.undo()
+    prefills.undo()
     plain_launches = paged_attend_cuda.launches
-    reset_counts(paged_attend_cuda)
-    verifies = Calls(dec, "verify")
+    norm_plain = rms_norm_cuda.launches
+    want_plain = per_call * (decodes.n + prefills.n)
+    reset_counts(paged_attend_cuda, rms_norm_cuda)
+    verifies, prefills = Calls(dec, "verify"), Count(dec, "prefill")
     spec, seng, spec_wall = ext_run(dec, reqs, speculate_k=SPEC_K)
     verifies.undo()
+    prefills.undo()
+    norm_spec = rms_norm_cuda.launches
+    want_spec = per_call * (verifies.n + prefills.n)
     launches = paged_attend_cuda.launches
     by_rows = dict(paged_attend_cuda.launches_by_rows)
     tc = paged_attend_cuda.tc_launches
@@ -1235,6 +1456,8 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
         "k4_launches": {"one_token": plain_launches, "speculative": launches,
                         "speculative_by_rows": by_rows,
                         "speculative_tensor_cores": tc},
+        "rms_norm_launches": {"one_token": norm_plain,
+                              "speculative": norm_spec},
         "requests_equal": f"{same} of {len(reqs)}",
         "first_divergence": div,
         "wall_s": {"one_token": plain_wall, "speculative": spec_wall},
@@ -1254,16 +1477,29 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
         raise AssertionError(f"serving_ext: speculation accepted nothing "
                              f"({ss['accept_rate']}, "
                              f"{ss['tokens_per_step']})")
-    # why a verify row may differ from decode on the card
-    r = div[0] if div is not None else 0
+    if (norm_plain, norm_spec) != (want_plain, want_spec):
+        raise AssertionError(
+            f"serving_ext: rms_norm launches {norm_plain} / {norm_spec}, "
+            f"want {per_call} a decoder call: {want_plain} / {want_spec}")
+    # every serving norm is row-count independent on the card, so a
+    # verify row rounds as the decode row does: speculative ids equal
+    # one-token decode's, asserted; on a miss the diagnostics name what
+    # differs before the phase fails
     causes = equality_causes(dec)
-    causes["request"] = r
-    causes["alone"] = replay_alone(dec, reqs[r], 32)
-    causes["first_window"] = first_window(dec, reqs[r])
+    if div is not None:
+        r = div[0]
+        causes["request"] = r
+        causes["alone"] = replay_alone(dec, reqs[r], 32)
+        causes["first_window"] = first_window(dec, reqs[r])
     out["equality"] = causes
-    log(f"[serving_ext equality] {json.dumps(causes)} on {card}")
-    out["profile_decode"] = profile_decode("serving_ext decode", dec,
-                                           prompts)
+    log(f"[serving_ext equality] {same} of {len(reqs)} requests equal; "
+        f"{json.dumps(causes)} on {card}")
+    if same != len(reqs):
+        raise AssertionError(
+            f"serving_ext: speculative ids differ from one-token decode's "
+            f"in {len(reqs) - same} of {len(reqs)} requests (first at "
+            f"{div})")
+    out["norm_ab"] = profile_norm_ab(dec, prompts)
     out["profile_verify"] = profile_decode("serving_ext verify", dec,
                                            prompts, speculate_k=SPEC_K)
 
@@ -1353,11 +1589,643 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> None:
         by_path["serving_ext_verify"] = launches
         rec["launches"] = sum(by_path.values())
         rec["verify_shape"]["launches"] = launches
+    if "rms_norm" in records:
+        add_launches(records["rms_norm"], serving_ext_decode=norm_plain,
+                     serving_ext_verify=norm_spec)
     log(f"[serving_ext] " + json.dumps({
         k: out["speculation"][k] for k in ("decode_tokens_per_s",
                                            "accept_rate", "tokens_per_step",
                                            "median_step_ms", "wall_ratio")})
         + f" on {card}")
+    return out["speculation"]["decode_tokens_per_s"]["one_token"]
+
+
+# -- serving_fleet: the router, the replicas, the autoscaler -----------------
+
+FLEET_KW = dict(max_slots=8, max_seq=2048, block_size=16, prefill_chunk=64)
+FLEET_TOKENS = 32
+FLEET_DRILL = "1:2:die_replica"   # replica 1 dies at its 2nd busy step
+FLEET_TCP_LAYERS = 2              # the TCP child's depth (REDUCED)
+FLEET_RESULT_TIMEOUT_S = 600.0
+
+
+class FleetCounts:
+    """K4 and RMS norm launches over one fleet run, reset at the start,
+    with each replica decoder's decode and prefill calls counted on the
+    instance (each decoder is stepped by one replica thread).  ``close``
+    checks K4 = layers x decode calls and norms = (2 layers + 1) x
+    (decode + prefill calls), summed over the replicas in this
+    process."""
+
+    def __init__(self, decoders=()):
+        from theanompi_tpu_torch.ops.norm import rms_norm_cuda
+        from theanompi_tpu_torch.serving.paged_attention import (
+            paged_attend_cuda,
+        )
+
+        self.k4, self.norm = paged_attend_cuda, rms_norm_cuda
+        reset_counts(self.k4, self.norm)
+        self.calls = []
+        for d in decoders:
+            self.add(d)
+
+    def add(self, dec) -> None:
+        self.calls.append((dec, Count(dec, "decode"), Count(dec, "prefill")))
+
+    def close(self, name: str) -> dict:
+        import torch
+
+        for _, dc, pc in self.calls:
+            dc.undo()
+            pc.undo()
+        layers = self.calls[0][0].model.n_layers
+        decode = sum(dc.n for _, dc, _ in self.calls)
+        prefill = sum(pc.n for _, _, pc in self.calls)
+        out = {"k4_launches": self.k4.launches,
+               "k4_tensor_cores": self.k4.tc_launches,
+               "rms_norm_launches": self.norm.launches,
+               "decode_calls_by_replica": [dc.n for _, dc, _ in self.calls],
+               "prefill_calls_by_replica": [pc.n for _, _, pc in self.calls]}
+        want = (layers * decode, (2 * layers + 1) * (decode + prefill))
+        # bf16 takes K4's tensor-core kernel, fp32 its SIMT one
+        tc = out["k4_launches"] if self.calls[0][0].model.compute_dtype \
+            == torch.bfloat16 else 0
+        if (out["k4_launches"], out["rms_norm_launches"]) != want \
+                or out["k4_tensor_cores"] != tc:
+            raise AssertionError(
+                f"serving_fleet {name}: K4 {out['k4_launches']} (tensor "
+                f"cores {out['k4_tensor_cores']}), rms_norm "
+                f"{out['rms_norm_launches']}; want {want[0]} = {layers} x "
+                f"{decode} decode calls, {want[1]} = {2 * layers + 1} x "
+                f"{decode + prefill} decoder calls")
+        return out
+
+
+def start_fleet(decoders, *, roles=None, engine_kw=None, **router_kw):
+    """One started ``InProcessReplica`` a decoder (a fresh ``Engine``
+    each, prefix caching off unless ``engine_kw`` says otherwise) behind
+    a started ``Router``."""
+    from theanompi_tpu_torch.serving import Engine, InProcessReplica, Router
+
+    ekw = {"prefix_caching": False, **(engine_kw or {})}
+    reps = [InProcessReplica(Engine(d, **ekw), name=f"r{i}", index=i,
+                             role=(roles or {}).get(i, "unified")).start()
+            for i, d in enumerate(decoders)]
+    router_kw.setdefault("policy", "round_robin")
+    return Router(reps, health_interval_s=0.01, startup_grace_s=600.0,
+                  **router_kw).start(), reps
+
+
+def stop_fleet(router, reps) -> None:
+    """Stop the router and every replica loop, then free what a dead
+    loop left in its engine (slots and blocks), so the decoders serve
+    on."""
+    router.stop(drain_s=5.0)
+    for r in reps:
+        r.stop()
+        r.engine.abandon_all()
+
+
+def fleet_submit(router, reqs, idx=None, max_tokens=FLEET_TOKENS):
+    """Submit ``reqs`` (request i with seed ``idx[i]``, default i)."""
+    idx = list(range(len(reqs))) if idx is None else idx
+    return [router.submit(p, max_tokens=max_tokens, seed=int(i))
+            for p, i in zip(reqs, idx)]
+
+
+def fleet_results(name, futs, vocab, max_tokens=FLEET_TOKENS):
+    """Every future's result (each must resolve ``ok`` with
+    ``max_tokens`` ids in the vocab within the timeout)."""
+    out = []
+    for i, f in enumerate(futs):
+        r = f.result(timeout=FLEET_RESULT_TIMEOUT_S)
+        if r.status != "ok" or len(r.tokens) != max_tokens or not all(
+                0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"serving_fleet {name}: request {i} "
+                                 f"{r.status}/{r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
+        out.append(r)
+    return out
+
+
+def fleet_line(name, router, wall, counts=None, **extra) -> dict:
+    """The arm's fleet numbers (``FleetRecorder``): aggregate decode
+    tokens/s, TTFT/TPOT p50/p95, requests dispatched per replica, the
+    failover counters, and the kernel counts."""
+    summ = router.fleet_summary()
+    line = {"arm": name, "wall_s": wall,
+            "aggregate_decode_tokens_per_s":
+                summ["aggregate_tokens_per_sec"],
+            **{k: summ[k] for k in (
+                "ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s",
+                "dispatched", "n_completed", "tokens_completed",
+                "n_requeues", "n_failovers", "n_handoffs",
+                "prefix_hit_rate")},
+            **(counts or {}), **extra}
+    log(f"[serving_fleet {name}] {json.dumps(line)} on {card_line()}")
+    return summ, line
+
+
+def run_arm(name, decoders, reqs, vocab, *, roles=None, engine_kw=None,
+            **router_kw):
+    """Serve ``reqs`` through a fresh fleet over ``decoders``; returns
+    (results, fleet summary, the arm's line)."""
+    import torch
+
+    counts = FleetCounts(decoders)
+    router, reps = start_fleet(decoders, roles=roles, engine_kw=engine_kw,
+                               **router_kw)
+    try:
+        t0 = time.perf_counter()
+        rs = fleet_results(name, fleet_submit(router, reqs), vocab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        summ, line = fleet_line(name, router, wall, counts.close(name))
+    finally:
+        stop_fleet(router, reps)
+    return rs, summ, line
+
+
+def profile_fleet(decoders, prompts, steps: int = 4) -> dict:
+    """The three-replica fleet of the drill, before any kill: every
+    engine's 8 slots filled (prompts cut to 512 tokens) and prefilled
+    inline, then the replica loops started and traced under
+    ``torch.profiler`` until each replica has taken ``steps`` more
+    decode steps: device time by kind and the top kernels over the
+    window's wall time (the busy share), decode steps in the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from theanompi_tpu_torch.serving import Engine, InProcessReplica
+
+    engines = [Engine(d, prefix_caching=False) for d in decoders]
+    for e in engines:
+        for j, p in enumerate(prompts[:e.decoder.max_slots]):
+            e.submit(p[:512], max_tokens=e.decoder.max_seq, seed=j)
+        e.step()
+        while e.n_prefilling():
+            e.step()
+    reps = [InProcessReplica(e, name=f"r{i}", index=i)
+            for i, e in enumerate(engines)]
+
+    def progress():
+        return [r.heartbeat()["progress"] for r in reps]
+
+    def wait_steps(base, n):
+        deadline = time.monotonic() + 300.0
+        while min(p - b for p, b in zip(progress(), base)) < n:
+            if time.monotonic() > deadline:
+                raise AssertionError("serving_fleet profile: replicas "
+                                     "stopped stepping")
+            time.sleep(0.001)
+
+    try:
+        for r in reps:
+            r.start()
+        wait_steps([0] * len(reps), 2)             # warm, all decoding
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            base, t0 = progress(), time.perf_counter()
+            wait_steps(base, steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            took = [p - b for p, b in zip(progress(), base)]
+    finally:
+        for r in reps:
+            r.stop()
+            r.engine.abandon_all()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    dev_ms = sum(ms for _, ms in kernels)
+    by_kind = {}
+    for k, ms in kernels:
+        by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
+    out = {"replicas": len(reps), "decode_steps": took,
+           "window_wall_ms": wall_ms, "device_ms": dev_ms,
+           "busy_share": dev_ms / wall_ms,
+           "device_ms_per_decode_step": dev_ms / sum(took),
+           "wall_ms_per_fleet_step": wall_ms / (sum(took) / len(reps)),
+           "device_ms_by_kind": by_kind,
+           "top_kernels_ms": {k[:80]: ms for k, ms in kernels[:6]}}
+    log(f"[serving_fleet profile] three replicas before the kill: "
+        f"{json.dumps(out)} on {card_line()}")
+    return out
+
+
+def fleet_drill(decoders, reqs, vocab):
+    """The kill-one-of-three drill: ``TM_FAULT_AT=FLEET_DRILL`` kills
+    replica 1's loop at its 2nd busy step; returns (results, summary,
+    line, whether replica 1 died of the drill).  On the card the kernel
+    launches are counted and checked (``FleetCounts``)."""
+    import torch
+
+    from theanompi_tpu_torch.utils import faults
+
+    on_card = decoders[0].device.type == "cuda"
+    counts = FleetCounts(decoders) if on_card else None
+    faults.reset_fault_cache()
+    os.environ["TM_FAULT_AT"] = FLEET_DRILL
+    try:
+        router, reps = start_fleet(decoders)
+        try:
+            t0 = time.perf_counter()
+            rs = fleet_results("drill", fleet_submit(router, reqs), vocab)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            died = reps[1].dead and "ReplicaDied" in (reps[1].death_cause
+                                                      or "")
+            summ, line = fleet_line(
+                "drill", router, wall,
+                counts.close("drill") if on_card else None,
+                device=decoders[0].device.type)
+        finally:
+            stop_fleet(router, reps)
+    finally:
+        del os.environ["TM_FAULT_AT"]
+        faults.reset_fault_cache()
+    return rs, summ, line, died
+
+
+def check_fleet_drill(name, rs, summ, died, ref_ids) -> None:
+    ids = [r.tokens for r in rs]
+    problems = []
+    if summ["n_completed"] != len(rs):
+        problems.append(f"{summ['n_completed']} completed")
+    if summ["n_requeues"] < 1 or summ["n_failovers"] < 1:
+        problems.append(f"requeues {summ['n_requeues']}, failovers "
+                        f"{summ['n_failovers']}")
+    if summ["members"]["r1"]["healthy"] is not False or not died:
+        problems.append(f"r1 {summ['members']['r1']}, died {died}")
+    same = sum(a == b for a, b in zip(ids, ref_ids))
+    log(f"[serving_fleet {name}] drill ids equal to one replica's: "
+        f"{same} of {len(ids)}")
+    if same != len(ids):
+        problems.append(f"ids differ at {first_divergence(ref_ids, ids)}")
+    if problems:
+        raise AssertionError(f"serving_fleet {name}: " + "; ".join(problems))
+
+
+def check_fleet_reference(dev) -> None:
+    """The drill on the small fp32 model, on the card and on the CPU from
+    one set of weights: ids equal across the devices and to one
+    replica's."""
+    from theanompi_tpu_torch.serving import PagedLlamaDecoder
+
+    gpu, cpu = small_pair(dev)
+    prompts = small_ext_prompts(SMALL["vocab"]) * 2
+    kw = dict(max_slots=4, max_seq=128, block_size=16, prefill_chunk=32)
+    ids = {}
+    for name, m in (("card", gpu), ("cpu", cpu)):
+        decs = [PagedLlamaDecoder(m, **kw) for _ in range(3)]
+        router, reps = start_fleet(decs[:1])
+        try:
+            ref = [r.tokens for r in fleet_results(
+                f"reference {name}", fleet_submit(router, prompts),
+                SMALL["vocab"])]
+        finally:
+            stop_fleet(router, reps)
+        rs, summ, _, died = fleet_drill(decs, prompts, SMALL["vocab"])
+        check_fleet_drill(f"reference {name}", rs, summ, died, ref)
+        ids[name] = ref
+    log(f"reference [serving_fleet] small fp32 model, kill-one-of-three "
+        f"drill, card vs CPU ids: "
+        f"{'equal' if ids['card'] == ids['cpu'] else 'DIFFER'}")
+    if ids["card"] != ids["cpu"]:
+        raise AssertionError("serving_fleet: card and CPU drill ids differ")
+
+
+def start_replica_child(spec: dict):
+    """``python -m theanompi_tpu_torch.serving.replica --spec-json`` in
+    a child process; returns (process, port) once it prints
+    ``REPLICA_READY``."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.serving.replica",
+         "--spec-json", json.dumps(spec)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    seen, deadline = [], time.monotonic() + DIST_CHILD_TIMEOUT_S
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            continue
+        if line is None:
+            break
+        seen.append(line)
+        if line.startswith("REPLICA_READY"):
+            return proc, int(line.split()[1])
+    proc.kill()
+    proc.wait()
+    raise AssertionError("serving_fleet: the replica child never became "
+                         "ready:\n" + "".join(seen[-40:]))
+
+
+def fleet_tcp_arm(dev, cfg, reqs) -> dict:
+    """A ``ReplicaServer`` child at full width, ``FLEET_TCP_LAYERS``
+    deep, restored from a checkpoint this process writes, beside an
+    in-process member over the same weights; the child is killed with
+    SIGKILL mid-stream.  Every future must resolve and the failover be
+    recorded."""
+    import signal
+
+    import torch
+
+    from theanompi_tpu_torch.models import Llama
+    from theanompi_tpu_torch.models.llama import params_to_jax
+    from theanompi_tpu_torch.serving import (
+        Engine,
+        InProcessReplica,
+        PagedLlamaDecoder,
+        Router,
+        TCPReplicaClient,
+    )
+    from theanompi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = dict(cfg, n_layers=FLEET_TCP_LAYERS)
+    model = Llama(cfg, device=dev)
+    ckpt = ROOT / "build" / "serving_fleet_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = save_checkpoint(ckpt, 0, {"params": params_to_jax(model.params)})
+    write_s = time.perf_counter() - t0
+    dec = PagedLlamaDecoder(model, **FLEET_KW)
+    ext_run(dec, [reqs[0][:40]], max_tokens=4)                  # warm-up
+    spec = dict(config=cfg, checkpoint=str(ckpt), device=str(dev),
+                paged=True, decoder=FLEET_KW,
+                engine={"prefix_caching": False}, name="tcp0", index=0)
+    t0 = time.perf_counter()
+    proc, port = start_replica_child(spec)
+    ready_s = time.perf_counter() - t0
+    client = local = router = None
+    try:
+        client = TCPReplicaClient(("127.0.0.1", port), name="tcp0",
+                                  ping_interval_s=0.05, slots=8)
+        local = InProcessReplica(Engine(dec, prefix_caching=False),
+                                 name="local1", index=1).start()
+        router = Router([client, local], policy="round_robin",
+                        health_interval_s=0.01, startup_grace_s=600.0
+                        ).start()
+        counts = FleetCounts([dec])
+        t0 = time.perf_counter()
+        futs = fleet_submit(router, reqs)
+        deadline = time.monotonic() + 300.0
+        while client.heartbeat()["progress"] < 4:
+            if time.monotonic() > deadline or client.dead:
+                raise AssertionError("serving_fleet tcp: the child never "
+                                     "stepped")
+            time.sleep(0.005)
+        os.kill(proc.pid, signal.SIGKILL)
+        killed_at = client.heartbeat()["progress"]
+        rs = fleet_results("tcp", futs, model.vocab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        summ, line = fleet_line(
+            "tcp", router, wall, counts.close("tcp"),
+            checkpoint_gb=path.stat().st_size / 1e9,
+            checkpoint_write_s=write_s, child_ready_s=ready_s,
+            killed_at_child_step=killed_at)
+        if summ["n_failovers"] < 1 or summ["n_requeues"] < 1 \
+                or summ["members"]["tcp0"]["healthy"] is not False:
+            raise AssertionError(f"serving_fleet tcp: the kill was not "
+                                 f"failed over: {summ['members']}, "
+                                 f"{summ['n_failovers']} failovers, "
+                                 f"{summ['n_requeues']} requeues")
+    finally:
+        if router is not None:
+            router.stop(drain_s=5.0)
+        if local is not None:
+            local.stop()
+            local.engine.abandon_all()
+        if client is not None:
+            client.close()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del dec, model
+    torch.cuda.empty_cache()
+    return line
+
+
+def fleet_autoscale_arm(model, first_dec, reqs) -> dict:
+    """``Autoscaler(min_replicas=1, max_replicas=2)`` over a one-replica
+    fleet, its spawn factory building a decoder over the shared model: a
+    flood of twice the requests scales it to two replicas, and idle it
+    drains back to one.  Exact token accounting; replica-seconds."""
+    import torch
+
+    from theanompi_tpu_torch.serving import (
+        Autoscaler,
+        Engine,
+        PagedLlamaDecoder,
+        InProcessReplica,
+    )
+
+    flood = reqs * 2
+    counts = FleetCounts([first_dec])
+    # a replica queues at most its slots: the rest waits at the router,
+    # where a new member can take it
+    router, reps = start_fleet([first_dec], policy="least_loaded",
+                               replica_queue_cap=FLEET_KW["max_slots"])
+    spawned = []
+
+    def spawn(i):
+        dec = PagedLlamaDecoder(model, **FLEET_KW)
+        counts.add(dec)
+        rep = InProcessReplica(Engine(dec, prefix_caching=False),
+                               name=f"r{i}", index=i).start()
+        spawned.append(rep)
+        return rep
+
+    def retire(rep):
+        rep.stop()
+        rep.engine.abandon_all()
+
+    asc = Autoscaler(router, spawn, retire=retire, min_replicas=1,
+                     max_replicas=2, scale_up_at=1.5, scale_down_at=0.25,
+                     up_hold_s=0.2, down_hold_s=1.0, cooldown_s=0.5,
+                     interval_s=0.05).start()
+    try:
+        t0 = time.perf_counter()
+        rs = fleet_results("autoscale", fleet_submit(router, flood),
+                           model.vocab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 120.0
+        while len(router.members()) > 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        asc.stop()
+        a = asc.summary()
+        summ, line = fleet_line(
+            "autoscale", router, wall, counts.close("autoscale"),
+            replica_seconds=router.recorder.replica_seconds(),
+            scale_events=[{k: e[k] for k in ("event", "replica", "reason")}
+                          for e in a["events"]],
+            members_after=sorted(router.members()))
+    finally:
+        asc.stop()
+        stop_fleet(router, reps + spawned)
+    tokens = sum(len(r.tokens) for r in rs)
+    want = len(flood) * FLEET_TOKENS
+    if tokens != want or summ["tokens_completed"] != want \
+            or summ["n_completed"] != len(flood) or a["dead"] \
+            or (a["n_scale_ups"], a["n_scale_downs"]) != (1, 1) \
+            or (summ["n_spawns"], summ["n_retires"]) != (2, 1) \
+            or len(line["members_after"]) != 1 \
+            or len(summ["dispatched"]) != 2:
+        raise AssertionError(
+            f"serving_fleet autoscale: {tokens} tokens (want {want}), "
+            f"{summ['n_completed']} completed, autoscaler {a}")
+    del spawned
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_serving_fleet(dev, n_layers: int | None, records: dict,
+                      one_engine_tokens_per_s=None) -> None:
+    """Phase serving_fleet at Llama-3-8B width, bf16, ``n_layers`` deep
+    (the serving phase's model and requests, prefix caching off unless
+    said): one replica behind the router (the reference ids), the
+    kill-one-of-three drill (after a profile of the three replicas),
+    prefix affinity against round robin, disaggregated prefill/decode,
+    a TCP replica child killed mid-stream, and the autoscaler."""
+    import torch
+
+    from theanompi_tpu_torch.models import LLAMA3_8B, Llama
+    from theanompi_tpu_torch.serving import PagedLlamaDecoder
+
+    card = card_line()
+    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
+    if n_layers:
+        cfg["n_layers"] = n_layers
+    model = Llama(cfg, device=dev)
+    model.params
+    prompts, shared = make_requests(model.vocab)
+    reqs = shared[:1] + prompts + shared[1:]
+    decs = [PagedLlamaDecoder(model, **FLEET_KW) for _ in range(3)]
+    log(f"[serving_fleet] model: {cfg['n_layers']} layers at Llama-3-8B "
+        f"width, bf16; 3 decoders over one model, pools "
+        f"{3 * decs[0].kv_cache_bytes() / 2**30:.2f} GiB; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    for d in decs:                                      # warm-up
+        ext_run(d, [prompts[0][:40]], max_tokens=4)
+    lines = {}
+
+    # 1: one replica behind the router: the reference ids
+    rs, _, lines["one"] = run_arm("one replica", decs[:1], reqs, model.vocab)
+    ref = [r.tokens for r in rs]
+
+    # 2: the drill, after a profile of the three replicas before it
+    lines["profile"] = profile_fleet(decs, prompts)
+    rs, summ, lines["drill"], died = fleet_drill(decs, reqs, model.vocab)
+    check_fleet_drill("drill", rs, summ, died, ref)
+    if one_engine_tokens_per_s:
+        lines["drill"]["vs_serving_ext_one_token"] = (
+            lines["drill"]["aggregate_decode_tokens_per_s"]
+            / one_engine_tokens_per_s)
+    lines["drill"]["vs_one_replica"] = (
+        lines["drill"]["aggregate_decode_tokens_per_s"]
+        / lines["one"]["aggregate_decode_tokens_per_s"])
+
+    # 3: prefix affinity against round robin, prefix caching on; the
+    # system-prompt requests after the first of them was served, keyed
+    # on a block the size of the system prompt
+    order = [0] + list(range(1, 13)) + [13, 14, 15]
+    for policy in ("round_robin", "prefix_affinity"):
+        counts = FleetCounts(decs)
+        router, reps = start_fleet(decs, engine_kw={"prefix_caching": True},
+                                   policy=policy, affinity_block=256)
+        try:
+            t0 = time.perf_counter()
+            first = fleet_submit(router, [reqs[i] for i in order[:13]],
+                                 order[:13])
+            first[0].result(timeout=FLEET_RESULT_TIMEOUT_S)
+            rest = fleet_submit(router, [reqs[i] for i in order[13:]],
+                                order[13:])
+            rs = fleet_results(policy, first + rest, model.vocab)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ids = {i: r.tokens for i, r in zip(order, rs)}
+            _, lines[policy] = fleet_line(
+                policy, router, wall, counts.close(policy),
+                ids_equal_one_replica=sum(ids[i] == ref[i] for i in order))
+        finally:
+            stop_fleet(router, reps)
+            for d in decs:
+                d.prefix_cache.clear()
+
+    # 4: disaggregated prefill/decode: prefill on r0, decode on r1
+    handoff = {"export_ms": [], "kv_bytes": []}
+    export = decs[0].export_blocks
+
+    def timed_export(block_ids):        # its D2H copy fences it
+        t0 = time.perf_counter()
+        layers = export(block_ids)
+        handoff["export_ms"].append((time.perf_counter() - t0) * 1e3)
+        handoff["kv_bytes"].append(
+            sum(x["k"].nbytes + x["v"].nbytes for x in layers))
+        return layers
+
+    decs[0].export_blocks = timed_export
+    imports = Calls(decs[1], "import_blocks")
+    try:
+        rs, summ, lines["disaggregated"] = run_arm(
+            "disaggregated", decs[:2], reqs, model.vocab,
+            roles={0: "prefill", 1: "decode"})
+    finally:
+        del decs[0].export_blocks
+        imports.undo()
+    same = sum(r.tokens == x for r, x in zip(rs, ref))
+    handoff.update(import_ms=imports.ms,
+                   export_ms_median=statistics.median(handoff["export_ms"]),
+                   import_ms_median=statistics.median(imports.ms),
+                   ids_equal_one_replica=f"{same} of {len(reqs)}")
+    lines["disaggregated"].update(handoff)
+    log(f"[serving_fleet disaggregated handoffs] {json.dumps(handoff)}")
+    if same != len(reqs) or summ["n_handoffs"] != len(reqs):
+        raise AssertionError(f"serving_fleet disaggregated: {same} of "
+                             f"{len(reqs)} ids equal, "
+                             f"{summ['n_handoffs']} handoffs")
+
+    # 6 (before 5, which needs the card's memory for its own model):
+    # the autoscaler over the shared model
+    lines["autoscale"] = fleet_autoscale_arm(model, decs[0], reqs)
+    del decs
+    torch.cuda.empty_cache()
+
+    # 5: a TCP replica child killed mid-stream
+    lines["tcp"] = fleet_tcp_arm(dev, cfg, reqs)
+    del model
+    torch.cuda.empty_cache()
+
+    k4 = sum(line.get("k4_launches", 0) for line in lines.values())
+    norms = sum(line.get("rms_norm_launches", 0) for line in lines.values())
+    if "K4" in records:
+        add_launches(records["K4"], serving_fleet=k4)
+    if "rms_norm" in records:
+        add_launches(records["rms_norm"], serving_fleet=norms)
+    log(f"[serving_fleet] " + json.dumps({
+        a: {k: lines[a].get(k) for k in (
+            "aggregate_decode_tokens_per_s", "ttft_p50_s", "tpot_p50_s",
+            "busy_share", "prefix_hit_rate", "vs_one_replica",
+            "vs_serving_ext_one_token")}
+        for a in lines}) + f" on {card}")
 
 
 # -- training ----------------------------------------------------------------
@@ -1508,6 +2376,7 @@ def kernel_kind(name: str) -> str:
                       ("flash_bwd_dq_kernel", "K3 flash_bwd_dq (SIMT)"),
                       ("paged_split", "K4 paged_split"),
                       ("paged_combine", "K4 paged_combine"),
+                      ("rms_norm_kernel", "rms_norm"),
                       ("nccl", "NCCL"), ("Memcpy", "memcpy/memset"),
                       ("Memset", "memcpy/memset"),
                       ("softmax", "loss (softmax, nll)"),
@@ -2415,13 +3284,18 @@ def tc_report(reports: dict) -> dict:
 
 # -- main -------------------------------------------------------------------
 
+def phase_start(name: str, t_start: float) -> None:
+    log(f"== phase {name} at {time.perf_counter() - t_start:.1f} s")
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES} (default: all)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="depth of the full-width models (default: 32 "
-                    "serving, 8 training)")
+                    help="depth of the full-width models (default: 8 "
+                    "serving and training, 32 serving_ext and "
+                    "serving_fleet)")
     ns = ap.parse_args(argv)
     ns.phases = [p for p in ns.phases.split(",") if p]
     bad = set(ns.phases) - set(PHASES)
@@ -2485,6 +3359,7 @@ def main(argv=None) -> int:
 
     records = {}
     if "kernels" in ns.phases:
+        phase_start("kernels", t_start)
         # phase 2: kernels against their plain versions
         # 1 GiB: the device takes ~0.3 ms to overwrite it, longer than
         # the host needs to enqueue any kernel's call
@@ -2492,6 +3367,7 @@ def main(argv=None) -> int:
         records.update(check_flash(dev, flush))
         records.update(check_flash_bwd(dev, flush))
         records["K4"] = check_paged(dev, flush)
+        records["rms_norm"] = check_rms_norm(dev, flush)
         del flush
         torch.cuda.empty_cache()
         for k, kernel in (("K1", "flash_fwd_tc_kernel"),
@@ -2523,10 +3399,10 @@ def main(argv=None) -> int:
             log(f"{k} ({records[k]['name']}) launches {paths}")
 
     if "serving" in ns.phases:
+        phase_start("serving", t_start)
         # phases 3-4: the serving paths at Llama-3-8B width
-        cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
-        if ns.layers:
-            cfg["n_layers"] = ns.layers
+        cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0,
+                   n_layers=ns.layers or SERVING_LAYERS)
         t0 = time.perf_counter()
         model = Llama(cfg, device=dev)
         model.params                   # drawn at first use: time it here
@@ -2569,16 +3445,31 @@ def main(argv=None) -> int:
             records["K4"]["launches"] = run["launches"]
             records["K4"]["launches_by_path"] = {"serving_paged":
                                                  run["launches"]}
+            add_launches(records["rms_norm"],
+                         serving_v1=v1["norm_launches"],
+                         serving_paged=run["norm_launches"])
 
+    ext_rate = None
     if "serving_ext" in ns.phases:
+        phase_start("serving_ext", t_start)
         # phase 5: speculation, handoffs, tracing, the tokenizer
         check_serving_ext_reference(dev)
-        run_serving_ext(dev, ns.layers, records)
+        ext_rate = run_serving_ext(dev, ns.layers, records)
         log(f"peak device memory (serving_ext) "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
+    if "serving_fleet" in ns.phases:
+        phase_start("serving_fleet", t_start)
+        # phase 6: the router, the replicas, the autoscaler
+        check_fleet_reference(dev)
+        torch.cuda.reset_peak_memory_stats()
+        run_serving_fleet(dev, ns.layers, records, ext_rate)
+        log(f"peak device memory (serving_fleet) "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
     if "training" in ns.phases:
-        # phase 6: BSP training at Llama-3-8B widths, then its profile
+        phase_start("training", t_start)
+        # phase 7: BSP training at Llama-3-8B widths, then its profile
         counters = {"K1": flash_fwd_cuda, "K2": flash_bwd_dkv_cuda,
                     "K3": flash_bwd_dq_cuda}
         # the group outlives the run, so the profile can take more steps
@@ -2598,22 +3489,25 @@ def main(argv=None) -> int:
             records["K1"]["launches"] = sum(by_path.values())
 
     if "cnn" in ns.phases:
-        # phase 7: the image-classifier path (no TPU kernel on it)
+        phase_start("cnn", t_start)
+        # phase 8: the image-classifier path (no TPU kernel on it)
         run_cnn_phase(dev)
 
     if "async" in ns.phases:
-        # phase 8: EASGD and GoSGD in one process (no TPU kernel on it)
+        phase_start("async", t_start)
+        # phase 9: EASGD and GoSGD in one process (no TPU kernel on it)
         run_async_phase(dev, (flash_fwd_cuda, flash_bwd_dkv_cuda,
                               flash_bwd_dq_cuda, paged_attend_cuda))
 
     if "async_dist" in ns.phases:
-        # phase 9: EASGD and GoSGD across processes (no TPU kernel on it)
+        phase_start("async_dist", t_start)
+        # phase 10: EASGD and GoSGD across processes (no TPU kernel on it)
         run_async_dist_phase(dev)
 
-    # phase 10: the kernels line, the card, the result
+    # phase 11: the kernels line, the card, the result
     log(json.dumps({"kernels": [
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
-                             "K3 fp32", "K4")
+                             "K3 fp32", "K4", "rms_norm")
         if k in records]}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -65,7 +65,12 @@ def test_import_leaves_jax_out_of_sys_modules():
             "theanompi_tpu_torch.obs.metrics",
             "theanompi_tpu_torch.serving.speculation",
             "theanompi_tpu_torch.serving.tokenize",
-            "theanompi_tpu_torch.serving.kv_transfer"} <= set(MODULES)
+            "theanompi_tpu_torch.serving.kv_transfer",
+            "theanompi_tpu_torch.serving.replica",
+            "theanompi_tpu_torch.serving.router",
+            "theanompi_tpu_torch.serving.autoscaler",
+            "theanompi_tpu_torch.utils.faults",
+            "theanompi_tpu_torch.ops.norm"} <= set(MODULES)
 
 
 def imported_names(path: Path) -> set:
@@ -226,6 +231,33 @@ def test_fault_drills_fail_before_the_model_is_built(monkeypatch):
     monkeypatch.setattr(Llama, "build_model", built)
     monkeypatch.setenv("TM_FAULT_AT", "0:2")
     with pytest.raises(NotImplementedError, match="A9"):
+        bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
+                       **LLAMA)
+
+
+def test_replica_child_needs_the_card_and_builds_under_fault_drills(
+        no_cuda, monkeypatch, tmp_path):
+    """``serve_replica_main`` resolves its device like every entry point
+    (the card unless the spec says "cpu"); ``TM_FAULT_AT`` stays off
+    the serving path: a decoder builds with a drill in the
+    environment, while training refuses it (A9)."""
+    from theanompi_tpu_torch.models.llama import params_to_jax
+    from theanompi_tpu_torch.serving.replica import serve_replica_main
+    from theanompi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    save_checkpoint(tmp_path, 0, {"params": params_to_jax(
+        Llama(CFG, device="cpu").params)})
+    monkeypatch.setenv("TM_FAULT_AT", "0:2:die_replica")
+    spec = json.dumps({"config": CFG, "checkpoint": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_replica_main(["--spec-json", spec])
+    dec = decoder_from_checkpoint(CFG, str(tmp_path), device="cpu",
+                                  paged=True, max_slots=2, max_seq=16,
+                                  block_size=4, prefill_chunk=4)
+    assert dec.pools[0]["k"].device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="A9"):
+        from theanompi_tpu_torch.workers import bsp_worker
+
         bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
                        **LLAMA)
 

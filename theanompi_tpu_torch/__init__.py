@@ -5,7 +5,9 @@ the same path.  Ported so far:
 
 - Llama serving at one card (tp=1): ``models.llama.Llama`` wrapped in
   ``serving.LlamaDecoder`` or ``serving.PagedLlamaDecoder`` and driven
-  by ``serving.Engine``;
+  by ``serving.Engine``, and the fleet over such engines: replicas
+  in-process or over TCP (``serving.replica``) behind
+  ``serving.Router``, resized by ``serving.Autoscaler``;
 - BSP training: ``BSP().init(...)`` -> ``launcher.launch`` ->
   ``workers.bsp_worker.run`` -> the model's ``train_iter``, one process
   per device over ``torch.distributed``, for Llama and for the
@@ -23,7 +25,9 @@ the same path.  Ported so far:
 
 The TPU kernels on those paths are hand-written CUDA C++ in
 ``csrc/``: the flash-attention forward and backward (``ops.attention``)
-and the paged attention (``serving.paged_attention``).  The classifier
+and the paged attention (``serving.paged_attention``); so is the
+serving decoders' RMS norm (``ops.norm``), whose rows do not depend on
+the call's row count.  The classifier
 and async paths run no TPU kernel: their convolutions and matmuls are
 cuDNN's and cuBLAS's, BN, pooling, LRN and the LSTM cell plain
 PyTorch.

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (
     Path(__file__).resolve().parents[2] / "build" / "theanompi_tpu_torch"
 )
-SOURCES = ("flash_fwd", "flash_bwd", "paged_attend")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_attend", "rms_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

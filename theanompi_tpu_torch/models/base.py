@@ -79,7 +79,10 @@ UNPORTED_KNOBS = {
 def refuse_unported(cfg: dict) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a config
     knob (or ``TM_FAULT_AT``) of a feature the port does not run yet,
-    and ``ValueError`` for a bad ``loader_pipeline``."""
+    and ``ValueError`` for a bad ``loader_pipeline``.  Training paths
+    only: the serving fleet runs its ``TM_FAULT_AT`` drills
+    (``die_replica``, ``spike_load``; ``utils/faults.py``), and a
+    serving decoder builds whatever the variable holds."""
     for knob, item in UNPORTED_KNOBS.items():
         if cfg.get(knob):
             raise NotImplementedError(
@@ -88,8 +91,10 @@ def refuse_unported(cfg: dict) -> None:
             )
     if os.environ.get("TM_FAULT_AT"):
         raise NotImplementedError(
-            f"TM_FAULT_AT={os.environ['TM_FAULT_AT']!r}: the fault drills "
-            f"are not ported yet (ROADMAP.md A9)"
+            f"TM_FAULT_AT={os.environ['TM_FAULT_AT']!r}: the training "
+            f"fault drills and their supervisor are not ported yet "
+            f"(ROADMAP.md A9; the serving fleet's die_replica and "
+            f"spike_load drills run)"
         )
     resolve_loader_depth(cfg)
     if int(cfg.get("steps_per_call", 0) or 0) > 1:

@@ -45,6 +45,9 @@ from theanompi_tpu_torch.models.base import DTYPES, TMModel, resolve_dtype
 from theanompi_tpu_torch.models.data.lm_synthetic import MarkovLMData
 from theanompi_tpu_torch.ops import optimizers as opt_lib
 from theanompi_tpu_torch.ops.attention import flash_attention
+# training differentiates the plain expression: the serving decoder's
+# row-count-independent kernel (ops/norm.rms_norm_rows) has no backward
+from theanompi_tpu_torch.ops.norm import rms_norm
 from theanompi_tpu_torch.parallel import tp as tp_lib
 from theanompi_tpu_torch.parallel.mesh import init_group, resolve_device
 from theanompi_tpu_torch.parallel.strategies import (
@@ -58,12 +61,6 @@ LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
 
 
 # -- model math ---------------------------------------------------------------
-
-def rms_norm(x, w, eps=1e-5):
-    xf = x.float()
-    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * scale).to(x.dtype) * w.to(x.dtype)
-
 
 def _rope_inv(d: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (

@@ -101,7 +101,8 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
     return buf
 
 
-#: public aliases for the length-prefixed pickle control frame
+#: public aliases for the length-prefixed pickle control frame, which
+#: the serving fleet's replica protocol (``serving/replica.py``) rides
 send_frame = _send
 recv_frame = _recv
 

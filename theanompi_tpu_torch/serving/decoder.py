@@ -21,6 +21,11 @@ Port of ``theanompi_tpu/serving/decoder.py``.  Two cache organisations:
   ``import_blocks`` move a prompt's K/V blocks between decoders (the
   disaggregation handoff, ``serving/kv_transfer.py``).
 
+Every RMS norm (prefill, decode, verify, the final norm) goes through
+``ops/norm.rms_norm_rows``: on the card a kernel whose result for a row
+depends on that row alone, so a row rounds alike in an 8-row decode
+step, a 32-row verify window or a prefill chunk of any length.
+
 PyTorch runs eagerly, so the JAX package's jit/shard_map scaffolding
 (compiled variants, donation, compile counters) has no counterpart:
 the device bodies are plain methods and the caches are updated in
@@ -47,11 +52,11 @@ from theanompi_tpu_torch.models.llama import (
     _heads,
     _unheads,
     params_from_jax,
-    rms_norm,
     rope,
     rope_at,
 )
 from theanompi_tpu_torch.ops.attention import NEG_INF, flash_attention
+from theanompi_tpu_torch.ops.norm import rms_norm_rows
 from theanompi_tpu_torch.parallel import tp as tp_lib
 from theanompi_tpu_torch.serving.blocks import BlockManager
 from theanompi_tpu_torch.serving.paged_attention import (
@@ -132,21 +137,21 @@ class LlamaDecoder:
     # -- device bodies ---------------------------------------------------
 
     def _mlp(self, p, x):
-        xn = rms_norm(x, p["mlp_norm"])
+        xn = rms_norm_rows(x, p["mlp_norm"])
         gate = F.silu(tp_lib.col_parallel(xn, p["w_gate"]))
         up = tp_lib.col_parallel(xn, p["w_up"])
         return x + tp_lib.row_parallel(gate * up, p["w_down"]).to(x.dtype)
 
     def _qkv(self, p, x, n):
         """Normed input projected to q [n, H, hd], k/v [n, Hkv, hd]."""
-        xn = rms_norm(x, p["attn_norm"])
+        xn = rms_norm_rows(x, p["attn_norm"])
         q = tp_lib.col_parallel(xn, p["wq"]).reshape(n, self._h, self._hd)
         k = tp_lib.col_parallel(xn, p["wk"]).reshape(n, self._hkv, self._hd)
         v = tp_lib.col_parallel(xn, p["wv"]).reshape(n, self._hkv, self._hd)
         return q, k, v
 
     def _logits(self, x):
-        xf = rms_norm(x, self.model.params["final_norm"])
+        xf = rms_norm_rows(x, self.model.params["final_norm"])
         return tp_lib.col_parallel(xf, self.model.params["lm_head"])
 
     def _sample(self, logits, seeds, pos, temps, greedy: bool):
@@ -209,7 +214,7 @@ class LlamaDecoder:
             self._cdtype)                                      # [1, t, D]
         pos = torch.arange(t, device=self.device)
         for cache, p in zip(self.cache, m.params["layers"]):
-            xn = rms_norm(x, p["attn_norm"])
+            xn = rms_norm_rows(x, p["attn_norm"])
             q = _heads(tp_lib.col_parallel(xn, p["wq"]), self._h, hd)
             k = _heads(tp_lib.col_parallel(xn, p["wk"]), self._hkv, hd)
             v = _heads(tp_lib.col_parallel(xn, p["wv"]), self._hkv, hd)

@@ -23,6 +23,7 @@ kernel merges the splits' partial softmax states.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -30,6 +31,8 @@ from theanompi_tpu_torch.ops.attention import KERNEL_DTYPES, NEG_INF
 
 PAGED_HEAD_DIMS = (32, 64, 128)
 MAX_KERNEL_ROWS = 16           # nq * rep: the tensor cores' M dimension
+
+_count_lock = threading.Lock()
 
 
 def gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -120,11 +123,18 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
                          "pools (it copies rows 16 bytes at a time)")
     out = launch_with(_paged_lib(), q, k_pool, v_pool, tables, pos,
                       ctas=ctas)
-    paged_attend_cuda.launches += 1
-    paged_attend_cuda.tc_launches += q.dtype == torch.bfloat16
-    rows = paged_attend_cuda.launches_by_rows
-    rows[nq * rep] = rows.get(nq * rep, 0) + 1
+    _count_launch(nq * rep, q.dtype == torch.bfloat16)
     return out
+
+
+def _count_launch(rows: int, tensor_cores: bool) -> None:
+    """Count one launch of K4 on ``paged_attend_cuda``'s attributes,
+    under a lock: the fleet's replica threads launch it at once."""
+    with _count_lock:
+        paged_attend_cuda.launches += 1
+        paged_attend_cuda.tc_launches += bool(tensor_cores)
+        by_rows = paged_attend_cuda.launches_by_rows
+        by_rows[rows] = by_rows.get(rows, 0) + 1
 
 
 paged_attend_cuda.launches = 0

@@ -11,8 +11,12 @@
 - ``Reservoir``/``ServingRecorder`` — copies of the serving section
   (numpy only): per-request TTFT/TPOT, tokens/s, slot occupancy, queue
   depth, KV-block gauges, the speculative accept rate, the tokenize
-  sweeps, and ``metrics_txt`` over ``obs/metrics.py``.  Left out:
-  ``FleetRecorder`` (with the fleet, not ported yet).
+  sweeps, and ``metrics_txt`` over ``obs/metrics.py``.
+- ``FleetRecorder`` — a copy of the serving fleet's recorder: the
+  router-side request stream, requeue/failover/rejoin/handoff counts,
+  dispatches per replica, the spawn/retire log and
+  ``replica_seconds``, per-replica ``ServingRecorder`` states merged
+  through ``attach_replica``, ``summary`` and ``metrics_txt``.
 """
 
 from __future__ import annotations
@@ -714,4 +718,234 @@ class ServingRecorder:
              [(None, s["tokenize_items"])]),
             (f"{p}_tokenize_items_per_sweep", "gauge",
              [(None, s["tokenize_items_per_sweep"])]),
+        ])
+
+
+class FleetRecorder:
+    """Telemetry sink for the multi-replica serving router
+    (``serving/router.py``).
+
+    Two independent data streams, merged honestly:
+
+    - **Router-side request stream** — every terminal result the
+      router delivers (completions AND router-level sheds), recorded
+      as it resolves.  Fleet TTFT/TPOT percentiles, shed breakdown
+      and token accounting come from HERE, so they stay complete
+      even when a replica dies and takes its own recorder with it
+      (the failed replica's earlier completions were already
+      recorded at the router).
+    - **Per-replica summaries** — each replica's ``ServingRecorder``
+      state (``attach_replica``), merged via
+      ``ServingRecorder.merge`` for step-level facts the router
+      cannot see: per-replica tokens/s, slot occupancy, prefix-cache
+      hit rate, replica-side shed reasons.  Replicas run
+      CONCURRENTLY, so the fleet aggregate rate is the SUM of
+      per-replica ``tokens_per_sec`` (their decode seconds overlap
+      in wall time — summing decode_s would understate throughput);
+      occupancy is the slot-seconds-weighted mean the merge
+      computes.
+
+    Router lifecycle counters (``record_requeue`` /
+    ``record_failover`` / ``record_rejoin`` / ``record_dispatch``)
+    land in the summary as the failover-accounting datum the bench's
+    kill-one-replica arm asserts on."""
+
+    def __init__(self):
+        self.router = ServingRecorder(max_slots=0)
+        self.replica_states: dict[str, dict] = {}
+        self.replica_paging: dict[str, dict | None] = {}
+        self.n_requeues = 0
+        self.n_failovers = 0
+        self.n_rejoins = 0
+        self.n_handoffs = 0
+        self.dispatched = Counter()
+        # autoscaler event log: one entry per membership
+        # change, the ground truth replica-seconds accounting is
+        # computed from.  Spawn/retire pair up per replica name;
+        # multiple lives (retire then re-spawn) stack.
+        self.scale_events: list[dict] = []
+
+    # -- router-side events ------------------------------------------------
+
+    def record_request(self, **kw) -> None:
+        self.router.record_request(**kw)
+
+    def record_dispatch(self, replica: str) -> None:
+        self.dispatched[str(replica)] += 1
+
+    def record_requeue(self, n: int = 1) -> None:
+        self.n_requeues += int(n)
+
+    def record_failover(self, replica: str) -> None:
+        self.n_failovers += 1
+
+    def record_rejoin(self, replica: str) -> None:
+        self.n_rejoins += 1
+
+    def record_handoff(self, n: int = 1) -> None:
+        """One prefill→decode KV handoff carried router-side."""
+        self.n_handoffs += int(n)
+
+    # -- autoscaler events (replica-seconds accounting) --------------------
+
+    def record_spawn(self, replica: str, t: float | None = None,
+                     reason: str = "") -> None:
+        """A replica entered the serving fleet (scale-up, or the
+        initially provisioned members at fleet start)."""
+        self.scale_events.append({
+            "event": "spawn", "replica": str(replica),
+            "t": float(t if t is not None else time.monotonic()),
+            "reason": str(reason),
+        })
+
+    def record_retire(self, replica: str, t: float | None = None,
+                      reason: str = "") -> None:
+        """A replica left the fleet (drained scale-down)."""
+        self.scale_events.append({
+            "event": "retire", "replica": str(replica),
+            "t": float(t if t is not None else time.monotonic()),
+            "reason": str(reason),
+        })
+
+    def replica_seconds(self, now: float | None = None) -> float:
+        """Integrated capacity cost: Σ over fleet lives of
+        (retire_t − spawn_t), open lives closing at ``now``.  THE
+        autoscaler headline denominator — the diurnal bench's claim
+        is SLOs held at fewer replica-seconds than a statically
+        provisioned fleet, and this is where that number comes
+        from."""
+        now = float(now if now is not None else time.monotonic())
+        open_lives: dict[str, list[float]] = {}
+        total = 0.0
+        for ev in self.scale_events:
+            name = ev["replica"]
+            if ev["event"] == "spawn":
+                open_lives.setdefault(name, []).append(ev["t"])
+            elif open_lives.get(name):
+                total += max(0.0, ev["t"] - open_lives[name].pop())
+        for starts in open_lives.values():
+            total += sum(max(0.0, now - t) for t in starts)
+        return total
+
+    # -- replica summaries -------------------------------------------------
+
+    def attach_replica(self, name: str, state: dict,
+                       paging: dict | None = None) -> None:
+        """Adopt one replica's ``ServingRecorder.state_dict()`` (and
+        optional ``Engine.paging_stats()``) — latest attach per name
+        wins, so the router can refresh mid-run."""
+        self.replica_states[str(name)] = state
+        self.replica_paging[str(name)] = paging
+
+    def summary(self) -> dict:
+        out = {
+            k: v for k, v in self.router.summary().items()
+            if k in (
+                "n_requests", "n_completed", "n_shed", "shed_reasons",
+                "tokens_completed", "ttft_p50_s", "ttft_p95_s",
+                "tpot_p50_s", "tpot_p95_s", "finish_reasons",
+            )
+        }
+        out.update(
+            n_requeues=self.n_requeues,
+            n_failovers=self.n_failovers,
+            n_rejoins=self.n_rejoins,
+            n_handoffs=self.n_handoffs,
+            dispatched=dict(self.dispatched),
+            n_spawns=sum(
+                e["event"] == "spawn" for e in self.scale_events
+            ),
+            n_retires=sum(
+                e["event"] == "retire" for e in self.scale_events
+            ),
+            replica_seconds=(
+                self.replica_seconds() if self.scale_events else None
+            ),
+        )
+        per, merged = {}, ServingRecorder(max_slots=0)
+        for name, state in self.replica_states.items():
+            r = ServingRecorder()
+            r.load_state_dict(state)
+            s = r.summary()
+            per[name] = {
+                k: s[k] for k in (
+                    "tokens_per_sec", "slot_occupancy",
+                    "prefix_hit_rate", "shed_reasons", "n_completed",
+                    "tokens_generated", "decode_s", "accept_rate",
+                    "tokens_per_step",
+                )
+            }
+            merged.merge(state)
+        ms = merged.summary()
+        out["per_replica"] = per
+        out["slot_occupancy"] = ms["slot_occupancy"]
+        out["prefix_hit_rate"] = ms["prefix_hit_rate"]
+        out["tokens_generated"] = ms["tokens_generated"]
+        # speculation telemetry survives the fleet merge: drafted/
+        # accepted sum across replicas, so the fleet accept-rate is
+        # the draft-weighted mean
+        out["accept_rate"] = ms["accept_rate"]
+        out["tokens_per_step"] = ms["tokens_per_step"]
+        # concurrent replicas: aggregate rate is the sum of rates
+        rates = [
+            p["tokens_per_sec"] for p in per.values()
+            if p["tokens_per_sec"]
+        ]
+        out["aggregate_tokens_per_sec"] = sum(rates) if rates else None
+        return out
+
+    def metrics_txt(self, prefix: str = "tm_fleet") -> str:
+        """Prometheus-style text for the fleet: the router-side
+        request stream plus control-plane counters and per-replica
+        rate/occupancy gauges (labelled ``replica="name"``)."""
+        from theanompi_tpu_torch.obs.metrics import (
+            quantile_samples,
+            render_metrics,
+        )
+
+        s = self.summary()
+        p = prefix
+        per = s.get("per_replica", {})
+        return render_metrics([
+            (f"{p}_requests_total", "counter", [
+                ({"status": "ok"}, s["n_completed"]),
+                ({"status": "shed"}, s["n_shed"]),
+            ]),
+            (f"{p}_sheds_total", "counter", [
+                ({"reason": r}, n)
+                for r, n in sorted(s["shed_reasons"].items())
+            ]),
+            (f"{p}_tokens_completed_total", "counter",
+             [(None, s["tokens_completed"])]),
+            (f"{p}_ttft_seconds", "summary", quantile_samples(
+                {"0.5": s["ttft_p50_s"], "0.95": s["ttft_p95_s"]})),
+            (f"{p}_tpot_seconds", "summary", quantile_samples(
+                {"0.5": s["tpot_p50_s"], "0.95": s["tpot_p95_s"]})),
+            (f"{p}_requeues_total", "counter",
+             [(None, s["n_requeues"])]),
+            (f"{p}_failovers_total", "counter",
+             [(None, s["n_failovers"])]),
+            (f"{p}_rejoins_total", "counter", [(None, s["n_rejoins"])]),
+            (f"{p}_handoffs_total", "counter",
+             [(None, s["n_handoffs"])]),
+            (f"{p}_spawns_total", "counter", [(None, s["n_spawns"])]),
+            (f"{p}_retires_total", "counter", [(None, s["n_retires"])]),
+            (f"{p}_replica_seconds", "gauge",
+             [(None, s["replica_seconds"])]),
+            (f"{p}_dispatched_total", "counter", [
+                ({"replica": name}, n)
+                for name, n in sorted(s["dispatched"].items())
+            ]),
+            (f"{p}_slot_occupancy", "gauge",
+             [(None, s["slot_occupancy"])]),
+            (f"{p}_aggregate_tokens_per_sec", "gauge",
+             [(None, s["aggregate_tokens_per_sec"])]),
+            (f"{p}_replica_tokens_per_sec", "gauge", [
+                ({"replica": name}, v["tokens_per_sec"])
+                for name, v in sorted(per.items())
+            ]),
+            (f"{p}_replica_slot_occupancy", "gauge", [
+                ({"replica": name}, v["slot_occupancy"])
+                for name, v in sorted(per.items())
+            ]),
         ])
