@@ -10,10 +10,12 @@ NVIDIA card.
     python3 chip_smoke.py --phases async_dist  # ... across processes
     python3 chip_smoke.py --phases serving_ext # speculation, handoffs, ...
     python3 chip_smoke.py --phases serving_fleet  # router, replicas, ...
+    python3 chip_smoke.py --phases serving_tp  # tp = 2 serving, card 0
 
 Phases (``--phases`` takes a comma list of kernels, serving,
-serving_ext, serving_fleet, training, cnn, async, async_dist; the
-card-and-build phase always runs):
+serving_ext, serving_fleet, serving_tp, training, cnn, async,
+async_dist; the card-and-build phase always runs; each phase's seconds
+are printed at the end):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
@@ -25,8 +27,9 @@ card-and-build phase always runs):
    its error, tolerance and times (kernel, plain version, and the one
    PyTorch call computing the same function, where there is one): K1,
    K2 and K3 on both routes (bf16 on the tensor cores, fp32 on the SIMT
-   kernels), K4 (split and merge) at the decode shape and the 16-row
-   verify shape, the serving RMS norm kernel (not a TPU kernel: every
+   kernels), K4 (split and merge) at the decode shape, the 16-row
+   verify shape and past one row group (20, 32, 64 rows), the serving
+   RMS norm kernel also at [32, 16384] (not a TPU kernel: every
    norm of the serving decoder, one CTA a row) at 8, 32 and 64 rows
    within one bf16 ulp or 1e-6 in fp32, a row bitwise the same in
    launches of 1, 8 and 32 rows; then a small fp32 model served on the
@@ -49,8 +52,8 @@ card-and-build phase always runs):
    prefilled ``prefill_only`` on one decoder and decoded from its KV
    handoff on another giving the unified ids, a traced engine giving
    one connected span tree per request.  Then phase 4's model (bf16,
-   ``--layers`` deep) and 16 requests (32 tokens each, prefix caching
-   off): one-token decode, then ``speculate_k`` = 4 off the same
+   ``--layers`` deep, 32 by default) and 16 requests (32 tokens each,
+   prefix caching off): one-token decode, then ``speculate_k`` = 4 off the same
    decoder, with decode tokens/s, the accept rate, tokens per step,
    the median verify and decode steps, K4's launches (layers x verify
    steps, all on the tensor cores at 16 rows), the norm kernel's (2 a
@@ -67,7 +70,10 @@ card-and-build phase always runs):
    import times); tokens/s with the tracer off, on, on, off (a Chrome
    trace under ``build/``, every request one connected tree); and three
    ``submit_text`` requests through ``ByteTokenizer`` against
-   ``submit(encode(text))``;
+   ``submit(encode(text))``; then ``speculate_k`` = 8 (32 K4 rows, two
+   row groups) off the same decoder: K4's launches by row count
+   (asserted) and the ids' agreement with one-token decode (printed,
+   with ``equality_causes`` on a miss);
 6. serving_fleet — the fleet.  First the kill-one-of-three drill on the
    small fp32 model, on the card and on the CPU (ids equal across the
    devices and to one replica's).  Then phase 4's model (bf16,
@@ -89,6 +95,17 @@ card-and-build phase always runs):
    numbers (aggregate decode tokens/s, TTFT and TPOT p50/p95, requests
    per replica) and checks K4's launches (layers x decode calls) and
    the norm kernel's, summed over the replicas of this process;
+6b. serving_tp — tp = 2 serving at Llama-3-8B widths, ``--layers``
+   deep (8 by default), two ranks on card 0 over gloo (this process is
+   rank 0 and starts ``chip_smoke.py --tp-rank 1``); 16 requests at 32
+   tokens: fp32 v1, paged and a tp = 1 handoff with tp = 1's ids
+   (asserted), bf16 first decode step's logits within
+   ``TP_LOGITS_RTOL`` of tp = 1's (asserted), greedy and sampled
+   agreement and speculative (``speculate_k`` 4) against one-token
+   decode (printed), each rank's K1/K4/norm launches (asserted equal
+   and non-zero), tokens/s and a decode step's wall and device time at
+   tp = 1 and 2; then a 2-layer fp32 tp = 2 ``ReplicaServer`` pair
+   over TCP with tp = 1's ids;
 7. training — ``BSP().init`` on the card with the port's Llama at
    Llama-3-8B widths, ``--layers`` deep (8 by default), seq 2048,
    batch 2, bf16, Adam, remat, the chunked head, ``ici32``: one epoch
@@ -114,7 +131,10 @@ card-and-build phase always runs):
    published config the same way; VGG16 and GoogLeNet at their JAX
    defaults (crop 224, batch 32, bf16, lr 0.01) the same way, each with
    a profile, their losses held to ``VGG16_TRAJECTORY`` and
-   ``GOOGLENET_TRAJECTORY``.  No TPU kernel lies on this path:
+   ``GOOGLENET_TRAJECTORY``; ResNet-50 again from 8 x 128 ``.tmb``
+   files the run writes, through the C++ loader and through the
+   prefetch thread (``feed`` asserted, batches bitwise equal), each
+   beside the device-resident feed.  No TPU kernel lies on this path:
    convolutions and matmuls are cuDNN's and cuBLAS's, BN, pooling and
    LRN plain PyTorch, the staging copies;
 9. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
@@ -175,6 +195,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -190,8 +211,11 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 
 REDUCED = {
     "max_seq": "2048 (LLAMA3_8B.seq_len 8192): the run's time limit",
-    "n_layers (serving, v1 and paged)": "8 (32): the run's time limit; "
-    "the serving_ext and serving_fleet phases serve the 32 layers",
+    "n_layers (serving, v1 and paged)": "8 (32): the run's time limit",
+    "n_layers (serving_fleet)": "8 (32): the run's time limit (a full "
+    "run took 839.8 s on one card and 1174.6 s on a slower host with it "
+    "and serving_ext at 32); serving_ext keeps the 32 layers, where "
+    "speculative ids are held to one-token ids",
     "n_layers (training)": "8 (32): fp32 master weights, gradients and "
     "Adam moments of 8.03 B parameters come to 128.5 GB, over the "
     "card's 80 GB",
@@ -219,6 +243,17 @@ REDUCED = {
     "replicas (serving_fleet)": "up to 3 in-process replicas sharing one "
     "card and one model's weights (a deployment gives each its own "
     "card): the run has one card",
+    "n_layers (serving_tp)": "8 (32): the run's time limit; the widths "
+    "are Llama-3-8B's",
+    "ranks (serving_tp)": "tp = 2 as two processes on card 0 over gloo, "
+    "which stages every collective through the host (a deployment gives "
+    "each rank a card and uses NCCL, which refuses two ranks on one "
+    "card): the run has one card",
+    "n_layers (serving_tp, TCP replica)": "2 (32), as the serving_fleet "
+    "TCP child: its fp32 checkpoint is written and read in the run",
+    "dataset (cnn, native feed)": "8 x 128 train and 2 x 128 val "
+    "synthetic 256 x 256 uint8 images written as .tmb files (ImageNet: "
+    "1.28 M / 50 k): a cut of the dataset's size, not a width",
 }
 # per-step losses of the small fp32 model trained on the card and on
 # the CPU from one initial state: fp32 summation order differs between
@@ -246,10 +281,14 @@ CNN_TRAJECTORY_RTOL = 1e-2
 # with them gave them on an H100; held at CNN_TRAJECTORY_RTOL
 VGG16_TRAJECTORY = {"first": 7.15341, "last": 6.91443, "val": 6.95076}
 GOOGLENET_TRAJECTORY = {"first": 11.3753, "last": 11.0767, "val": 6.90323}
-# depth of phases 3-4 (v1 and paged serving) unless --layers says
+# depth of the serving phases (v1 and paged, serving_fleet) unless
+# --layers says
 SERVING_LAYERS = 8
-PHASES = ("kernels", "serving", "serving_ext", "serving_fleet", "training",
-          "cnn", "async", "async_dist")
+# depth of serving_ext unless --layers says: the model's own, where its
+# speculative = one-token equality is asserted
+EXT_LAYERS = 32
+PHASES = ("kernels", "serving", "serving_ext", "serving_fleet",
+          "serving_tp", "training", "cnn", "async", "async_dist")
 
 
 def log(*a):
@@ -318,7 +357,8 @@ def check_flash(dev, flush) -> dict:
     """K1 against ``mha_reference_fwd`` evaluated in fp32 on both routes
     (fp32: SIMT, bf16: tensor cores) at the serving shapes, each launch
     checked to take its dtype's route; times at T = 2047 for both, and
-    at the training shape [2, 32, 2048, 128] bf16.  Returns the records
+    at the training shape [2, 32, 2048, 128] bf16; both dtypes also at
+    a tp = 2 rank's 16 heads (``tp_rank_shape``).  Returns the records
     of the two routes, keyed "K1" (bf16) and "K1 fp32"."""
     import torch
     import torch.nn.functional as F
@@ -386,6 +426,27 @@ def check_flash(dev, flush) -> dict:
             log(f"K1 times {name} ({route(name)}) T={t}: kernel {ms:.4f} "
                 f"ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by})")
+    # serving_tp's v1 prefill at tp = 2: 16 q heads a rank
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        rank = records["K1" if name == "bfloat16" else "K1 fp32"][
+            "tp_rank_shape"] = {}
+        for t in (16, 512, 2047):
+            q, k, v = (torch.randn((1, h // 2, t, hd), generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+            o, lse = run(q, k, v, name)
+            o_ref, lse_ref = mha_reference_fwd(
+                q.float(), k.float(), v.float(), causal=True)
+            err, ok_o = compare(o, o_ref, name)
+            lerr, ok_l = compare(lse, lse_ref, "float32")
+            ok = ok_o and ok_l
+            rank[f"[1,{h // 2},{t},{hd}]"] = max(err, lerr)
+            log(f"K1 flash_fwd {name} ({route(name)}) [1,{h // 2},{t},{hd}] "
+                f"causal (a tp = 2 rank): max_abs_err o {err:.3e}, lse "
+                f"{lerr:.3e} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1 disagrees with mha_reference at "
+                                     f"{name} [1,{h // 2},{t},{hd}]")
     # the training path's shape: two sequences of 2048, bf16, causal
     q, k, v = (torch.randn((2, h, 2048, hd), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -567,8 +628,11 @@ def paged_bound(args) -> tuple[float, str, int]:
 
 def check_paged(dev, flush) -> dict:
     """K4 against the gather path evaluated in fp32, both dtypes, at the
-    decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and
-    the 16-row verify shape (Q=4); bf16 timed at both.  At the decode
+    decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128), the
+    16-row verify shape (Q=4) and past one row group of 16: 20, 32 and
+    64 rows (Q = 5, 8, 16; ``speculate_k`` 8 gives 32), and at a tp = 2
+    rank's 4 kv heads (Q = 1 and 4); bf16 timed at 1, 16 and 32 rows.
+    At the decode
     shape the record also holds the split length the built library
     reports and the CTAs its split kernel counted on the card in one
     call: launched, and live (not exited early).  Returns K4's
@@ -583,10 +647,10 @@ def check_paged(dev, flush) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    record = {}
+    record, wide = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        for nq in (1, 4):
+        for nq in (1, 4, 5, 8, 16):
             args = paged_inputs(dev, dtype, gen, nq)
             out = paged_attend_cuda(*args)
             ref = paged_attend_reference(
@@ -599,7 +663,9 @@ def check_paged(dev, flush) -> dict:
             if not ok:
                 raise AssertionError(f"K4 disagrees with the gather path "
                                      f"at {name} Q={nq}")
-            if dtype is not torch.bfloat16:
+            if nq > 4:
+                wide.setdefault(f"{4 * nq} rows", {})[name] = err
+            if dtype is not torch.bfloat16 or nq in (5, 16):
                 continue
             ms = time_ms(lambda: paged_attend_cuda(*args), flush=flush)
             plain = time_ms(lambda: paged_attend_reference(*args),
@@ -608,6 +674,10 @@ def check_paged(dev, flush) -> dict:
             log(f"K4 times bf16 Q={nq} ({4 * nq} rows): kernel {ms:.4f} "
                 f"ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                 f"{walked} walked positions)")
+            if nq == 8:
+                wide["32 rows"].update(ms=ms, plain_ms=plain,
+                                       bound_ms=b_ms, bound_by=b_by)
+                continue
             if nq == 4:
                 record["verify_shape"] = {
                     "shape": "S=8 Q=4 Hkv=8 rep=4 hd=128 bs=16 MB=128 bf16 "
@@ -631,6 +701,25 @@ def check_paged(dev, flush) -> dict:
             log(f"K4 splits of {record['split_len']} positions: "
                 f"{launched} CTAs launched, {live} live (counted on the "
                 f"card)")
+    record["past_16_rows"] = wide
+    # serving_tp at tp = 2: 4 kv heads a rank, decode and 16-row verify
+    rank = record["tp_rank_shape"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for nq in (1, 4):
+            args = paged_inputs(dev, dtype, gen, nq, hkv=4)
+            out = paged_attend_cuda(*args)
+            ref = paged_attend_reference(
+                *(a.float() if a.is_floating_point() else a for a in args))
+            err, ok = compare(out, ref, name)
+            rank[f"S=8 Q={nq} Hkv=4 rep=4 {name}"] = err
+            log(f"K4 paged_attend {name} S=8 Q={nq} Hkv=4 rep=4 hd=128 "
+                f"bs=16 MB=128 (a tp = 2 rank): max_abs_err {err:.3e} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K4 disagrees with the gather path "
+                                     f"at {name} Q={nq} Hkv=4")
+    log(f"K4 past one row group of 16: {json.dumps(wide)}")
     return record
 
 
@@ -690,6 +779,7 @@ def check_rms_norm(dev, flush) -> dict:
         if not same:
             raise AssertionError(f"rms_norm {name}: a row depends on the "
                                  f"launch's row count")
+    wide = check_rms_norm_wide(dev, gen)
     times = {}
     for rows in (8, 32):
         x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
@@ -714,7 +804,47 @@ def check_rms_norm(dev, flush) -> dict:
                  "verify_shape)",
         "launches": None, "max_abs_err": worst, **times[8],
         "verify_shape": {"shape": "[32, 4096] bf16", **times[32]},
+        "d_16384": wide,
     }
+
+
+def check_rms_norm_wide(dev, gen) -> dict:
+    """The norm kernel past the 8192 columns of Llama widths: [32,
+    16384] in both dtypes against its plain version (one bf16 ulp, or
+    1e-6 absolute plus relative in fp32; how many bf16 elements are
+    bitwise equal is printed), a row bitwise the same in launches of 1,
+    8 and 32 rows."""
+    import torch
+
+    from theanompi_tpu_torch.ops.norm import rms_norm, rms_norm_cuda
+
+    d, out = 16384, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = (torch.randn((32, d), generator=gen, device=dev) * 3).to(dtype)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+        got = rms_norm_cuda(x, w)
+        ref = rms_norm(x, w)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        lim = (ulp_bf16(ref.float()) if dtype == torch.bfloat16
+               else 1e-6 * (1 + ref.float().abs()))
+        ok = bool((err <= lim).all())
+        same = torch.equal(got[:8], rms_norm_cuda(x[:8].contiguous(), w))
+        for r in (0, 9, 31):
+            same &= torch.equal(got[r:r + 1],
+                                rms_norm_cuda(x[r:r + 1].contiguous(), w))
+        out[name] = {"max_abs_err": err.max().item(),
+                     "bitwise_equal_share":
+                         (got == ref).float().mean().item(),
+                     "rows_independent": bool(same)}
+        log(f"rms_norm {name} [32, {d}]: {json.dumps(out[name])} -> "
+            f"{'ok' if ok and same else 'FAIL'}")
+        if not (ok and same):
+            raise AssertionError(f"rms_norm {name} at d={d}: against its "
+                                 f"plain version {ok}, rows independent "
+                                 f"{same}")
+    return out
 
 
 # -- serving -----------------------------------------------------------------
@@ -952,6 +1082,7 @@ def profile_decode(name, dec, prompts, steps: int = 8, **ekw) -> dict:
 # -- serving_ext: speculation, KV handoffs, tracing, the tokenizer ----------
 
 SPEC_K = 4             # the JAX bench's default window: 16 K4 rows at rep 4
+SPEC_K_WIDE = 8        # 32 K4 rows at rep 4: two row groups of 16
 
 
 def small_ext_prompts(vocab: int) -> list:
@@ -966,9 +1097,9 @@ def small_ext_prompts(vocab: int) -> list:
 
 
 def ext_run(dec, prompts, *, max_tokens=32, handoffs=None,
-            prefill_only=False, **ekw):
-    """Serve every prompt (request i with seed i, and ``handoffs[i]``
-    when given) through one ``Engine(dec, prefix_caching=False,
+            prefill_only=False, temperature=0.0, **ekw):
+    """Serve every prompt (request i with seed i at ``temperature``, and
+    ``handoffs[i]`` when given) through one ``Engine(dec, prefix_caching=False,
     **ekw)`` until idle.  Returns (results, engine, wall seconds); raises
     unless every request finished as asked with ids in the vocab."""
     import torch
@@ -978,7 +1109,7 @@ def ext_run(dec, prompts, *, max_tokens=32, handoffs=None,
     eng = Engine(dec, prefix_caching=False, **ekw)
     futs = [eng.submit(Request(
         prompt=list(p), max_tokens=max_tokens, seed=i,
-        prefill_only=prefill_only,
+        temperature=temperature, prefill_only=prefill_only,
         handoff=handoffs[i] if handoffs else None))
         for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
@@ -1215,13 +1346,13 @@ def mlp_ops(x, p, m: int) -> dict:
             for k in full}
 
 
-def equality_causes(dec) -> dict:
+def equality_causes(dec, k: int = SPEC_K) -> dict:
     """What could make a verify row differ from decode at one position,
-    each on random inputs at the serving shape: K4 (every row of a
-    16-row verify launch against the same row alone in a 4-row decode
-    launch), the products of layer 0 and the head (rows 8-15 of a
-    32-row product against an 8-row product of the same rows), and each
-    op of layer 0's MLP (``mlp_ops``)."""
+    each on random inputs at the serving shape of a ``k``-token window:
+    K4 (every row of a 4k-row verify launch against the same row alone
+    in a 4-row decode launch), the products of layer 0 and the head
+    (rows 8-15 of an 8k-row product against an 8-row product of the
+    same rows), and each op of layer 0's MLP (``mlp_ops``)."""
     import torch
 
     from theanompi_tpu_torch.kernels.tune import paged_inputs
@@ -1229,25 +1360,25 @@ def equality_causes(dec) -> dict:
 
     dev = dec.device
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, kp, vp, tables, pos = paged_inputs(dev, torch.bfloat16, gen, SPEC_K)
+    q, kp, vp, tables, pos = paged_inputs(dev, torch.bfloat16, gen, k)
     o_verify = paged_attend_cuda(q, kp, vp, tables, pos)
     k4 = max(
         (o_verify[:, j:j + 1].float() - paged_attend_cuda(
             q[:, j:j + 1].contiguous(), kp, vp, tables,
             pos[:, j:j + 1].contiguous()).float()).abs().max().item()
-        for j in range(SPEC_K))
+        for j in range(k))
     s = dec.max_slots
     p = dec.model.params
     gemm = {}
     for name, w in dict(p["layers"][0], lm_head=p["lm_head"]).items():
         if w.dim() == 2:
-            x = torch.randn((s * SPEC_K, w.shape[0]), generator=gen,
+            x = torch.randn((s * k, w.shape[0]), generator=gen,
                             device=dev).to(w.dtype)
             gemm[name] = ((x @ w)[s:2 * s].float()
                           - (x[s:2 * s] @ w).float()).abs().max().item()
-    x = torch.randn((s * SPEC_K, p["embed"].shape[1]), generator=gen,
+    x = torch.randn((s * k, p["embed"].shape[1]), generator=gen,
                     device=dev).to(dec._cdtype)
-    return {"k4_rows_verify_vs_decode_max_abs": k4,
+    return {"speculate_k": k, "k4_rows_verify_vs_decode_max_abs": k4,
             "gemm_rows_m32_vs_m8_max_abs": gemm,
             "mlp0_ops_m32_vs_m8_max_abs": mlp_ops(x, p["layers"][0], s)}
 
@@ -1393,9 +1524,8 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> float:
     from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
 
     card = card_line()
-    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
-    if n_layers:
-        cfg["n_layers"] = n_layers
+    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0,
+               n_layers=n_layers or EXT_LAYERS)
     t0 = time.perf_counter()
     model = Llama(cfg, device=dev)
     model.params
@@ -1499,6 +1629,8 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> float:
             f"serving_ext: speculative ids differ from one-token decode's "
             f"in {len(reqs) - same} of {len(reqs)} requests (first at "
             f"{div})")
+    out["speculation_k8"] = run_spec_wide(dec, reqs, plain_ids, per_call,
+                                          card)
     out["norm_ab"] = profile_norm_ab(dec, prompts)
     out["profile_verify"] = profile_decode("serving_ext verify", dec,
                                            prompts, speculate_k=SPEC_K)
@@ -1587,17 +1719,74 @@ def run_serving_ext(dev, n_layers: int | None, records: dict) -> float:
         by_path = rec.setdefault("launches_by_path", {})
         by_path["serving_ext_decode"] = plain_launches
         by_path["serving_ext_verify"] = launches
+        by_path["serving_ext_verify_k8"] = \
+            out["speculation_k8"]["k4_launches"]
         rec["launches"] = sum(by_path.values())
         rec["verify_shape"]["launches"] = launches
     if "rms_norm" in records:
         add_launches(records["rms_norm"], serving_ext_decode=norm_plain,
-                     serving_ext_verify=norm_spec)
+                     serving_ext_verify=norm_spec,
+                     serving_ext_verify_k8=out["speculation_k8"][
+                         "rms_norm_launches"])
     log(f"[serving_ext] " + json.dumps({
         k: out["speculation"][k] for k in ("decode_tokens_per_s",
                                            "accept_rate", "tokens_per_step",
                                            "median_step_ms", "wall_ratio")})
         + f" on {card}")
     return out["speculation"]["decode_tokens_per_s"]["one_token"]
+
+
+def run_spec_wide(dec, reqs, plain_ids, per_call, card) -> dict:
+    """``speculate_k = SPEC_K_WIDE`` off the serving_ext decoder: 32 K4
+    rows at rep 4, two row groups.  K4's launches by row count (all at
+    32, layers x verify steps, asserted) and the norm's; the ids'
+    agreement with one-token decode, printed, with the first divergence
+    and ``equality_causes`` at this window when a request differs (not
+    asserted: a wider verify call also changes the GEMMs' row count)."""
+    import torch
+
+    from theanompi_tpu_torch.ops.norm import rms_norm_cuda
+    from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
+
+    rows = SPEC_K_WIDE * dec._rep
+    reset_counts(paged_attend_cuda, rms_norm_cuda)
+    verifies, prefills = Calls(dec, "verify"), Count(dec, "prefill")
+    spec, eng, wall = ext_run(dec, reqs, speculate_k=SPEC_K_WIDE)
+    verifies.undo()
+    prefills.undo()
+    launches = paged_attend_cuda.launches
+    by_rows = dict(paged_attend_cuda.launches_by_rows)
+    norms = rms_norm_cuda.launches
+    ids = [r.tokens for r in spec]
+    same = sum(a == b for a, b in zip(plain_ids, ids))
+    div = first_divergence(plain_ids, ids)
+    summ = eng.recorder.summary()
+    out = {
+        "speculate_k": SPEC_K_WIDE, "k4_rows": rows,
+        "k4_launches": launches, "k4_launches_by_rows": by_rows,
+        "rms_norm_launches": norms,
+        "decode_tokens_per_s": summ["tokens_per_sec"],
+        "accept_rate": summ["accept_rate"],
+        "tokens_per_step": summ["tokens_per_step"],
+        "median_call_ms": statistics.median(verifies.ms),
+        "calls": verifies.n, "wall_s": wall,
+        "requests_equal": f"{same} of {len(reqs)}",
+        "first_divergence": div,
+    }
+    if div is not None:        # (its checks launch kernels: counted above)
+        out["equality_causes"] = equality_causes(dec, SPEC_K_WIDE)
+    log(f"[serving_ext speculation k={SPEC_K_WIDE}] {json.dumps(out)} on "
+        f"{card}")
+    want_norm = per_call * (verifies.n + prefills.n)
+    if launches != dec.model.n_layers * verifies.n \
+            or by_rows != {rows: launches} or rows != 32 \
+            or norms != want_norm:
+        raise AssertionError(
+            f"serving_ext k={SPEC_K_WIDE}: K4 launches {by_rows}, want "
+            f"{dec.model.n_layers} x {verifies.n} at 32 rows; norms "
+            f"{norms}, want {want_norm}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- serving_fleet: the router, the replicas, the autoscaler -----------------
@@ -2111,9 +2300,8 @@ def run_serving_fleet(dev, n_layers: int | None, records: dict,
     from theanompi_tpu_torch.serving import PagedLlamaDecoder
 
     card = card_line()
-    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0)
-    if n_layers:
-        cfg["n_layers"] = n_layers
+    cfg = dict(LLAMA3_8B, compute_dtype="bfloat16", seed=0,
+               n_layers=n_layers or SERVING_LAYERS)
     model = Llama(cfg, device=dev)
     model.params
     prompts, shared = make_requests(model.vocab)
@@ -2226,6 +2414,366 @@ def run_serving_fleet(dev, n_layers: int | None, records: dict,
             "busy_share", "prefix_hit_rate", "vs_one_replica",
             "vs_serving_ext_one_token")}
         for a in lines}) + f" on {card}")
+
+
+# -- serving_tp: tensor-parallel serving, two ranks on card 0 -----------------
+
+TP = 2
+TP_LAYERS = 8          # depth of the serving_tp models (REDUCED)
+TP_V1_KW = dict(max_slots=8, max_seq=2048)
+TP_TEMP = 0.8
+# the bf16 first decode step's logits at tp = 2 against tp = 1 of the
+# same weights: each row-parallel product rounds its two partial sums
+# to bf16 before their bf16 sum (tp = 1 rounds once, after an fp32
+# accumulation), about one bf16 ulp (2**-8 relative) a product, 16
+# products over 8 layers; held as relative L2 error over the [8, V]
+# logits
+TP_LOGITS_RTOL = 5e-2
+TP_TCP_REQUESTS = 4
+# queue-wait budget of the serving_tp engines: the second wave of
+# requests waits for the first, which gloo's host staging slows; the
+# budget is not what the phase checks
+TP_ENGINE = dict(default_deadline_s=600.0)
+
+
+def tp_config(dtype: str, n_layers: int, tp: int = 1) -> dict:
+    from theanompi_tpu_torch.models import LLAMA3_8B
+
+    return dict(LLAMA3_8B, compute_dtype=dtype, seed=0, n_layers=n_layers,
+                tp=tp)
+
+
+#: the tp = 2 decoder sessions, in the order both ranks run them:
+#: (dtype, name, paged, Engine keywords, temperature)
+TP_SESSIONS = (
+    ("float32", "v1", False, {}, 0.0),
+    ("float32", "paged", True, {}, 0.0),
+    ("float32", "handoff", True, {}, 0.0),
+    ("bfloat16", "paged", True, {}, 0.0),
+    ("bfloat16", "sampled", True, {}, TP_TEMP),
+    ("bfloat16", "speculative", True, {"speculate_k": SPEC_K}, 0.0),
+)
+
+
+def capture_first_decode(dec, box: list) -> None:
+    """Keep (on the host, fp32) the logits of ``dec``'s first decode
+    step: its first sampler call on all ``max_slots`` rows."""
+    sample = dec._sample
+
+    def hooked(logits, *a, **k):
+        if not box and logits.shape[0] == dec.max_slots:
+            box.append(logits.float().cpu().numpy())
+        return sample(logits, *a, **k)
+
+    dec._sample = hooked
+
+
+def tp_rank_sessions(dev, group, n_layers: int, before=None,
+                     drive=None) -> list | None:
+    """Both ranks run this: for each dtype a tp = 2 model of this rank's
+    shards (random weights from seed 0: its slices of the tp = 1 draw),
+    then each of its ``TP_SESSIONS`` — a fresh decoder that rank 0
+    drives (``before(dtype)`` first, then ``drive(dtype, name, dec,
+    engine_kw, temperature)``, then ``close``) and rank 1 follows.  Each
+    session's K1, K4 and norm launches on this rank, and the bf16
+    greedy session's first decode logits, go to rank 0 over the CPU
+    group.  Returns [per-rank (counts, logits)] on rank 0, None on rank
+    1."""
+    import torch
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch.models import Llama
+    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+    from theanompi_tpu_torch.ops.norm import rms_norm_cuda
+    from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
+
+    counts, logits = {}, []
+    for dtype in ("float32", "bfloat16"):
+        if before is not None:
+            before(dtype)
+        model = Llama(tp_config(dtype, n_layers, TP), device=dev,
+                      group=group)
+        model.params
+        for dt, name, paged, ekw, temp in TP_SESSIONS:
+            if dt != dtype:
+                continue
+            kw = FLEET_KW if paged else TP_V1_KW
+            dec = model.make_decoder(paged=paged, **kw)
+            if (dtype, name) == ("bfloat16", "paged"):
+                capture_first_decode(dec, logits)
+            reset_counts(flash_fwd_cuda, paged_attend_cuda, rms_norm_cuda)
+            if group.rank:
+                dec.follow()
+            else:
+                drive(dtype, name, dec, ekw, temp)
+                dec.close()
+            torch.cuda.synchronize()
+            counts[f"{dtype} {name}"] = {
+                "K1": flash_fwd_cuda.launches,
+                "K4": paged_attend_cuda.launches,
+                "rms_norm": rms_norm_cuda.launches}
+            del dec
+        del model
+        torch.cuda.empty_cache()
+    mine = (counts, logits[0] if logits else None)
+    gathered = [None] * group.size if group.rank == 0 else None
+    dist.gather_object(mine, gathered, dst=0, group=group.cpu_group)
+    return gathered
+
+
+def serving_tp_follower(dev, init: str, n_layers: int) -> None:
+    """Rank 1 of the serving_tp phase (``--tp-rank 1``): join the
+    group, follow every session, hand rank 0 its counts, leave."""
+    from theanompi_tpu_torch.parallel.mesh import ModelGroup, destroy_group
+
+    group = ModelGroup.join(dev, 1, TP, init, backend="gloo")
+    try:
+        tp_rank_sessions(dev, group, n_layers)
+    finally:
+        destroy_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_serving_tp(dev, n_layers: int, records: dict) -> None:
+    """Phase serving_tp: tp = 2 serving at Llama-3-8B widths, ``n_layers``
+    deep, the two ranks on card 0 over gloo (this process is rank 0 and
+    starts rank 1); phase 3's 16 requests at 32 tokens.  fp32: greedy
+    ids of ``LlamaDecoder`` and ``PagedLlamaDecoder`` equal tp = 1's of
+    the same weights, and a handoff exported at tp = 1 decodes at
+    tp = 2 to the same ids (all asserted).  bf16: the first decode
+    step's logits within ``TP_LOGITS_RTOL`` of tp = 1's (asserted);
+    greedy and sampled ids' agreement with tp = 1 and speculative
+    (``speculate_k`` 4) ids' with one-token decode, printed; tokens/s
+    and a decode step's device and wall time at tp = 1 and 2.  Each
+    rank's K1, K4 and norm launches a session.  Then a tp = 2
+    ``ReplicaServer`` child pair (``FLEET_TCP_LAYERS`` deep, fp32) over
+    TCP: ``TP_TCP_REQUESTS`` requests with tp = 1's ids."""
+    import numpy as np
+    import torch
+
+    from theanompi_tpu_torch.models import Llama
+    from theanompi_tpu_torch.parallel.mesh import ModelGroup, destroy_group
+
+    card = card_line()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    log_path = ROOT / "build" / "serving_tp_rank1.log"
+    with open(log_path, "w") as fh:
+        follower = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", "1",
+             "--tp-init", init, "--layers", str(n_layers)],
+            cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT)
+    ref, out = {}, {}
+    prompts, shared = make_requests(tp_config("float32", 1)["vocab"])
+    reqs = shared[:1] + prompts + shared[1:]
+
+    def before(dtype):
+        """tp = 1 of the same weights, on this rank, before its
+        sessions."""
+        from theanompi_tpu_torch.serving import (
+            LlamaDecoder,
+            PagedLlamaDecoder,
+        )
+
+        t0 = time.perf_counter()
+        model = Llama(tp_config(dtype, n_layers), device=dev)
+        model.params
+        ref[dtype] = r = {}
+        if dtype == "float32":
+            rs, _, _ = ext_run(LlamaDecoder(model, **TP_V1_KW), reqs,
+                               **TP_ENGINE)
+            r["v1"] = [x.tokens for x in rs]
+            dec = PagedLlamaDecoder(model, **FLEET_KW)
+            rs, eng, _ = ext_run(dec, reqs, **TP_ENGINE)
+            r["paged"] = [x.tokens for x in rs]
+            pre, _, _ = ext_run(dec, reqs, prefill_only=True, **TP_ENGINE)
+            r["handoffs"] = [x.handoff for x in pre]
+        else:
+            dec = PagedLlamaDecoder(model, **FLEET_KW)
+            box = []
+            capture_first_decode(dec, box)
+            rs, eng, wall = ext_run(dec, reqs, **TP_ENGINE)
+            r["paged"] = [x.tokens for x in rs]
+            r["logits"] = box[0]
+            r["tokens_per_s"] = eng.recorder.summary()["tokens_per_sec"]
+            r["wall_s"] = wall
+            rs, _, _ = ext_run(dec, reqs, temperature=TP_TEMP, **TP_ENGINE)
+            r["sampled"] = [x.tokens for x in rs]
+            r["profile"] = profile_decode("serving_tp tp=1", dec, prompts)
+        log(f"[serving_tp] tp=1 {dtype} references in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del dec, model
+        torch.cuda.empty_cache()
+
+    def drive(dtype, name, dec, ekw, temp):
+        r = ref[dtype]
+        rs, eng, wall = ext_run(
+            dec, reqs, temperature=temp, **ekw, **TP_ENGINE,
+            handoffs=r["handoffs"] if name == "handoff" else None)
+        ids = [x.tokens for x in rs]
+        want = r["paged"] if name in ("handoff", "speculative") \
+            else r[name]
+        if name == "speculative":
+            want = out["bfloat16 paged"]["ids"]      # tp = 2 one-token
+        div = first_divergence(want, ids)
+        same = sum(a == b for a, b in zip(want, ids))
+        summ = eng.recorder.summary()
+        out[f"{dtype} {name}"] = {
+            "ids": ids, "requests_equal": f"{same} of {len(reqs)}",
+            "first_divergence": div, "wall_s": wall,
+            "tokens_per_s": summ["tokens_per_sec"],
+            "accept_rate": summ.get("accept_rate")}
+        log(f"[serving_tp {dtype} {name}] tp=2 vs "
+            f"{'tp=2 one-token' if name == 'speculative' else 'tp=1'}: "
+            f"{same} of {len(reqs)} requests equal, first divergence "
+            f"{div}; tokens/s {summ['tokens_per_sec']:.2f}, wall "
+            f"{wall:.2f} s, accept rate {summ.get('accept_rate')} on "
+            f"{card}")
+        if dtype == "float32" and div is not None:
+            raise AssertionError(f"serving_tp fp32 {name}: tp=2 ids differ "
+                                 f"from tp=1's at {div}")
+        if (dtype, name) == ("bfloat16", "paged"):
+            # a decode step's device and wall time, off the same decoder
+            out["profile"] = profile_decode("serving_tp tp=2", dec, prompts)
+
+    def watch():
+        """Rank 1 failing leaves this rank blocked in its next
+        collective: end the run instead."""
+        while not released.wait(1.0):
+            if follower.poll() not in (None, 0):
+                log(f"serving_tp: rank 1 exited {follower.returncode}:\n"
+                    + log_path.read_text()[-4000:])
+                os._exit(1)
+
+    released = threading.Event()
+    threading.Thread(target=watch, daemon=True).start()
+    try:
+        group = ModelGroup.join(dev, 0, TP, init, backend="gloo")
+        t0 = time.perf_counter()
+        gathered = tp_rank_sessions(dev, group, n_layers, before, drive)
+        sessions_s = time.perf_counter() - t0
+    finally:
+        released.set()
+        destroy_group()
+        try:
+            follower.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            follower.kill()
+            follower.wait()
+    if follower.returncode != 0:
+        raise AssertionError(f"serving_tp: rank 1 exited "
+                             f"{follower.returncode}:\n"
+                             + log_path.read_text()[-4000:])
+
+    # the bf16 first decode step's logits, both ranks' vocab shards
+    got = np.concatenate([g[1] for g in gathered], axis=1)
+    want = ref["bfloat16"]["logits"]
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    top_same = int((got.argmax(1) == want.argmax(1)).sum())
+    logit_line = {"shape": list(got.shape), "relative_l2": rel,
+                  "max_abs": float(np.abs(got - want).max()),
+                  "rows_same_argmax": f"{top_same} of {got.shape[0]}",
+                  "rtol": TP_LOGITS_RTOL}
+    log(f"[serving_tp bf16 logits] first decode step tp=2 vs tp=1: "
+        f"{json.dumps(logit_line)}")
+    if not rel <= TP_LOGITS_RTOL:
+        raise AssertionError(f"serving_tp: bf16 logits at tp=2 are {rel} "
+                             f"(relative L2) from tp=1's")
+    # every rank launched every kernel of its sessions
+    per_rank = {f"rank{r}": g[0] for r, g in enumerate(gathered)}
+    log(f"[serving_tp launches] {json.dumps(per_rank)}")
+    for name, c0 in per_rank["rank0"].items():
+        c1 = per_rank["rank1"][name]
+        want_k1 = " v1" in name
+        if c0["rms_norm"] != c1["rms_norm"] or not c0["rms_norm"] \
+                or bool(c0["K1"]) != want_k1 or bool(c1["K1"]) != want_k1 \
+                or bool(c0["K4"]) == want_k1 or c0["K4"] != c1["K4"]:
+            raise AssertionError(f"serving_tp {name}: launches {c0} / {c1}")
+    rates = {"tp1": ref["bfloat16"]["tokens_per_s"],
+             "tp2": out["bfloat16 paged"]["tokens_per_s"]}
+    step = {k: {m: p[m] for m in ("wall_ms_per_step", "device_ms_per_step",
+                                  "busy_share")}
+            for k, p in (("tp1", ref["bfloat16"]["profile"]),
+                         ("tp2", out["profile"]))}
+    log(f"[serving_tp] bf16 decode tokens/s {json.dumps(rates)}; a decode "
+        f"step {json.dumps(step)} (rank 0; tp=2 over gloo staging through "
+        f"the host); sessions {sessions_s:.1f} s on {card}")
+    out["tcp"] = tp_tcp_arm(dev, reqs)
+    # the v1 sessions are fp32: their K1 launches took the SIMT route
+    for k, key in (("K1 fp32", "K1"), ("K4", "K4"),
+                   ("rms_norm", "rms_norm")):
+        if k in records:
+            add_launches(records[k], **{
+                f"serving_tp_{r}": sum(c[key] for c in counts.values())
+                for r, counts in per_rank.items()})
+
+
+def tp_tcp_arm(dev, reqs) -> dict:
+    """A tp = 2 ``ReplicaServer`` (``python -m ...serving.replica`` with
+    ``config["tp"] = 2``, devices card 0 twice, gloo), fp32 at full
+    width and ``FLEET_TCP_LAYERS`` deep, restored from a checkpoint
+    this process writes; ``TP_TCP_REQUESTS`` requests over TCP give the
+    ids of a tp = 1 engine in this process over the same weights."""
+    import torch
+
+    from theanompi_tpu_torch.models import Llama
+    from theanompi_tpu_torch.models.llama import params_to_jax
+    from theanompi_tpu_torch.serving import (
+        PagedLlamaDecoder,
+        Request,
+        TCPReplicaClient,
+    )
+    from theanompi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = tp_config("float32", FLEET_TCP_LAYERS)
+    model = Llama(cfg, device=dev)
+    ckpt = ROOT / "build" / "serving_tp_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save_checkpoint(ckpt, 0, {"params": params_to_jax(model.params)})
+    reqs = [p[:200] for p in reqs[:TP_TCP_REQUESTS]]
+    rs, _, _ = ext_run(PagedLlamaDecoder(model, **FLEET_KW), reqs)
+    want = [r.tokens for r in rs]
+    del model, rs
+    torch.cuda.empty_cache()
+    spec = dict(config=dict(cfg, tp=TP), checkpoint=str(ckpt),
+                devices=[str(dev)] * TP, backend="gloo", paged=True,
+                decoder=FLEET_KW, engine={"prefix_caching": False},
+                name="tp2")
+    t0 = time.perf_counter()
+    proc, port = start_replica_child(spec)
+    ready_s = time.perf_counter() - t0
+    client = None
+    try:
+        client = TCPReplicaClient(("127.0.0.1", port), name="tp2",
+                                  ping_interval_s=0.05, slots=8)
+        t0 = time.perf_counter()
+        futs = [client.submit(Request(prompt=list(p), max_tokens=32,
+                                      seed=i))
+                for i, p in enumerate(reqs)]
+        got = [f.result(timeout=600).tokens for f in futs]
+        wall = time.perf_counter() - t0
+        client.shutdown()
+        code = proc.wait(timeout=120)
+    finally:
+        if client is not None:
+            client.close()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    line = {"requests": len(reqs), "ids_equal_tp1": got == want,
+            "child_ready_s": ready_s, "wall_s": wall, "exit_code": code}
+    log(f"[serving_tp tcp] {json.dumps(line)} on {card_line()}")
+    if got != want or code != 0:
+        raise AssertionError(f"serving_tp tcp: ids {got} vs tp=1 {want}, "
+                             f"exit {code}")
+    return line
 
 
 # -- training ----------------------------------------------------------------
@@ -2662,6 +3210,82 @@ def use_synthetic_data() -> None:
     os.environ["TM_DATA_DIR"] = str(data_dir)
 
 
+def write_tmb_dataset(root: Path) -> int:
+    """``CNN_STEPS`` train and ``CNN_VAL_BATCHES`` val batches of
+    ``CNN_BATCH`` random 256 x 256 uint8 images (seed 11) as ``.tmb``
+    files under ``root/imagenet_batches``; returns the bytes written."""
+    import numpy as np
+
+    from theanompi_tpu_torch.native import write_tmb
+
+    rng = np.random.default_rng(11)
+    total = 0
+    for split, n in (("train", CNN_STEPS), ("val", CNN_VAL_BATCHES)):
+        d = root / "imagenet_batches" / split
+        d.mkdir(parents=True)
+        for b in range(n):
+            x = rng.integers(0, 256, (CNN_BATCH, 256, 256, 3), np.uint8)
+            y = rng.integers(0, 1000, CNN_BATCH).astype(np.int32)
+            write_tmb(d / f"batch_{b:06d}.tmb", x, y)
+            total += (d / f"batch_{b:06d}.tmb").stat().st_size
+    return total
+
+
+def run_tmb_feeds(dev, cached: dict) -> None:
+    """ResNet-50 at the cnn config from ``.tmb`` files this run writes,
+    fed by the C++ loader (``native.NativeBatchLoader``, built with g++
+    at first use) and then by the prefetch thread (the loader turned
+    off, as without a toolchain): ``feed`` is asserted for each, and
+    the batches the net took are bitwise equal.  Each feed's median
+    step and busy share beside the device-resident feed's (``cached``,
+    synthetic data)."""
+    import torch
+
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    nbytes = write_tmb_dataset(tmp)
+    log(f"[cnn tmb] wrote {nbytes / 1e6:.1f} MB of .tmb files in "
+        f"{time.perf_counter() - t0:.1f} s")
+    old = os.environ["TM_DATA_DIR"]
+    old_native = os.environ.pop("TM_NATIVE", None)
+    os.environ["TM_DATA_DIR"] = str(tmp)
+    runs = {}
+    try:
+        for feed in ("native", "thread"):
+            # TM_NATIVE=0 stands in for a host without a toolchain
+            os.environ["TM_NATIVE"] = "1" if feed == "native" else "0"
+            res, model = run_cnn(dev, f"resnet50 tmb {feed}", RESNET50,
+                                 RESNET50_CFG)
+            if model.data.feed != feed:
+                raise AssertionError(f"cnn tmb: the {feed} run was fed by "
+                                     f"{model.data.feed}")
+            model.data.shuffle(1)
+            res["profile"] = profile_feed(model, f"cnn resnet50 tmb {feed}")
+            runs[feed] = res
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("TM_NATIVE")
+        if old_native is not None:
+            os.environ["TM_NATIVE"] = old_native
+        os.environ["TM_DATA_DIR"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {feed: {"median_step_s": r["median_step_s"],
+                   "images_per_s": r["images_per_s"],
+                   "median_wait_s": r["median_wait_s"],
+                   "busy_share": r["profile"]["busy_share"]}
+            for feed, r in dict(runs, device_cache=cached).items()}
+    log(f"[cnn resnet50 tmb feeds] {json.dumps(line)} (device_cache: "
+        f"synthetic data on the card) on {card_line()}")
+    if runs["native"]["batch_checksums"] != runs["thread"]["batch_checksums"]:
+        raise AssertionError(f"cnn tmb: the native loader's batches differ "
+                             f"from the thread's: "
+                             f"{runs['native']['batch_checksums']} vs "
+                             f"{runs['thread']['batch_checksums']}")
+    log(f"[cnn tmb] the {CNN_STEPS} batches of the native loader are "
+        f"bitwise the prefetch thread's")
+
+
 def run_cnn_phase(dev) -> None:
     """The cnn phase (module docstring, item 6)."""
     import torch
@@ -2708,6 +3332,7 @@ def run_cnn_phase(dev) -> None:
         raise AssertionError(f"cnn: the feeds staged other batches: {sums}")
     log(f"[cnn resnet50 feeds] the {CNN_STEPS} staged batches are bitwise "
         f"equal across {list(FEEDS)}")
+    run_tmb_feeds(dev, feeds["device_cache"])
 
     _, model = run_cnn(dev, "alexnet", ALEXNET, ALEXNET_CFG)
     del model
@@ -3284,8 +3909,18 @@ def tc_report(reports: dict) -> dict:
 
 # -- main -------------------------------------------------------------------
 
+PHASE_S: dict = {}
+
+
 def phase_start(name: str, t_start: float) -> None:
-    log(f"== phase {name} at {time.perf_counter() - t_start:.1f} s")
+    """Log the phase's start; the previous phase's seconds go to
+    ``PHASE_S`` (printed at the end)."""
+    now = time.perf_counter() - t_start
+    if PHASE_S:
+        last = next(reversed(PHASE_S))
+        PHASE_S[last] = now - PHASE_S[last]
+    PHASE_S[name] = now
+    log(f"== phase {name} at {now:.1f} s")
 
 
 def parse_args(argv=None):
@@ -3293,9 +3928,11 @@ def parse_args(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES} (default: all)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="depth of the full-width models (default: 8 "
-                    "serving and training, 32 serving_ext and "
-                    "serving_fleet)")
+                    help="depth of the full-width models (default: 8; "
+                    "32 serving_ext)")
+    # rank 1 of the serving_tp phase, started by rank 0
+    ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
     ns.phases = [p for p in ns.phases.split(",") if p]
     bad = set(ns.phases) - set(PHASES)
@@ -3317,6 +3954,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if ns.tp_rank:
+        serving_tp_follower(torch.device("cuda", 0), ns.tp_init,
+                            ns.layers or TP_LAYERS)
+        return 0
     from theanompi_tpu_torch.kernels import _build
     from theanompi_tpu_torch.models import LLAMA3_8B, Llama
     from theanompi_tpu_torch.ops.attention import (
@@ -3467,6 +4108,14 @@ def main(argv=None) -> int:
         log(f"peak device memory (serving_fleet) "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
+    if "serving_tp" in ns.phases:
+        phase_start("serving_tp", t_start)
+        # tp = 2 serving, two ranks on card 0
+        torch.cuda.reset_peak_memory_stats()
+        run_serving_tp(dev, ns.layers or TP_LAYERS, records)
+        log(f"peak device memory (serving_tp, rank 0) "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
     if "training" in ns.phases:
         phase_start("training", t_start)
         # phase 7: BSP training at Llama-3-8B widths, then its profile
@@ -3509,6 +4158,10 @@ def main(argv=None) -> int:
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
                              "K3 fp32", "K4", "rms_norm")
         if k in records]}))
+    phase_start("end", t_start)
+    PHASE_S.pop("end")
+    log("phase seconds " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_S.items()}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@
   exactly, in both packages.
 - DRILL: ``TM_FAULT_AT=<index>:<tick>:spike_load`` forces a scale-up at
   that tick, hysteresis bypassed.
-- REFUSAL: a spawn whose engine asks K4 for more than 16 rows on a card
-  is refused when the spawn builds it: the loop dies naming the limit.
+- REFUSAL: a spawn whose engine is refused (speculation over the v1
+  decoder) fails when the spawn builds it: the loop dies naming the
+  cause; an 18-row verify window on a card (past K4's 16-row group)
+  builds.
 - RECORDER: ``FleetRecorder.summary()`` and ``metrics_txt`` over the same
   events and replica states (each package's ``ServingRecorder`` states,
   and the other package's, merged) equal the JAX ones.
@@ -221,10 +223,12 @@ def test_spike_load_drill_forces_a_scale_up(monkeypatch):
 
 
 def test_spawn_past_k4_row_limit_is_refused_at_the_spawn():
-    """A spawn factory that builds ``Engine(speculate_k=9)`` over a
-    decoder on a card (2 query heads a kv head: 18 rows of K4, past its
-    16) raises when the spawn builds it; the loop dies loudly, naming
-    the kernel's limit, and the fleet keeps its members."""
+    """K4 has no row limit any more: a spawn factory that builds
+    ``Engine(speculate_k=9)`` over a decoder on a card (2 query heads a
+    kv head: 18 rows) spawns.  A spawn whose engine is refused
+    (speculation over the v1 decoder) still raises when the spawn builds
+    it; the loop dies loudly, naming the cause, and the fleet keeps its
+    members."""
     cfg = dict(dim=32, n_layers=1, n_heads=4, n_kv_heads=2, ffn_dim=64,
                vocab=64, seq_len=64, compute_dtype="float32")
     model = Llama(cfg, device="cpu")
@@ -235,25 +239,31 @@ def test_spawn_past_k4_row_limit_is_refused_at_the_spawn():
     a.beat()
     router.check_health()
 
-    def spawn(i):
-        dec = model.make_decoder(paged=True, max_slots=2, max_seq=48,
-                                 block_size=8, prefill_chunk=8)
+    def engine(paged):
+        kw = dict(block_size=8, prefill_chunk=8) if paged else {}
+        dec = model.make_decoder(paged=paged, max_slots=2, max_seq=48, **kw)
         dec.device = torch.device("cuda", 0)   # what a card's decoder says
-        return serving.InProcessReplica(
-            serving.Engine(dec, speculate_k=9), name=f"auto{i}").start()
+        return serving.Engine(dec, speculate_k=9)
+
+    eng = engine(paged=True)                   # 18 rows build on a card
+    assert eng.speculate_k == 9 and eng.decoder._rep == 2
+
+    def spawn(i):
+        return serving.InProcessReplica(engine(paged=False),
+                                        name=f"auto{i}").start()
 
     asc = serving.Autoscaler(router, spawn, max_replicas=2, up_hold_s=0.0,
                              cooldown_s=0.0, interval_s=0.001)
     for _ in range(8):
         router.submit([1, 2], max_tokens=2)
-    with pytest.raises(ValueError, match="K4 takes at most 16"):
+    with pytest.raises(NotImplementedError, match="paged"):
         asc.tick()
     asc.start()
     deadline = time.monotonic() + 10.0
     while not asc.dead and time.monotonic() < deadline:
         time.sleep(0.005)
     asc.stop()
-    assert asc.dead and "K4 takes at most 16" in asc.death_cause
+    assert asc.dead and "paged" in asc.death_cause
     assert list(router.members()) == ["a"]
     a.resolve_all()
 

@@ -467,7 +467,7 @@ def test_entry_points_train_on_the_cpu_and_want_the_card_by_default(
     (WResNet, dict(steps_per_call=4), NotImplementedError, "A7"),
     (WResNet, dict(device_data_cache=True, steps_per_call=4),
      NotImplementedError, "A7"),
-    (ResNet50, dict(stage1_width=128), NotImplementedError, "A5"),
+    (ResNet50, dict(trace=True), NotImplementedError, "A13"),
 ])
 def test_unported_knobs_raise(model, config, error, match):
     with pytest.raises(error, match=match):

@@ -70,7 +70,26 @@ def test_import_leaves_jax_out_of_sys_modules():
             "theanompi_tpu_torch.serving.router",
             "theanompi_tpu_torch.serving.autoscaler",
             "theanompi_tpu_torch.utils.faults",
-            "theanompi_tpu_torch.ops.norm"} <= set(MODULES)
+            "theanompi_tpu_torch.ops.norm",
+            # the native .tmb loader, the zoo's knobs and tp > 1 serving
+            "theanompi_tpu_torch.native",
+            "theanompi_tpu_torch.models.data.imagenet",
+            "theanompi_tpu_torch.ops.layers",
+            "theanompi_tpu_torch.models.resnet50",
+            "theanompi_tpu_torch.parallel.mesh",
+            "theanompi_tpu_torch.parallel.tp",
+            "theanompi_tpu_torch.models.llama",
+            "theanompi_tpu_torch.serving.decoder"} <= set(MODULES)
+
+
+def test_native_loader_source_is_the_ports_own_copy():
+    """The loader's C++ lives in the port (no framework in it) and builds
+    into the checkout's build directory, not beside the source."""
+    src = (PORT / "native" / "loader.cc").read_text()
+    assert "#include <jax" not in src and "Python.h" not in src
+    ref = (ROOT / "theanompi_tpu" / "native" / "loader.cc").read_text()
+    body = src[src.index("#include"):]
+    assert body == ref[ref.index("#include"):]
 
 
 def imported_names(path: Path) -> set:

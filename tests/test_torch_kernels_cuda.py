@@ -357,7 +357,11 @@ def paged_inputs(dev, dtype, *, s, nq, hkv, rep, hd, bs, mb, seed,
     (1, 4, 8, 128, 16, 8),      # decode, the 8B grouping
     (1, 1, 2, 64, 4, 5),        # one row per (slot, kv head)
     (3, 2, 2, 32, 8, 4),        # verify-shaped window, Q > 1
-    (4, 4, 1, 128, 16, 16),     # 16 rows: the kernel's widest group
+    (4, 4, 1, 128, 16, 16),     # 16 rows: one full row group
+    (5, 4, 2, 128, 16, 8),      # 20 rows: a second, partial group
+    (8, 4, 4, 128, 16, 8),      # 32 rows: speculate_k = 8 at rep 4
+    (16, 4, 1, 64, 8, 12),      # 64 rows: four groups
+    (9, 2, 3, 32, 4, 6),        # 18 rows at rep 2, odd kv heads
 ])
 def test_paged_attend_matches_gather_path(dev, dtype, nq, rep, hkv, hd,
                                           bs, mb):
@@ -378,7 +382,10 @@ def test_paged_attend_matches_gather_path(dev, dtype, nq, rep, hkv, hd,
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
 
 
-def test_paged_attend_refuses_too_many_rows(dev):
+def test_paged_attend_refuses_bad_inputs(dev):
+    """What K4 still refuses: a head dim it has no tile for, q and pools
+    of two dtypes, int64 tables.  (Any number of query rows runs: the
+    rows of a (slot, kv head) are cut into groups of 16.)"""
     from theanompi_tpu_torch.serving.paged_attention import (
         paged_attend_cuda,
     )
@@ -387,8 +394,60 @@ def test_paged_attend_refuses_too_many_rows(dev):
         dev, torch.float32, s=1, nq=5, hkv=1, rep=4, hd=32, bs=4, mb=2,
         seed=0,
     )
-    with pytest.raises(ValueError, match="at most 16"):
-        paged_attend_cuda(q, kp, vp, tables, pos)
+    with pytest.raises(TypeError):
+        paged_attend_cuda(q.bfloat16(), kp, vp, tables, pos)
+    with pytest.raises(TypeError):
+        paged_attend_cuda(q, kp, vp, tables.long(), pos)
+    q48 = torch.zeros((1, 5, 1, 4, 48), device=dev)
+    kp48 = torch.zeros((kp.shape[0], 1, 4, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_attend_cuda(q48, kp48, kp48, tables, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_groups_are_independent_rows(dev, dtype):
+    """A row's result does not depend on how many rows ride with it: the
+    first 16 rows of a 32-row window are bitwise the 16-row launch's
+    (group 0 is the single-group launch; later groups only add CTAs)."""
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+    )
+
+    q, kp, vp, tables, pos = paged_inputs(
+        dev, dtype, s=2, nq=8, hkv=2, rep=4, hd=128, bs=16, mb=20, seed=7,
+    )
+    pos = pos.clone()
+    pos[:, 4:] = pos[:, :4]                # rows 16-31 repeat 0-15's
+    full = paged_attend_cuda(q, kp, vp, tables, pos)
+    half = paged_attend_cuda(q[:, :4].contiguous(), kp, vp, tables,
+                             pos[:, :4].contiguous())
+    assert torch.equal(full[:, :4], half)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_past_8192_matches_plain(dev, dtype):
+    """The norm kernel at d = 16384 (each thread strides over the row):
+    bf16 bitwise its plain version, fp32 within 1e-6, and a row the same
+    bits at 1, 8 and 32 rows."""
+    from theanompi_tpu_torch.ops.norm import rms_norm, rms_norm_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(16384)
+    x = torch.randn((32, 16384), generator=gen, device=dev).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(16384, generator=gen, device=dev)) \
+        .to(dtype)
+    out = rms_norm_cuda(x, w)
+    ref = rms_norm(x, w)
+    if dtype is torch.bfloat16:
+        # the plain version's fp32 mean sums in another order: at most
+        # one bf16 ulp apart where the two scales round apart
+        torch.testing.assert_close(out.float(), ref.float(), atol=0,
+                                   rtol=2 ** -7)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-6)
+    assert torch.equal(out[:8], rms_norm_cuda(x[:8].contiguous(), w))
+    for r in (0, 9, 31):
+        assert torch.equal(out[r:r + 1],
+                           rms_norm_cuda(x[r:r + 1].contiguous(), w))
 
 
 def test_paged_decoder_on_the_card_matches_the_cpu(dev):
@@ -479,3 +538,41 @@ def test_paged_attend_is_deterministic_and_batch_invariant(dev, dtype):
         alone = paged_attend_cuda(q[i:i + 1], kp, vp, tables[i:i + 1],
                                   pos[i:i + 1])
         assert torch.equal(alone[0], out[i])
+
+
+NCCL_CHILD = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+from theanompi_tpu_torch.parallel.mesh import init_group
+try:
+    init_group(torch.device("cuda", 0), int(sys.argv[1]), 2, {init!r})
+except ValueError as e:
+    print("refused:", e)
+    sys.exit(3)
+"""
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks naming card 0 under NCCL: both raise a clear error
+    before any process group is made (gloo is the way to share a
+    card)."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "child.py"
+    script.write_text(NCCL_CHILD.format(
+        root=str(Path(__file__).resolve().parent.parent),
+        init=f"tcp://127.0.0.1:{port}"))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    assert [p.returncode for p in procs] == [3, 3], outs
+    assert all("share a card under nccl" in o for o in outs), outs

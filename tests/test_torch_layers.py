@@ -175,13 +175,19 @@ def test_max_pool_ties_route_to_the_first_element_in_window_order():
 
 
 def test_pool_tiesplit_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A2"):
-        tl.Pool(3, 2, bwd="tiesplit")
+    """The tie-split backward is ported (its gradients against JAX are in
+    ``tests/test_torch_zoo_knobs.py``): the constructor and
+    ``TM_POOL_BWD`` select it as the JAX ``Pool`` does, a disable value
+    selects the default, and an unknown value still raises."""
+    assert tl.Pool(3, 2, bwd="tiesplit").bwd == "tiesplit"
     monkeypatch.setenv("TM_POOL_BWD", "tiesplit")
-    with pytest.raises(NotImplementedError, match="A2"):
-        tl.Pool(3, 2)
+    assert tl.Pool(3, 2).bwd == "tiesplit"
+    assert tl.Pool(3, 2, bwd="").bwd == ""
     monkeypatch.setenv("TM_POOL_BWD", "off")
-    assert tl.Pool(3, 2).mode == "max"
+    assert tl.Pool(3, 2).mode == "max" and tl.Pool(3, 2).bwd == ""
+    monkeypatch.setenv("TM_POOL_BWD", "bogus")
+    with pytest.raises(ValueError, match="unknown Pool bwd"):
+        tl.Pool(3, 2)
 
 
 # -- normalization ------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 from theanompi_tpu.models import llama as jax_llama
 from theanompi_tpu_torch.models import llama as port_llama
 from theanompi_tpu_torch.parallel import tp as port_tp
+from theanompi_tpu_torch.parallel.mesh import ModelGroup
 from theanompi_tpu_torch.utils.checkpoint import parse_keystr
 
 CFG = dict(dim=32, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=64,
@@ -117,9 +118,16 @@ def test_config_checks():
     with pytest.raises(ValueError, match="compute_dtype"):
         port_llama.Llama(dict(CFG, compute_dtype="float16"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_llama.Llama(dict(CFG, tp=2), device="cpu")
+        port_llama.Llama(dict(CFG, sp=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_llama.Llama(dict(CFG, n_experts=4), device="cpu")
+    # tp = 2 serves over a two-rank group and trains nowhere yet
+    with pytest.raises(ValueError, match="ModelGroup"):
+        port_llama.Llama(dict(CFG, tp=2), device="cpu")
+    two = ModelGroup(rank=0, size=2, device_group=None, cpu_group=None)
+    m = port_llama.Llama(dict(CFG, tp=2), device="cpu", group=two)
+    with pytest.raises(NotImplementedError, match="A12"):
+        m.build_model()
 
 
 def test_llama3_8b_shape_is_the_jax_one():

@@ -98,14 +98,19 @@ def test_verify_launches_k4_at_16_rows_on_the_tensor_cores(dev,
     assert out.shape == (4, 4) and ((0 <= out) & (out < 256)).all()
     assert (fn.launches, fn.tc_launches) == (2, 2)
     assert fn.launches_by_rows == {16: 2}
-    with pytest.raises(ValueError, match="at most 16"):
-        Engine(dec, speculate_k=5)
     # an engine at speculate_k = 4 serves through the same shape
     eng = Engine(dec, speculate_k=4, prefix_caching=False)
     futs = [eng.submit(p, max_tokens=12) for p in PROMPTS]
     eng.run_until_idle()
     assert all(f.result(timeout=0).status == "ok" for f in futs)
     assert set(fn.launches_by_rows) == {16}
+    # past one row group: speculate_k = 5 is 20 rows, two groups
+    fn.launches_by_rows = {}
+    eng = Engine(dec, speculate_k=5, prefix_caching=False)
+    futs = [eng.submit(p, max_tokens=12) for p in PROMPTS]
+    eng.run_until_idle()
+    assert all(f.result(timeout=0).status == "ok" for f in futs)
+    assert set(fn.launches_by_rows) == {20}
 
 
 def test_bf16_handoff_round_trip_on_the_card(dev):

@@ -8,9 +8,9 @@ frameworks sum in other orders, a few ulp at |x| ~ 1); and
 and sampled) and of the JAX speculative engine, with the JAX run's
 accept rate and tokens per step, through the window's edge cases (EOS
 and ``max_tokens`` inside a window, ``max_seq`` inside a window, block
-scarcity, a drafter that is always wrong).  Also the refusals:
-speculation over the v1 decoder, and a window wider than K4's 16 query
-rows on a card."""
+scarcity, a drafter that is always wrong).  Also the refusal of
+speculation over the v1 decoder, and windows wider than 16 query rows
+(K4's row group) built on a card."""
 
 import numpy as np
 import pytest
@@ -263,16 +263,18 @@ def test_v1_refuses_and_k1_is_off(models):
 
 
 def test_window_beyond_kernel_rows_refused_on_the_card(models):
-    """K4 takes at most 16 query rows per (slot, kv head): on a CUDA
-    decoder a window of speculate_k x rep rows beyond that is refused
-    when the engine is built, naming the limit.  (The decoder here is
-    built on the CPU and only claims a card: the check reads
-    ``decoder.device``.)"""
+    """K4 cuts a (slot, kv head)'s query rows into groups of 16, so no
+    window is refused on a card any more: an engine over a decoder that
+    claims a card builds at 16 rows and past them (speculate_k 9 at rep
+    2: 18 rows), and serves the one-token ids on the CPU at that k.
+    (The decoder is built on the CPU and only claims a card: the engine
+    reads ``decoder.device``.)"""
     _, tm = models
-    dec = paged(tm)                       # rep = 2: 8 windows fit
+    dec = paged(tm)
     assert dec._rep == 2
-    Engine(dec, speculate_k=8)            # the CPU takes any window
+    ref, _, _ = serve(Engine, dec, PROMPTS[:2])
+    got, _, _ = serve(Engine, dec, PROMPTS[:2], speculate_k=9)
+    assert got == ref
     dec.device = torch.device("cuda", 0)
-    Engine(dec, speculate_k=8)
-    with pytest.raises(ValueError, match="at most 16"):
-        Engine(dec, speculate_k=9)
+    for k in (8, 9, 32):
+        assert Engine(dec, speculate_k=k).speculate_k == k

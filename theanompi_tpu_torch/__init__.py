@@ -3,9 +3,11 @@
 Mirrors the JAX package's module layout, so each counterpart sits at
 the same path.  Ported so far:
 
-- Llama serving at one card (tp=1): ``models.llama.Llama`` wrapped in
-  ``serving.LlamaDecoder`` or ``serving.PagedLlamaDecoder`` and driven
-  by ``serving.Engine``, and the fleet over such engines: replicas
+- Llama serving at one card or tensor-parallel over a
+  ``parallel.mesh.ModelGroup`` (one process a rank):
+  ``models.llama.Llama`` wrapped in ``serving.LlamaDecoder`` or
+  ``serving.PagedLlamaDecoder`` and driven by ``serving.Engine``, and
+  the fleet over such engines: replicas
   in-process or over TCP (``serving.replica``) behind
   ``serving.Router``, resized by ``serving.Autoscaler``;
 - BSP training: ``BSP().init(...)`` -> ``launcher.launch`` ->

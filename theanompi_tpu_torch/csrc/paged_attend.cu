@@ -35,9 +35,16 @@
 // the output in the input dtype.  Shared memory depends on the tile
 // constants only, so any window runs.
 //
+// Row groups: the nq*rep grouped query rows of one (slot, kv head) are
+// cut into groups of kRows = 16, one CTA each (grid y = kv head x group,
+// the group fastest), so a verify window of any length runs; each group
+// walks the same splits and writes its own rows of the partials, and the
+// merge takes one row a CTA as before.  At <= 16 rows there is one group
+// and the launch is the single-group one: the same grid, tiles and bits.
+//
 // bf16: `paged_split_tc_kernel`, on the tensor cores (mma.sync m16n8k16
-// as in K1, building blocks in mma_sm90.cuh).  The <= 16 grouped query
-// rows of one (slot, kv head), zero-padded to 16, are the M dimension;
+// as in K1, building blocks in mma_sm90.cuh).  A group's <= 16 query
+// rows, zero-padded to 16, are the M dimension;
 // each of 4 warps takes 16 positions of each 64-position tile.  S = Q
 // K^T (Q's A fragments held in registers for the whole walk), the online
 // softmax in the accumulator layout with masked entries' P exactly 0 (a
@@ -73,7 +80,7 @@ constexpr int kSplit = 256;   // positions per split (one CTA each)
 constexpr int kStages = 2;    // K/V tiles in the cp.async ring
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16;                 // query rows per (slot, kv head)
+constexpr int kRows = 16;                 // query rows per row group
 constexpr int kTcTile = 16 * kWarps;      // bf16: positions per tile
 constexpr int kSimtTile = kThreads / 4;   // fp32: one position per 4 lanes
 constexpr float kLog2e = 1.4426950408889634f;
@@ -91,11 +98,27 @@ __device__ __forceinline__ int slot_last(const int* pos, int s, int nq,
   return min(p, tw - 1);
 }
 
+// The rows of the group a CTA works on: rows [r0, r0 + n) of the
+// (slot, kv head)'s nq*rep, with grid y = kv head * groups + group.
+struct Group {
+  int h, r0, n;
+};
+
+__device__ __forceinline__ Group row_group(int rows) {
+  const int groups = (rows + kRows - 1) / kRows;
+  Group gr;
+  gr.h = blockIdx.y / groups;
+  gr.r0 = (blockIdx.y % groups) * kRows;
+  gr.n = min(kRows, rows - gr.r0);
+  return gr;
+}
+
 // What a split CTA reads before its K/V walk: its positions [t0,
 // t_end), the table entries of the blocks holding them (sTab[i] is
-// block b0 + i) and each query row's last position (sPos, padded rows
-// repeating the last real row's).  False when the split starts past
-// the slot's last position (the CTA then writes nothing).  A non-null
+// block b0 + i) and each of its group's query rows' last position
+// (sPos, padded rows repeating the group's last real row's).  False
+// when the split starts past the slot's last position (the CTA then
+// writes nothing; the merge reads only the live splits).  A non-null
 // `ctas` counts the CTAs launched (ctas[0]) and those that go on past
 // this exit (ctas[1]).
 struct Split {
@@ -106,7 +129,7 @@ __device__ __forceinline__ bool split_setup(Split& sp, int* sTab, int* sPos,
                                             const int* tables,
                                             const int* pos, int s, int nq,
                                             int rep, int bs, int mb,
-                                            int* ctas) {
+                                            const Group& gr, int* ctas) {
   const int tw = mb * bs;
   const int last = slot_last(pos, s, nq, tw);
   sp.t0 = blockIdx.x * kSplit;
@@ -119,10 +142,9 @@ __device__ __forceinline__ bool split_setup(Split& sp, int* sTab, int* sPos,
   const int n_blk = (sp.t_end - 1) / bs - sp.b0 + 1;
   for (int i = threadIdx.x; i < n_blk; i += kThreads)
     sTab[i] = tables[static_cast<size_t>(s) * mb + sp.b0 + i];
-  const int rows = nq * rep;
   sp.pmin = last;
   for (int r = 0; r < kRows; ++r) {
-    const int p = min(pos[s * nq + min(r, rows - 1) / rep], last);
+    const int p = min(pos[s * nq + (gr.r0 + min(r, gr.n - 1)) / rep], last);
     if (threadIdx.x == r) sPos[r] = p;
     sp.pmin = min(sp.pmin, p);
   }
@@ -185,20 +207,24 @@ __global__ void __launch_bounds__(kThreads)
   bf16* sK = sQ + kRows * S;                 // [kStages][kTcTile][S]
   bf16* sV = sK + kStages * kTcTile * S;     // [kStages][kTcTile][S]
 
-  const int h = blockIdx.y, s = blockIdx.z;
+  const int s = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int rows = nq * rep;
+  const Group gr = row_group(rows);
+  const int h = gr.h;
   Split sp;
-  if (!split_setup(sp, sTab, sPos, tables, pos, s, nq, rep, bs, mb, ctas))
+  if (!split_setup(sp, sTab, sPos, tables, pos, s, nq, rep, bs, mb, gr,
+                   ctas))
     return;
 
-  // Q rows (zeros past `rows`) join the first ring group
+  // the group's Q rows (zeros past its last) join the first ring group
   for (int i = tid; i < kRows * Tile<HD>::kChunks; i += kThreads) {
     const int r = i / Tile<HD>::kChunks, c = (i % Tile<HD>::kChunks) * 8;
-    const bool valid = r < rows;
+    const bool valid = r < gr.n;
     tmt::cp_async_16(sQ + r * S + c,
-                     q + (valid ? row_offset(s, r, nq, hkv, h, rep, HD) + c
+                     q + (valid ? row_offset(s, gr.r0 + r, nq, hkv, h, rep,
+                                             HD) + c
                                 : 0),
                      valid);
   }
@@ -339,9 +365,10 @@ __global__ void __launch_bounds__(kThreads)
            (e & 1)] = acc[n][e];
   __syncthreads();
 
-  // the split's partial, the warps merged in warp order
-  const size_t c0 = cell(s, h, blockIdx.x, hkv, gridDim.x) * rows;
-  for (int i = tid; i < rows * HD; i += kThreads) {
+  // the split's partial of the group's rows, the warps merged in warp
+  // order
+  const size_t c0 = cell(s, h, blockIdx.x, hkv, gridDim.x) * rows + gr.r0;
+  for (int i = tid; i < gr.n * HD; i += kThreads) {
     const int r = i / HD, c = i % HD;
     float mr = kNegInf;
 #pragma unroll
@@ -402,18 +429,21 @@ __global__ void __launch_bounds__(kThreads)
   float* sL = sM + kRows;                      // [kRows] running sum
   float* sA = sL + kRows;                      // [kRows] tile's rescale
 
-  const int h = blockIdx.y, s = blockIdx.z;
+  const int s = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rows = nq * rep;
+  const Group gr = row_group(nq * rep);
+  const int h = gr.h, rows = gr.n;  // this CTA's rows: the group's
   Split sp;
-  if (!split_setup(sp, sTab, sPos, tables, pos, s, nq, rep, bs, mb, ctas))
+  if (!split_setup(sp, sTab, sPos, tables, pos, s, nq, rep, bs, mb, gr,
+                   ctas))
     return;
 
   for (int i = tid; i < kRows * (HD / 4); i += kThreads) {
     const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
     const bool valid = r < rows;
     tmt::cp_async_16(sQ + r * FS + c,
-                     q + (valid ? row_offset(s, r, nq, hkv, h, rep, HD) + c
+                     q + (valid ? row_offset(s, gr.r0 + r, nq, hkv, h, rep,
+                                             HD) + c
                                 : 0),
                      valid);
   }
@@ -506,7 +536,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   tmt::cp_async_wait<0>();
 
-  const size_t c0 = cell(s, h, blockIdx.x, hkv, gridDim.x) * rows;
+  const size_t c0 =
+      cell(s, h, blockIdx.x, hkv, gridDim.x) * (nq * rep) + gr.r0;
 #pragma unroll
   for (int k = 0; k < kAccRows; ++k) {
     const int r = r0 + k * kRowStep;
@@ -568,7 +599,8 @@ template <typename T, int HD>
 cudaError_t launch(const Args& a) {
   constexpr bool kTc = sizeof(T) == 2;
   constexpr size_t smem = kTc ? tc_smem_bytes<HD>() : simt_smem_bytes<HD>();
-  const dim3 grid(n_splits(a), a.hkv, a.s);
+  const int groups = (a.nq * a.rep + kRows - 1) / kRows;
+  const dim3 grid(n_splits(a), a.hkv * groups, a.s);
   const float scale_log2 = a.scale * kLog2e;
   cudaError_t err;
   if constexpr (kTc) {
@@ -634,7 +666,8 @@ extern "C" int tm_paged_attend(const void* q, const void* kp, const void* vp,
                                void* out, int s,
                                int nq, int hkv, int rep, int hd, int bs,
                                int mb, float scale, int dtype, void* stream) {
-  if (nq * rep > kRows || nq * rep < 1) return cudaErrorInvalidValue;
+  if (nq * rep < 1 || hkv * ((nq * rep + kRows - 1) / kRows) > 65535)
+    return cudaErrorInvalidValue;
   const Args a{q, kp, vp, static_cast<const int*>(tables),
                static_cast<const int*>(pos), static_cast<float*>(o_part),
                static_cast<float*>(ml_part), static_cast<int*>(ctas), out, s,

@@ -16,10 +16,10 @@
 // then out = dtype(y * w) with w in x's dtype.
 //
 // Bound: bytes (x read once, w once a row, out written once: 2 bytes an
-// element in bf16); a row of d <= 8192 is 16 KiB, so a decode step's
-// call (8 x 4096) is launch-bound on this card.  The design keeps it
-// simple: one pass over the row for the sum, a second (from L1/L2) to
-// write it.
+// element in bf16); a decode step's call (8 x 4096, 8 KiB a row) is
+// launch-bound on this card.  The design keeps it simple: one pass over
+// the row for the sum, a second (from L1/L2) to write it.  Each thread
+// strides over the row, so any width d runs, in the order above.
 
 #include "common.cuh"
 

@@ -1,8 +1,8 @@
 """Producer-independent augmentation randomness.
 
 A copy of ``theanompi_tpu/models/data/aug_rng.py`` (numpy only).  The
-port has no C++ loader yet (ROADMAP.md A5); the draws stay the native
-loader's so a batch is the same whichever package serves it.
+draws are the C++ loader's (``native/loader.cc``), so a batch is the
+same whichever producer or package serves it.
 
 A batch's crops/flips must be a PURE FUNCTION of
 ``(seed, epoch, position-in-epoch, image-index)`` no matter which

@@ -12,11 +12,13 @@ its imports pointed at the port: pre-batched shard files (one file per
 global batch: ``x`` uint8 [B, H, W, 3], ``y`` int32 [B]) under
 ``$TM_DATA_DIR/imagenet_batches/{train,val}/`` in either format —
 ``.tmb`` (raw, mmap-friendly; ``theanompi_tpu_torch.native``) or
-``.npz`` — with a shuffled file list per epoch, read ahead by a
-background Python prefetch thread.  The JAX package's C++ loader over
-``.tmb`` files (``NativeBatchLoader``) is not ported yet (ROADMAP.md
-A5); its crops are the thread's (``aug_rng``), so the batches are the
-same either way, as they are in the JAX package without a toolchain.
+``.npz`` — with a shuffled file list per epoch, read ahead by the C++
+loader over ``.tmb`` files (``native.NativeBatchLoader``, built with the
+system ``g++`` at first use) or, without a toolchain or for ``.npz``, by
+a background Python prefetch thread.  Both draw their crops from
+``aug_rng``, so the batches are bitwise the same either way.
+``feed`` names the producer that serves the epoch: ``"native"``,
+``"thread"`` or ``"synthetic"``.
 
 The augmentation (random 224 crop from 256 + hflip − mean) matches the
 reference's loader.  Synthetic fallback when no files exist.
@@ -111,6 +113,8 @@ class ImageNetData:
         self._epoch = 0
         self._prefetch: _PrefetchThread | None = None
         self._prefetch_pos = -1  # no prefetch in flight until shuffle()
+        self._native = None  # None=untried, False=unavailable, else loader
+        self.feed = None     # the epoch's producer, set by start_prefetch
 
         root = Path(os.environ.get("TM_DATA_DIR", "/data"))
         bdir = root / "imagenet_batches"
@@ -126,6 +130,7 @@ class ImageNetData:
         self.synthetic = not self._train_files
 
         if self.synthetic:
+            self.feed = "synthetic"
             shape = (crop, crop, 3)
             self._syn = SyntheticClassData(
                 shape,
@@ -235,8 +240,46 @@ class ImageNetData:
 
     # -- async prefetch (proc_load_mpi equivalent) ------------------------
 
+    def _native_loader(self):
+        """Build (once) the C++ loader over .tmb files, or None."""
+        if self._native is False:
+            return None
+        if self._native is None:
+            self._native = False
+            if self._train_files[0].suffix == ".tmb":
+                try:
+                    from theanompi_tpu_torch.native import NativeBatchLoader
+
+                    loader = NativeBatchLoader(
+                        self._train_files,
+                        crop=self.crop,
+                        mean=self._center_mean()[0],
+                        raw_u8=self._u8,
+                        depth=self.prefetch_depth,
+                        seed=self._seed,
+                    )
+                    # same contract as _check_batch on the other paths
+                    if loader.batch_shape[0] != self.global_batch:
+                        raise ValueError(
+                            f"pre-batched files hold "
+                            f"{loader.batch_shape[0]} images but the "
+                            f"configured global batch is "
+                            f"{self.global_batch}; re-shard the files "
+                            f"(write_batch_files) or fix batch_size"
+                        )
+                    self._native = loader
+                except (RuntimeError, OSError):
+                    pass  # no toolchain: thread fallback
+        return self._native or None
+
     def start_prefetch(self, epoch: int) -> None:
         if self.synthetic:
+            return
+        native = self._native_loader()
+        if native is not None:
+            native.set_epoch(epoch, np.asarray(self._file_perm, np.int32))
+            self._prefetch_pos = 0
+            self.feed = "native"
             return
         if self._prefetch is not None:
             self._prefetch.stop()
@@ -245,10 +288,15 @@ class ImageNetData:
         )
         self._prefetch.start()
         self._prefetch_pos = 0
+        self.feed = "thread"
 
     def train_batch(self, i: int):
         if self.synthetic:
             return self._syn.train_batch(i)
+        native = self._native_loader()
+        if native is not None and self._prefetch_pos == i:
+            self._prefetch_pos += 1
+            return native.next()
         if self._prefetch is not None and self._prefetch_pos == i:
             self._prefetch_pos += 1
             return self._prefetch.get()

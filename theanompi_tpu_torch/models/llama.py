@@ -1,5 +1,5 @@
-"""Llama-family decoder transformer at tp = sp = pp = 1, no MoE:
-serving and BSP training.
+"""Llama-family decoder transformer, no MoE: serving at tp >= 1 and BSP
+training at tp = sp = pp = 1.
 
 Port of ``theanompi_tpu/models/llama.py``: the model math (RMSNorm,
 interleaved-pair RoPE with theta 10000, GQA, SwiGLU, untied LM head),
@@ -29,8 +29,17 @@ weights ``[in, out]`` so every product is ``x @ w``.
   streaming feed, with ``loader_pipeline``); loss and error are means
   over the ranks.
 
-tp/sp/pp > 1, MoE and selective remat (``remat_save``) are not ported
-yet (ROADMAP.md).
+- Tensor-parallel serving (``tp > 1`` with a ``ModelGroup``, one
+  process a rank): each rank holds the JAX ``param_specs`` shard of
+  every leaf (:data:`SHARD_AXIS`) — the columns of ``wq``, ``wk``,
+  ``wv``, ``w_gate``, ``w_up`` and ``lm_head``, the rows of ``wo``,
+  ``w_down`` and ``embed`` — so rank r holds query heads
+  ``[r·H/tp, (r+1)·H/tp)`` and kv heads ``[r·Hkv/tp, (r+1)·Hkv/tp)``,
+  GQA's grouping.  Random parameters are drawn in full from the seed
+  and sliced, so every tp serves the same weights.
+
+Training at tp > 1, sp/pp > 1, MoE and selective remat (``remat_save``)
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -58,6 +67,22 @@ from theanompi_tpu_torch.parallel.strategies import (
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
               "w_gate", "w_up", "w_down")
+
+#: the axis each leaf is split along over the model group (the JAX
+#: ``param_specs``' MODEL_AXIS); None: every rank holds it whole
+SHARD_AXIS = {"embed": 0, "lm_head": 1, "final_norm": None,
+              "attn_norm": None, "mlp_norm": None, "wq": 1, "wk": 1,
+              "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0}
+
+
+def shard_leaf(a, name: str, rank: int, tp: int):
+    """Rank ``rank``'s slice of the full leaf ``a`` (numpy or torch) at
+    ``tp`` ranks; the leaf itself at tp = 1 or when it is replicated."""
+    ax = SHARD_AXIS[name]
+    if tp == 1 or ax is None:
+        return a
+    n = a.shape[ax] // tp
+    return a[(slice(None),) * ax + (slice(rank * n, (rank + 1) * n),)]
 
 
 # -- model math ---------------------------------------------------------------
@@ -112,7 +137,7 @@ class Llama(TMModel):
     """Llama: config, parameters and device, for serving and training.
 
     Config knobs read: ``dim, n_layers, n_heads, n_kv_heads, ffn_dim,
-    vocab, seq_len, compute_dtype, seed`` and, for training,
+    vocab, seq_len, compute_dtype, seed, tp`` and, for training,
     ``batch_size`` (per rank), ``n_train, n_val, n_epochs, lr,
     optimizer, weight_decay, remat, xent_chunks, exch_strategy,
     exchange_bucket_mb, lr_schedule, loader_pipeline``.  Serving
@@ -120,11 +145,13 @@ class Llama(TMModel):
     at first use unless ``params`` is given (e.g. from
     :func:`params_from_jax` or a checkpoint); training draws the same
     values in fp32 at ``compile_iter_fns``.  ``device`` defaults to the card;
-    ``device="cpu"`` runs on the CPU.
+    ``device="cpu"`` runs on the CPU.  At ``tp > 1`` (serving only)
+    ``group`` is this rank's ``parallel.mesh.ModelGroup`` of ``tp``
+    ranks and ``params`` its shards.
     """
 
     def __init__(self, config: dict | None = None, device=None, *,
-                 params: dict | None = None):
+                 params: dict | None = None, group=None):
         c = dict(config or {})
         self.config = c
         self.dim = int(c.get("dim", 256))
@@ -145,15 +172,33 @@ class Llama(TMModel):
             raise ValueError(
                 "n_heads must be a multiple of n_kv_heads (GQA groups)"
             )
-        unported = {k: c[k] for k in ("tp", "sp", "pp", "n_experts", "ep")
+        unported = {k: c[k] for k in ("sp", "pp", "n_experts", "ep")
                     if int(c.get(k, 0 if k == "n_experts" else 1))
                     != (0 if k == "n_experts" else 1)}
         if unported:
             raise NotImplementedError(
-                f"the port runs tp=sp=pp=1 without MoE; {unported} is not "
-                f"ported yet (ROADMAP.md A11-A12: tp>1 serving, parallel "
-                f"layouts, MoE)"
+                f"the port runs sp=pp=1 without MoE; {unported} is not "
+                f"ported yet (ROADMAP.md A12: parallel layouts, MoE)"
             )
+        self.tp = int(c.get("tp", 1))
+        self.group = group
+        self.tp_rank = group.rank if group is not None else 0
+        if self.tp > 1:
+            if group is None or group.size != self.tp:
+                raise ValueError(
+                    f"tp={self.tp} serves over a ModelGroup of {self.tp} "
+                    f"ranks (parallel.mesh.ModelGroup.join), got {group}"
+                )
+            for name, n in (("n_heads", self.n_heads),
+                            ("n_kv_heads", self.n_kv_heads),
+                            ("ffn_dim", self.ffn_dim),
+                            ("vocab", self.vocab)):
+                if n % self.tp:
+                    raise ValueError(f"{name} {n} must divide by tp "
+                                     f"{self.tp}")
+        elif group is not None and group.size != 1:
+            raise ValueError(f"a {group.size}-rank group needs tp="
+                             f"{group.size} in the config")
         if c.get("device_data_cache"):
             raise NotImplementedError(
                 "device_data_cache for Llama is not ported yet (ROADMAP.md "
@@ -201,13 +246,15 @@ class Llama(TMModel):
         dev, cd = self.device, dtype or self.compute_dtype
         self.generator.manual_seed(self.seed)
 
-        def normal(shape, scale):
+        def normal(name, shape, scale):
             x = torch.randn(shape, generator=self.generator, device=dev,
                             dtype=torch.float32)
-            return x.mul_(scale).to(cd)
+            x = shard_leaf(x.mul_(scale), name, self.tp_rank, self.tp)
+            return x.to(cd, copy=self.tp > 1)     # no view of the full draw
 
-        def dense(shape):
-            return normal(shape, (2.0 / (shape[0] + shape[-1])) ** 0.5)
+        def dense(name, shape):
+            return normal(name, shape,
+                          (2.0 / (shape[0] + shape[-1])) ** 0.5)
 
         def ones():
             return torch.ones((d,), dtype=cd, device=dev)
@@ -216,20 +263,20 @@ class Llama(TMModel):
         for _ in range(self.n_layers):
             layers.append({
                 "attn_norm": ones(),
-                "wq": dense((d, self.n_heads * hd)),
-                "wk": dense((d, self.n_kv_heads * hd)),
-                "wv": dense((d, self.n_kv_heads * hd)),
-                "wo": dense((self.n_heads * hd, d)),
+                "wq": dense("wq", (d, self.n_heads * hd)),
+                "wk": dense("wk", (d, self.n_kv_heads * hd)),
+                "wv": dense("wv", (d, self.n_kv_heads * hd)),
+                "wo": dense("wo", (self.n_heads * hd, d)),
                 "mlp_norm": ones(),
-                "w_gate": dense((d, f)),
-                "w_up": dense((d, f)),
-                "w_down": dense((f, d)),
+                "w_gate": dense("w_gate", (d, f)),
+                "w_up": dense("w_up", (d, f)),
+                "w_down": dense("w_down", (f, d)),
             })
         return {
-            "embed": normal((v, d), 0.02),
+            "embed": normal("embed", (v, d), 0.02),
             "layers": layers,
             "final_norm": ones(),
-            "lm_head": dense((d, v)),
+            "lm_head": dense("lm_head", (d, v)),
         }
 
     def n_params(self) -> int:
@@ -301,6 +348,11 @@ class Llama(TMModel):
     # -- contract -----------------------------------------------------------
 
     def build_model(self, n_replicas: int = 1) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"training at tp={self.tp} is not ported yet (ROADMAP.md "
+                f"A12: parallel/tp.py training); tp > 1 serves only"
+            )
         self.data = MarkovLMData(
             vocab=self.vocab,
             seq_len=self.seq_len,
@@ -490,16 +542,21 @@ def opt_state_from_jax(tree, config: dict, device=None):
 
 
 def params_from_jax(tree: dict, config: dict, device=None, *,
-                    dtype=None) -> dict:
+                    dtype=None, rank: int = 0, tp: int = 1) -> dict:
     """The port's parameters from a JAX Llama parameter tree given as
     numpy arrays (``jax.device_get(model.params)`` or a checkpoint's
     ``params`` group).  Both packages keep weights ``[in, out]``, so
     this is a copy plus the cast to ``dtype`` (default: the compute
     dtype, as serving holds them; ``torch.float32`` keeps the master
-    weights bitwise); shapes are checked against ``config``."""
+    weights bitwise); shapes are checked against ``config``.  At
+    ``tp > 1`` each full leaf is sliced to rank ``rank``'s shard by the
+    JAX ``param_specs`` (:data:`SHARD_AXIS`), so a tp = 1 checkpoint
+    loads at any tp."""
     dev = resolve_device(device)
     cd = dtype or DTYPES[str(config.get("compute_dtype", "bfloat16"))]
     expect = _shapes_of(config)
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside [0, {tp})")
 
     def conv(a, shape, name):
         a = np.asarray(a)
@@ -507,7 +564,9 @@ def params_from_jax(tree: dict, config: dict, device=None, *,
             raise ValueError(
                 f"param {name}: shape {a.shape}, expected {shape}"
             )
-        return torch.tensor(a).to(device=dev, dtype=cd)
+        a = shard_leaf(a, name.rsplit(".", 1)[-1], rank, tp)
+        return torch.tensor(np.ascontiguousarray(a)).to(device=dev,
+                                                        dtype=cd)
 
     n = len(expect["layers"])
     if len(tree["layers"]) != n:

@@ -8,8 +8,11 @@ torchvision's ``padding=1``.
 
 ``stem_s2d`` is accepted: the JAX package's space-to-depth stem is a TPU
 layout transform of the same convolution, which the plain strided conv
-computes here.  ``stage1_width != 64`` (the JAX package's retired
-MXU-padding experiment) is not ported.
+computes here.  ``stage1_width`` (the JAX package's retired
+MXU-padding experiment: the stem and stage 1's internal convs at that
+width, the residual stream at 256) builds the same network as JAX;
+with zero pads it computes the 64-wide function.  It has no card
+kernel of its own and no reason to be set on this card.
 """
 
 from __future__ import annotations
@@ -40,12 +43,14 @@ _EXPANSION = 4
 
 
 class Bottleneck(Layer):
-    """1x1 -> 3x3(stride) -> 1x1 bottleneck with projection shortcut."""
+    """1x1 -> 3x3(stride) -> 1x1 bottleneck with projection shortcut;
+    ``out_ch`` (default ``ch * 4``) decouples the output width from the
+    internal one, for ``stage1_width``."""
 
-    def __init__(self, ch: int, stride: int = 1):
+    def __init__(self, ch: int, stride: int = 1, out_ch: int | None = None):
         super().__init__()
         self.ch = ch
-        self.out_ch = ch * _EXPANSION
+        self.out_ch = out_ch if out_ch is not None else ch * _EXPANSION
         self.stride = stride
         self.conv1 = Conv(ch, 1, bias=False)
         self.bn1 = BN()
@@ -91,16 +96,13 @@ class ResNet50(ClassifierModel):
         config.setdefault("momentum", 0.9)
         config.setdefault("n_epochs", 90)
         config.setdefault("lr_schedule", {30: 0.01, 60: 1e-3, 80: 1e-4})
-        if int(config.get("stage1_width", 64)) != 64:
-            raise NotImplementedError(
-                f"stage1_width={config['stage1_width']} (the padded stage-1 "
-                f"experiment) is not ported yet (ROADMAP.md A5)"
-            )
         super().__init__(config, device)
 
     def build_model(self, n_replicas: int = 1) -> None:
+        s1w = int(self.config.get("stage1_width", 64))
         layers: list[Layer] = [
-            Conv(64, 7, stride=2, pad=3, bias=False, w_init=initializers.he(),
+            Conv(s1w, 7, stride=2, pad=3, bias=False,
+                 w_init=initializers.he(),
                  s2d=bool(self.config.get("stem_s2d", True))),
             BN(),
             Activation("relu"),
@@ -108,8 +110,9 @@ class ResNet50(ClassifierModel):
         ]
         for stage, (blocks, ch) in enumerate(_STAGES):
             for b in range(blocks):
-                layers.append(Bottleneck(ch, 2 if (stage > 0 and b == 0)
-                                         else 1))
+                stride = 2 if (stage > 0 and b == 0) else 1
+                layers.append(Bottleneck(s1w, stride, out_ch=ch * _EXPANSION)
+                              if stage == 0 else Bottleneck(ch, stride))
         layers += [GlobalAvgPool(),
                    FC(N_CLASSES, w_init=initializers.normal(0.01))]
         self.net = Sequential(layers)

@@ -199,13 +199,64 @@ class Conv(Layer):
         return y
 
 
+def _max_pool(x, size, stride, pad):
+    """Max pooling of NCHW ``x``, 'SAME' padded with -inf as
+    ``lax.reduce_window`` pads."""
+    (pt, pb), (pl, pr) = same_pads(x.shape[2:], size, stride, pad)
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb), value=-math.inf)
+    return F.max_pool2d(x, size, stride)
+
+
+class MaxPoolTieSplit(torch.autograd.Function):
+    """Max pooling with the JAX ``maxpool_tiesplit`` backward
+    (``theanompi_tpu/ops/layers.py:213``): the forward is the max pool;
+    the backward routes ``dy / cnt`` to every element of a window that
+    attains its max, ``cnt`` being how many do, so on ties the gradient
+    is split equally (PyTorch's max-pool backward, like XLA's
+    ``select_and_scatter``, gives it all to one element).  A retired TPU
+    experiment kept for parity: the JAX package measured it slower than
+    the scatter and keeps it opt-in; here it is plain PyTorch (unfold,
+    compare, fold), with ``cnt`` and the share in the input's dtype and
+    the sum over windows in fp32, as the JAX backward rounds."""
+
+    @staticmethod
+    def forward(ctx, x, size, stride, pad):
+        y = _max_pool(x, size, stride, pad)
+        ctx.save_for_backward(x, y)
+        ctx.conf = (size, stride, pad)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y = ctx.saved_tensors
+        size, stride, pad = ctx.conf
+        n, c, h, w = x.shape
+        (pt, pb), (pl, pr) = same_pads(x.shape[2:], size, stride, pad)
+        xp = F.pad(x, (pl, pr, pt, pb), value=-math.inf)
+        kk = size[0] * size[1]
+        cols = F.unfold(xp, size, stride=stride).view(n, c, kk, -1)
+        eq = cols == y.reshape(n, c, 1, -1)
+        cnt = eq.to(x.dtype).sum(2, keepdim=True)
+        share = dy.reshape(n, c, 1, -1).to(x.dtype) / cnt.clamp(min=1)
+        contrib = (share * eq).float().view(n, c * kk, -1)
+        dxp = F.fold(contrib, xp.shape[2:], size, stride=stride)
+        return dxp[:, :, pt:pt + h, pl:pl + w].to(x.dtype), None, None, None
+
+
+def maxpool_tiesplit(x, size, stride, pad):
+    """Max pooling of NCHW ``x`` whose backward splits ties equally (see
+    :class:`MaxPoolTieSplit`); ``size``/``stride`` are pairs."""
+    return MaxPoolTieSplit.apply(x, tuple(size), tuple(stride), pad)
+
+
 class Pool(Layer):
     """Max/avg pooling (reference: ``Pool``; JAX: ``lax.reduce_window``).
 
     'SAME' pads with -inf for max and 0 for avg; avg divides by the full
-    window, padding included, as the JAX layer does.  The scatter-free
-    tie-split max-pool backward (``bwd="tiesplit"``, or ``TM_POOL_BWD``
-    read when the layer is built) is not ported yet."""
+    window, padding included, as the JAX layer does.  ``bwd="tiesplit"``
+    (or ``TM_POOL_BWD=tiesplit``, read when the layer is built) takes the
+    tie-split max-pool backward, :func:`maxpool_tiesplit`."""
 
     def __init__(self, size=2, stride=None, mode: str = "max",
                  pad: str = "VALID", bwd: str | None = None):
@@ -214,13 +265,7 @@ class Pool(Layer):
         if bwd.strip().lower() in ("", "0", "off", "default", "none",
                                    "false"):
             bwd = ""
-        if bwd == "tiesplit":
-            raise NotImplementedError(
-                "Pool(bwd='tiesplit') / TM_POOL_BWD=tiesplit (the "
-                "scatter-free max-pool backward) is not ported yet "
-                "(ROADMAP.md A2)"
-            )
-        if bwd:
+        if bwd not in ("", "tiesplit"):
             raise ValueError(
                 f"unknown Pool bwd {bwd!r} (expected 'tiesplit' or a "
                 f"disable value: ''/'0'/'off'/'default'/'none')"
@@ -232,18 +277,19 @@ class Pool(Layer):
         self.stride = _pair(stride if stride is not None else size)
         self.mode = mode
         self.pad = pad
+        self.bwd = bwd
 
     def init(self, gen, in_shape):
         h, w, c = in_shape
         return (*_out_hw((h, w), self.size, self.stride, self.pad), c)
 
     def forward(self, x, train=False, gen=None):
+        if self.mode == "max":
+            if self.bwd == "tiesplit":
+                return maxpool_tiesplit(x, self.size, self.stride, self.pad)
+            return _max_pool(x, self.size, self.stride, self.pad)
         (pt, pb), (pl, pr) = same_pads(x.shape[2:], self.size, self.stride,
                                        self.pad)
-        if self.mode == "max":
-            if pt or pb or pl or pr:
-                x = F.pad(x, (pl, pr, pt, pb), value=-math.inf)
-            return F.max_pool2d(x, self.size, self.stride)
         if pt or pb or pl or pr:
             x = F.pad(x, (pl, pr, pt, pb))
         return F.avg_pool2d(x, self.size, self.stride)
@@ -318,21 +364,64 @@ class _BNTrain(torch.autograd.Function):
         return dx.to(x.dtype), s_dyx, s_dy, None
 
 
+class _BNTrainAxes(torch.autograd.Function):
+    """``_BNTrain`` over reduction ``axes`` of a channels-last ``x``, the
+    JAX ``_bn_train`` as written: statistics keep the axes not reduced,
+    and broadcast against ``x`` from the right (so the reduced axes
+    are the leading ones, as in every sensible use)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, offset, eps, axes):
+        xf = x.float()
+        mean, var, _ = _bn_stats(xf, axes)
+        r = torch.rsqrt(var + eps)
+        y = (xf - mean) * r * scale + offset
+        ctx.save_for_backward(x, mean, r, scale)
+        ctx.axes = axes
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, r, scale = ctx.saved_tensors
+        axes = ctx.axes
+        n = math.prod(x.shape[a] for a in axes)
+        dyf = dy.float()
+        xhat = (x.float() - mean) * r
+        s_dy = dyf.sum(axes)
+        s_dyx = (dyf * xhat).sum(axes)
+        dx = (scale * r) * (dyf - s_dy / n - xhat * (s_dyx / n))
+        return dx.to(x.dtype), s_dyx, s_dy, None, None
+
+
+def _channels_last(x):
+    """NCHW (or [N, C]) → the JAX layout, channels last."""
+    return x.permute(0, *range(2, x.dim()), 1) if x.dim() > 2 else x
+
+
+def _channels_first(y):
+    return y.permute(0, y.dim() - 1, *range(1, y.dim() - 1)) \
+        if y.dim() > 2 else y
+
+
 class BN(Layer):
     """Batch normalization with running statistics (reference: ``BN``):
     per-channel over every other axis, the running ``mean``/``var``
     buffers updated ``m*old + (1-m)*batch`` with the biased batch
     variance (``nn.BatchNorm2d`` keeps the unbiased one and the reverse
-    momentum).  The JAX layer's ``axis`` (custom reduction axes) is not
-    used by any model of the zoo and is not ported (ROADMAP.md A2)."""
+    momentum).
+
+    ``axis`` (an int or a tuple) names the reduction axes in the JAX
+    layer's channels-last layout (``[N, H, W, C]``, or ``[N, C]``), as
+    the JAX ``BN(axis=…)`` reads them; the layer then normalizes in that
+    layout, and its running statistics take the shape of the axes not
+    reduced, as the JAX state does.  No model of the zoo sets it."""
 
     def __init__(self, momentum: float = 0.9, eps: float = 1e-5, axis=None):
         super().__init__()
-        if axis is not None:
-            raise NotImplementedError(
-                "BN(axis=...) is not ported yet (ROADMAP.md A2)")
         self.momentum = momentum
         self.eps = eps
+        self.axis = (axis,) if isinstance(axis, int) else axis
 
     def init(self, gen, in_shape):
         c = in_shape[-1]
@@ -348,7 +437,25 @@ class BN(Layer):
             return {"scale": (self.scale, None), "offset": (self.offset, None)}
         return {"mean": (self.mean, None), "var": (self.var, None)}
 
+    def _forward_axes(self, x, train):
+        """The ``axis`` path: channels last, the JAX arithmetic."""
+        xj = _channels_last(x)
+        axes = tuple(a % xj.dim() for a in self.axis)
+        if train:
+            y, mean, var = _BNTrainAxes.apply(xj, self.scale, self.offset,
+                                              self.eps, axes)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean = m * self.mean + (1 - m) * mean
+                self.var = m * self.var + (1 - m) * var
+            return _channels_first(y)
+        y = (xj.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+        y = y * self.scale + self.offset
+        return _channels_first(y.to(x.dtype))
+
     def forward(self, x, train=False, gen=None):
+        if self.axis is not None:
+            return self._forward_axes(x, train)
         if train:
             y, mean, var = _BNTrain.apply(x, self.scale, self.offset,
                                           self.eps)

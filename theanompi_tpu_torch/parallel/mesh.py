@@ -12,6 +12,11 @@ The asynchronous rules run W replicas in one process when their
 otherwise: each process is then one worker, its peers found through a
 :class:`KVStore` on the run's ``tcp://host:port`` address.
 
+Tensor-parallel serving joins a :class:`ModelGroup`: one process a
+rank, a device group for the activations' collectives (NCCL, one card a
+rank; gloo only when the caller asks, e.g. for two ranks on one card)
+and a CPU gloo group for the small headers rank 0 sends its followers.
+
 The card is the default: the CPU is used only when a caller asks for
 it, and a missing card is an error rather than a quiet fall back to
 the CPU.
@@ -20,6 +25,7 @@ the CPU.
 from __future__ import annotations
 
 import datetime
+from dataclasses import dataclass
 from urllib.parse import urlparse
 
 import torch
@@ -161,14 +167,28 @@ class KVStore:
 
 
 def init_group(device: torch.device, rank: int = 0, world_size: int = 1,
-               init_method: str | None = None) -> bool:
+               init_method: str | None = None, *,
+               backend: str | None = None) -> bool:
     """Join (or create) the default process group for ``device``.
     Returns True when this call created it (the caller then destroys
     it with :func:`destroy_group`); an existing group is kept when its
     backend, rank and size agree, and is an error otherwise.  A
     one-rank group needs no address (an in-memory store); a larger one
-    takes ``init_method`` (``tcp://localhost:<port>``)."""
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    takes ``init_method`` (``tcp://localhost:<port>``).
+
+    ``backend``: ``"nccl"`` (the default for a CUDA device) or
+    ``"gloo"`` (the default for the CPU; on a card only when asked,
+    e.g. for ranks that share one card, which NCCL refuses).  Under
+    NCCL, ranks that name the same card are an error, raised on every
+    rank before the group is made."""
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got "
+                         f"{backend!r}")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"the nccl backend needs a CUDA device, got "
+                         f"{device}")
     if dist.is_initialized():
         have = (dist.get_backend(), dist.get_rank(), dist.get_world_size())
         if have != (backend, rank, world_size):
@@ -181,7 +201,8 @@ def init_group(device: torch.device, rank: int = 0, world_size: int = 1,
     kw = {}
     if device.type == "cuda":
         torch.cuda.set_device(device)
-        kw["device_id"] = device
+        if backend == "nccl":
+            kw["device_id"] = device
     if world_size == 1 and init_method is None:
         kw["store"] = dist.HashStore()
     elif init_method is None:
@@ -189,10 +210,51 @@ def init_group(device: torch.device, rank: int = 0, world_size: int = 1,
             f"a {world_size}-rank group needs init_method "
             f"(tcp://localhost:<port>)"
         )
+    elif backend == "nccl":
+        kw["store"] = _distinct_cards(device, rank, world_size, init_method)
     else:
         kw["init_method"] = init_method
     dist.init_process_group(backend, rank=rank, world_size=world_size, **kw)
     return True
+
+
+def _distinct_cards(device, rank, world_size, init_method):
+    """The rendezvous store of ``init_method``, after every rank has
+    posted its card's UUID: raises on each rank when two ranks name one
+    card (NCCL would refuse them later and less clearly)."""
+    store, _, _ = next(dist.rendezvous(init_method, rank, world_size))
+    uuid = str(torch.cuda.get_device_properties(device).uuid)
+    store.set(f"tm_card_{rank}", uuid)
+    cards = [store.get(f"tm_card_{r}").decode() for r in range(world_size)]
+    if len(set(cards)) < world_size:
+        raise ValueError(
+            f"ranks {cards} share a card under nccl, which takes one card "
+            f"a rank; pass backend='gloo' to run several ranks on one card"
+        )
+    return store
+
+
+@dataclass
+class ModelGroup:
+    """One rank's view of a tensor-parallel model group: its ``rank``
+    and the group's ``size``, ``device_group`` for the activations'
+    collectives (the default process group: NCCL, or gloo when asked)
+    and ``cpu_group``, a gloo group for host headers."""
+
+    rank: int
+    size: int
+    device_group: object
+    cpu_group: object
+
+    @classmethod
+    def join(cls, device, rank: int, size: int, init_method: str, *,
+             backend: str | None = None) -> "ModelGroup":
+        """Create the default group (:func:`init_group`) and the CPU
+        header group; every rank calls this, in the same order."""
+        init_group(torch.device(device), rank, size, init_method,
+                   backend=backend)
+        return cls(rank, size, dist.group.WORLD,
+                   dist.new_group(backend="gloo"))
 
 
 def destroy_group() -> None:

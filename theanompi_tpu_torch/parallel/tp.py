@@ -1,11 +1,27 @@
-"""Tensor-parallel building blocks at tp=1.
+"""Tensor-parallel building blocks.
 
-Port of ``theanompi_tpu/parallel/tp.py`` for serving and training at
-one shard.  The model-axis collectives are identities, so the column-
-and row-parallel products are plain ``x @ w`` and the vocab-sharded
-samplers, losses and metrics act on the full vocab row.  The argmax
-keeps the JAX package's tie-break (lowest id: ``torch.argmax`` returns
-the first maximum).
+Port of ``theanompi_tpu/parallel/tp.py``.  The JAX functions run inside
+``shard_map`` and reduce over the ``model`` mesh axis; here each rank
+is a process and the model axis is a :class:`~theanompi_tpu_torch.
+parallel.mesh.ModelGroup` passed as ``group``.  With ``group=None``
+(tp = 1) the collectives are identities and every function is the
+plain one-shard expression: the column- and row-parallel products are
+``x @ w`` and the samplers act on the full vocab row.  With a group
+(serving at tp > 1; training keeps tp = 1):
+
+- :func:`row_parallel` sums the ranks' partial products in the compute
+  dtype (``lax.psum(x @ w.astype(x.dtype))``);
+- :func:`embed_lookup` reads the rank's rows of the vocab-sharded table
+  (misses give zeros) and sums them;
+- :func:`sharded_argmax` takes the MAX of the ranks' maxima, then the
+  MIN of the global ids that reach it, so ties go to the lowest global
+  id within and across shards: tp = 1 and tp = 2 pick the same token;
+- :func:`sharded_sample` draws the Gumbel noise for the FULL vocab from
+  the row's generator and keeps the rank's columns, so sampled ids do
+  not depend on tp.
+
+The argmax keeps the JAX package's tie-break (lowest id:
+``torch.argmax`` returns the first maximum).
 
 The two fused LM heads (``chunked_unembed_xent``, ``dense_unembed_xent``)
 are ``torch.autograd.Function``s with the JAX custom VJPs' manual
@@ -22,32 +38,61 @@ These are not ``jax.random``'s bits and are not meant to be.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 _MASK64 = (1 << 64) - 1
 
 
+def _all_reduce(t, group, op=dist.ReduceOp.SUM):
+    dist.all_reduce(t, op=op, group=group.device_group)
+    return t
+
+
+def vocab_shard_info(vocab: int, group=None) -> tuple[int, int]:
+    """(local vocab size, first global id) of this rank's shard."""
+    if group is None:
+        return vocab, 0
+    v_loc = vocab // group.size
+    return v_loc, group.rank * v_loc
+
+
 def col_parallel(x, w):
-    """[..., D] x [D, F] -> [..., F]."""
+    """[..., D] x [D, F/tp] -> [..., F/tp]; no communication."""
     return x @ w.to(x.dtype)
 
 
-def row_parallel(x, w):
-    """[..., F] x [F, D] -> [..., D] (the psum of one shard)."""
-    return x @ w.to(x.dtype)
+def row_parallel(x, w, group=None):
+    """[..., F/tp] x [F/tp, D] -> [..., D]: the partial product, summed
+    over the model group in the compute dtype."""
+    y = x @ w.to(x.dtype)
+    return y if group is None else _all_reduce(y, group)
 
 
-def embed_lookup(ids, table, vocab: int):
-    """Embedding rows for ``ids``; ids outside [0, vocab) give zero
-    vectors, as the sharded lookup's misses do."""
-    hit = (ids >= 0) & (ids < vocab)
-    safe = ids.clamp(0, vocab - 1).long()
-    return table[safe] * hit[..., None].to(table.dtype)
+def embed_lookup(ids, table, vocab: int, group=None):
+    """Embedding rows for global ``ids`` from this rank's rows of the
+    vocab-sharded ``table`` [V/tp, D]; ids outside the shard (or outside
+    [0, vocab)) give zero vectors, and the sum over the group assembles
+    the full vectors."""
+    v_loc, off = vocab_shard_info(vocab, group)
+    local = ids - off
+    hit = (local >= 0) & (local < v_loc)
+    safe = local.clamp(0, v_loc - 1).long()
+    vecs = table[safe] * hit[..., None].to(table.dtype)
+    return vecs if group is None else _all_reduce(vecs, group)
 
 
-def sharded_argmax(score, vocab: int):
-    """Argmax over the vocab row [..., V]; ties break to the lowest id."""
-    del vocab
-    return torch.argmax(score, dim=-1)
+def sharded_argmax(score, vocab: int, group=None):
+    """Global argmax over a vocab-sharded score row [..., V/tp]; ties
+    break to the lowest global id, within a shard and across shards."""
+    if group is None:
+        return torch.argmax(score, dim=-1)
+    v_loc, off = vocab_shard_info(vocab, group)
+    loc_max = score.amax(dim=-1)
+    loc_arg = torch.argmax(score, dim=-1) + off
+    gmax = _all_reduce(loc_max.clone(), group, dist.ReduceOp.MAX)
+    cand = torch.where(loc_max >= gmax, loc_arg,
+                       torch.full_like(loc_arg, vocab))
+    return _all_reduce(cand, group, dist.ReduceOp.MIN)
 
 
 def fold_seed(seed: int, data: int) -> int:
@@ -68,17 +113,22 @@ def gumbel(seed: int, n: int, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def sharded_sample(logits, vocab: int, seeds, temperature):
-    """One token id per row from logits [N, V].  ``seeds``: N host
-    ints, one per row, already folded with the row's position;
-    ``temperature`` [N] f32.  Rows at temperature <= 0 decode greedily;
-    the rest take ``argmax(logits / T + g)`` with Gumbel noise g, an
-    exact draw from ``softmax(logits / T)``."""
+def sharded_sample(logits, vocab: int, seeds, temperature, group=None):
+    """One token id per row from vocab-sharded logits [N, V/tp].
+    ``seeds``: N host ints, one per row, already folded with the row's
+    position; ``temperature`` [N] f32.  Rows at temperature <= 0 decode
+    greedily; the rest take ``argmax(logits / T + g)`` with Gumbel noise
+    g, an exact draw from ``softmax(logits / T)``.  The noise is drawn
+    for the full vocab and sliced to this rank's columns, so the ids
+    are the same at any tp."""
+    v_loc, off = vocab_shard_info(vocab, group)
     x = logits.float()
     g = torch.stack([gumbel(s, vocab, x.device) for s in seeds])
+    if group is not None:
+        g = g[:, off:off + v_loc]
     t = temperature.clamp_min(1e-6)[:, None]
     score = torch.where(temperature[:, None] > 0.0, x / t + g, x)
-    return sharded_argmax(score, vocab)
+    return sharded_argmax(score, vocab, group)
 
 
 # -- losses and metrics over the vocab row -------------------------------------

@@ -2,7 +2,7 @@
 (port of ``theanompi_tpu/serving/autoscaler.py``, copied with the
 port's imports; the spawn factory returns a started replica, whose
 engine the factory builds — so an engine a replica cannot run, such as
-a verify window past kernel K4's row limit, is refused at the spawn)
+speculation over a v1 decoder, is refused at the spawn)
 — "traffic decides the fleet, not a flag".
 
 The router and replicas are the fleet's data plane (failover

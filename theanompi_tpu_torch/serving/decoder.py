@@ -1,5 +1,6 @@
 """Model layer of the serving engine: GQA KV-cache decode for
-``models/llama.py`` at one card and tp=1.
+``models/llama.py``, at one rank or tensor-parallel over a model
+group.
 
 Port of ``theanompi_tpu/serving/decoder.py``.  Two cache organisations:
 
@@ -36,15 +37,32 @@ same ids as decoded alone; a prefix-cache hit gives the same ids as a
 cold prefill.  Sampling at temperature > 0 seeds each token's Gumbel
 draw with (request seed, position) — see ``parallel/tp.py``.
 
-Not ported yet (ROADMAP.md): tp > 1.
+**tp > 1.**  The JAX decoder is one controller over a mesh whose model
+axis splits the heads, the FFN and the vocab (caches ``P(None,
+MODEL_AXIS, None, None)``).  Here each rank is a process holding its
+shards (``models/llama.py``), and its decoder holds the caches of its
+local kv heads ``Hkv/tp``: K1 and K4 run on the local heads, the
+row-parallel products, the embedding and the samplers reduce over the
+model group (``parallel/tp.py``).  Rank 0 owns the engine, the block
+manager and the prefix cache; each public call (``prefill``,
+``decode``, ``verify``, ``copy_block``, ``export_blocks``,
+``import_blocks``, ``close``) first broadcasts a header — the call's
+name and host arguments — on the group's CPU gloo group to the ranks
+>= 1, which sit in :meth:`LlamaDecoder.follow` and run the same body on
+their shards.  The engine, router and autoscaler see rank 0's decoder
+only.  ``export_blocks``/``import_blocks`` use the GLOBAL kv-head
+layout ``[n, Hkv, bs, hd]``, so a handoff exported at one tp imports
+at any other.
 """
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from theanompi_tpu_torch.models.llama import (
@@ -64,6 +82,20 @@ from theanompi_tpu_torch.serving.paged_attention import (
     paged_attend,
 )
 from theanompi_tpu_torch.serving.prefix_cache import PrefixCache
+
+
+def _collective(fn):
+    """A public decoder call that every rank of the model group runs:
+    on rank 0 of a tp > 1 group it first broadcasts its name and
+    arguments to the followers (:meth:`LlamaDecoder.follow`)."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        g = self._group
+        if g is not None and g.rank == 0:
+            dist.broadcast_object_list([(fn.__name__, args, kwargs)], src=0,
+                                       group=g.cpu_group)
+        return fn(self, *args, **kwargs)
+    return call
 
 
 def default_prefill_buckets(max_prefill: int, base: int = 16) -> tuple:
@@ -102,7 +134,7 @@ class LlamaDecoder:
                 f"largest prefill bucket {self.prefill_buckets[-1]} must "
                 f"equal max_prefill {self.max_prefill}"
             )
-        shape = (self.max_slots, model.n_kv_heads, self.max_seq, self._hd)
+        shape = (self.max_slots, self._hkv, self.max_seq, self._hd)
         self.cache = self._zeros_cache(shape)
 
     def _init_common(self, model: Llama, max_slots, max_seq) -> None:
@@ -115,8 +147,11 @@ class LlamaDecoder:
         # decode appends one position past the prompt per token, so
         # the longest servable prompt leaves room for >= 1 new token
         self.max_prefill = self.max_seq - 1
-        self._h = model.n_heads
-        self._hkv = model.n_kv_heads
+        # this rank's heads: all of them at tp = 1
+        self._group = model.group if model.tp > 1 else None
+        self._tp = model.tp
+        self._h = model.n_heads // model.tp
+        self._hkv = model.n_kv_heads // model.tp
         self._rep = self._h // self._hkv
         self._hd = model.head_dim
         self._cdtype = model.compute_dtype
@@ -134,13 +169,37 @@ class LlamaDecoder:
     def _tensor(self, a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
+    # -- the model group -------------------------------------------------
+
+    def follow(self) -> None:
+        """A follower rank's loop (tp > 1, rank >= 1): receive each
+        header rank 0 broadcasts and run the call's body on this rank's
+        shards, until ``close``."""
+        g = self._group
+        if g is None or g.rank == 0:
+            raise ValueError("follow() runs on ranks >= 1 of a tp > 1 "
+                             "model group")
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=g.cpu_group)
+            name, args, kwargs = box[0]
+            if name == "close":
+                return
+            getattr(type(self), name).__wrapped__(self, *args, **kwargs)
+
+    @_collective
+    def close(self) -> None:
+        """Release the followers from :meth:`follow` (rank 0 of a tp > 1
+        group; a no-op at tp = 1)."""
+
     # -- device bodies ---------------------------------------------------
 
     def _mlp(self, p, x):
         xn = rms_norm_rows(x, p["mlp_norm"])
         gate = F.silu(tp_lib.col_parallel(xn, p["w_gate"]))
         up = tp_lib.col_parallel(xn, p["w_up"])
-        return x + tp_lib.row_parallel(gate * up, p["w_down"]).to(x.dtype)
+        return x + tp_lib.row_parallel(gate * up, p["w_down"],
+                                       self._group).to(x.dtype)
 
     def _qkv(self, p, x, n):
         """Normed input projected to q [n, H, hd], k/v [n, Hkv, hd]."""
@@ -161,9 +220,11 @@ class LlamaDecoder:
         batched and single-request decodes draw identical noise.
         ``seeds``/``pos`` are host sequences, ``temps`` [N] f32."""
         if greedy:
-            return tp_lib.sharded_argmax(logits.float(), self.model.vocab)
+            return tp_lib.sharded_argmax(logits.float(), self.model.vocab,
+                                         self._group)
         folded = [tp_lib.fold_seed(s, int(p) + 1) for s, p in zip(seeds, pos)]
-        return tp_lib.sharded_sample(logits, self.model.vocab, folded, temps)
+        return tp_lib.sharded_sample(logits, self.model.vocab, folded, temps,
+                                     self._group)
 
     def _decode_body(self, tokens, lengths, seeds, host_lengths, temps,
                      greedy: bool):
@@ -172,7 +233,8 @@ class LlamaDecoder:
         -> next tokens [S]."""
         m = self.model
         s, hd, rep = self.max_slots, self._hd, self._rep
-        x = tp_lib.embed_lookup(tokens, m.params["embed"], m.vocab).to(
+        x = tp_lib.embed_lookup(tokens, m.params["embed"], m.vocab,
+                                self._group).to(
             self._cdtype)                                         # [S, D]
         pos = lengths                          # write position per slot
         rows = torch.arange(s, device=self.device)
@@ -195,7 +257,8 @@ class LlamaDecoder:
             o = torch.einsum(
                 "skrt,sktd->skrd", probs.to(self._cdtype), cache["v"]
             ).reshape(s, self._h * hd)
-            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = x + tp_lib.row_parallel(o, p["wo"], self._group).to(
+                self._cdtype)
             x = self._mlp(p, x)
         return self._sample(self._logits(x), seeds, host_lengths, temps,
                             greedy)
@@ -210,7 +273,8 @@ class LlamaDecoder:
         m = self.model
         hd, rep = self._hd, self._rep
         t = ids.shape[0]
-        x = tp_lib.embed_lookup(ids[None, :], m.params["embed"], m.vocab).to(
+        x = tp_lib.embed_lookup(ids[None, :], m.params["embed"], m.vocab,
+                                self._group).to(
             self._cdtype)                                      # [1, t, D]
         pos = torch.arange(t, device=self.device)
         for cache, p in zip(self.cache, m.params["layers"]):
@@ -226,7 +290,7 @@ class LlamaDecoder:
                 k = k.repeat_interleave(rep, dim=1)
                 v = v.repeat_interleave(rep, dim=1)
             o = flash_attention(q, k, v, causal=True)
-            x = x + tp_lib.row_parallel(_unheads(o), p["wo"]).to(
+            x = x + tp_lib.row_parallel(_unheads(o), p["wo"], self._group).to(
                 self._cdtype)
             x = self._mlp(p, x)
         # only the last prompt token's logits matter
@@ -249,6 +313,7 @@ class LlamaDecoder:
                 return b
         raise AssertionError("unreachable: last bucket == max_prefill")
 
+    @_collective
     @torch.no_grad()
     def prefill(self, slot: int, prompt_ids, seed: int,
                 temperature: float) -> int:
@@ -263,6 +328,7 @@ class LlamaDecoder:
         )
         return int(tok)
 
+    @_collective
     @torch.no_grad()
     def decode(self, tokens, lengths, seeds, temps) -> np.ndarray:
         """One decode step for all slots: host arrays in, host token ids
@@ -276,9 +342,9 @@ class LlamaDecoder:
         return nxt.cpu().numpy()
 
     def kv_cache_bytes(self) -> int:
-        """Device memory the KV cache occupies (all layers)."""
+        """Device memory this rank's KV cache occupies (all layers)."""
         m = self.model
-        return (2 * m.n_layers * self.max_slots * m.n_kv_heads
+        return (2 * m.n_layers * self.max_slots * self._hkv
                 * self.max_seq * self._hd * _itemsize(self._cdtype))
 
 
@@ -332,7 +398,7 @@ class PagedLlamaDecoder(LlamaDecoder):
                 f"prefill_chunk {self.prefill_chunk} outside "
                 f"[1, {self.max_prefill}]"
             )
-        shape = (self.manager.allocator.n_blocks + 1, model.n_kv_heads,
+        shape = (self.manager.allocator.n_blocks + 1, self._hkv,
                  self.block_size, self._hd)
         self.pools = self._zeros_cache(shape)
 
@@ -352,7 +418,8 @@ class PagedLlamaDecoder(LlamaDecoder):
         block and the engine ignores the output)."""
         m = self.model
         s, bs, hd, rep = self.max_slots, self.block_size, self._hd, self._rep
-        x = tp_lib.embed_lookup(tokens, m.params["embed"], m.vocab).to(
+        x = tp_lib.embed_lookup(tokens, m.params["embed"], m.vocab,
+                                self._group).to(
             self._cdtype)                                         # [S, D]
         pos = lengths                          # write position per slot
         rows = torch.arange(s, device=self.device)
@@ -369,7 +436,8 @@ class PagedLlamaDecoder(LlamaDecoder):
                 q.reshape(s, 1, self._hkv, rep, hd), pool["k"], pool["v"],
                 tables, pos_q,
             ).reshape(s, self._h * hd)
-            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = x + tp_lib.row_parallel(o, p["wo"], self._group).to(
+                self._cdtype)
             x = self._mlp(p, x)
         return self._sample(self._logits(x), seeds, host_lengths, temps,
                             greedy)
@@ -399,7 +467,8 @@ class PagedLlamaDecoder(LlamaDecoder):
         bs, hd, rep = self.block_size, self._hd, self._rep
         n = s * kq
         x = tp_lib.embed_lookup(tokens.reshape(n), m.params["embed"],
-                                m.vocab).to(self._cdtype)      # [S*K, D]
+                                m.vocab, self._group).to(
+            self._cdtype)                                      # [S*K, D]
         pos = lengths[:, None] + torch.arange(kq, device=self.device)
         in_range = (torch.arange(kq, device=self.device)[None, :]
                     < n_valid[:, None])
@@ -418,7 +487,8 @@ class PagedLlamaDecoder(LlamaDecoder):
                 q.reshape(s, kq, self._hkv, rep, hd), pool["k"], pool["v"],
                 tables, pos_q,
             ).reshape(n, self._h * hd)
-            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = x + tp_lib.row_parallel(o, p["wo"], self._group).to(
+                self._cdtype)
             x = self._mlp(p, x)
         return self._sample(self._logits(x), np.repeat(seeds, kq), host_pos,
                             temps.repeat_interleave(kq), greedy).reshape(s, kq)
@@ -435,7 +505,8 @@ class PagedLlamaDecoder(LlamaDecoder):
         bs, hd, rep = self.block_size, self._hd, self._rep
         t_pad = self.max_blocks * bs
         c = ids.shape[0]
-        x = tp_lib.embed_lookup(ids, m.params["embed"], m.vocab).to(
+        x = tp_lib.embed_lookup(ids, m.params["embed"], m.vocab,
+                                self._group).to(
             self._cdtype)                                         # [C, D]
         idx = torch.arange(c, device=self.device)
         pos = start + idx
@@ -459,7 +530,8 @@ class PagedLlamaDecoder(LlamaDecoder):
             o = torch.einsum(
                 "ckrt,ktd->ckrd", probs.to(vg.dtype), vg
             ).reshape(c, self._h * hd)
-            x = x + tp_lib.row_parallel(o, p["wo"]).to(self._cdtype)
+            x = x + tp_lib.row_parallel(o, p["wo"], self._group).to(
+                self._cdtype)
             x = self._mlp(p, x)
         # only the chunk's last valid row matters for sampling
         logits = self._logits(x[q_len - 1: q_len])                # [1, V]
@@ -479,6 +551,7 @@ class PagedLlamaDecoder(LlamaDecoder):
             )
         return self.prefill_chunk
 
+    @_collective
     @torch.no_grad()
     def copy_block(self, src: int, dst: int) -> None:
         """Device-side copy of one physical block (all layers, K and V)
@@ -488,6 +561,7 @@ class PagedLlamaDecoder(LlamaDecoder):
             pool["k"][dst] = pool["k"][src]
             pool["v"][dst] = pool["v"][src]
 
+    @_collective
     @torch.no_grad()
     def prefill(self, table_row, chunk_ids, start: int, q_len: int,
                 seed: int, temperature: float):
@@ -507,6 +581,7 @@ class PagedLlamaDecoder(LlamaDecoder):
             self._tensor(temperature, torch.float32), temperature <= 0,
         )
 
+    @_collective
     @torch.no_grad()
     def decode(self, tokens, lengths, seeds, temps, tables=None,
                active=None) -> np.ndarray:
@@ -525,6 +600,7 @@ class PagedLlamaDecoder(LlamaDecoder):
         )
         return nxt.cpu().numpy()
 
+    @_collective
     @torch.no_grad()
     def verify(self, tokens, lengths, seeds, temps, tables,
                n_valid) -> np.ndarray:
@@ -548,12 +624,15 @@ class PagedLlamaDecoder(LlamaDecoder):
 
     # -- KV handoff (serving/kv_transfer.py) ----------------------------------
 
+    @_collective
     @torch.no_grad()
-    def export_blocks(self, block_ids) -> list[dict]:
+    def export_blocks(self, block_ids) -> list[dict] | None:
         """Read ``block_ids``' K/V out of the pools as host numpy arrays,
-        one {k, v} dict per layer of ``[n, Hkv, bs, hd]``: a gather of
-        the pools at the ids, then one device-to-host copy a layer.
-        fp32 pools give ``float32`` arrays; bf16 pools give the bits as
+        one {k, v} dict per layer of ``[n, Hkv, bs, hd]`` with the GLOBAL
+        kv-head dim: a gather of the pools at the ids, then one
+        device-to-host copy a layer; at tp > 1 the followers' heads
+        reach rank 0 over the CPU group (followers return None).  fp32
+        pools give ``float32`` arrays; bf16 pools give the bits as
         ``uint16`` (numpy has no bfloat16)."""
         n = len(block_ids)
         if not 1 <= n <= self.max_blocks:
@@ -567,27 +646,39 @@ class PagedLlamaDecoder(LlamaDecoder):
                 kv = kv.view(torch.int16).numpy().view(np.uint16)
             else:
                 kv = kv.numpy()
-            out.append({"k": kv[0], "v": kv[1]})
-        return out
+            out.append(kv)
+        g = self._group
+        if g is not None:
+            shards = [None] * g.size if g.rank == 0 else None
+            dist.gather_object(out, shards, dst=0, group=g.cpu_group)
+            if g.rank != 0:
+                return None
+            out = [np.concatenate(layer, axis=2) for layer in zip(*shards)]
+        return [{"k": kv[0], "v": kv[1]} for kv in out]
 
+    @_collective
     @torch.no_grad()
     def import_blocks(self, layers: list[dict], block_ids) -> None:
-        """Write exported K/V rows into this decoder's pools at
-        ``block_ids`` (freshly allocated by the caller): one
+        """Write exported K/V rows (GLOBAL kv heads ``[n, Hkv, bs,
+        hd]``) into this decoder's pools at ``block_ids`` (freshly
+        allocated by the caller), each rank its own heads: one
         host-to-device copy a layer, then a scatter.  A bf16 pool takes
         2-byte elements as bfloat16 bits (the ``uint16`` views
         ``export_blocks`` gives)."""
         n = len(block_ids)
-        shape = (n, self._hkv, self.block_size, self._hd)
+        shape = (n, self.model.n_kv_heads, self.block_size, self._hd)
         if len(layers) != self.model.n_layers:
             raise ValueError(f"{len(layers)} layers of K/V for a "
                              f"{self.model.n_layers}-layer decoder")
+        heads = slice(self.model.tp_rank * self._hkv,
+                      (self.model.tp_rank + 1) * self._hkv)
         bids = self._tensor(block_ids)
         for pool, lkv in zip(self.pools, layers):
             kv = np.stack([np.asarray(lkv["k"]), np.asarray(lkv["v"])])
             if kv.shape[1:] != shape:
                 raise ValueError(f"K/V rows of shape {kv.shape[1:]}, "
                                  f"want {shape}")
+            kv = np.ascontiguousarray(kv[:, :, heads])
             if self._cdtype == torch.bfloat16:
                 if kv.dtype.itemsize != 2:
                     raise TypeError(f"a bfloat16 pool takes 2-byte bits, "
@@ -606,24 +697,29 @@ class PagedLlamaDecoder(LlamaDecoder):
     # -- accounting -----------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Device memory the block pools occupy (trash block included)."""
+        """Device memory this rank's block pools occupy (trash block
+        included)."""
         m = self.model
         return (2 * m.n_layers * (self.manager.allocator.n_blocks + 1)
-                * m.n_kv_heads * self.block_size * self._hd
+                * self._hkv * self.block_size * self._hd
                 * _itemsize(self._cdtype))
 
 
 def decoder_from_checkpoint(config: dict, directory: str, *, device=None,
-                            paged: bool = False,
+                            paged: bool = False, group=None,
                             **decoder_kw) -> LlamaDecoder:
     """The train → checkpoint → serve path: read the newest JAX npz
     checkpoint under ``directory`` whose digests verify, build a
     ``Llama`` from its ``params`` group and wrap it in a decoder
-    (``paged=True`` → :class:`PagedLlamaDecoder`)."""
+    (``paged=True`` → :class:`PagedLlamaDecoder`).  At ``config["tp"]
+    > 1``, ``group`` is this rank's ``ModelGroup`` and each rank loads
+    its shards of the (full, tp-free) checkpoint."""
     from theanompi_tpu_torch.utils.checkpoint import load_latest_params
 
     tree = load_latest_params(Path(directory))
-    params = params_from_jax(tree, config, device)
-    model = Llama(config, device, params=params)
+    rank = group.rank if group is not None else 0
+    params = params_from_jax(tree, config, device, rank=rank,
+                             tp=int(config.get("tp", 1)))
+    model = Llama(config, device, params=params, group=group)
     cls = PagedLlamaDecoder if paged else LlamaDecoder
     return cls(model, **decoder_kw)

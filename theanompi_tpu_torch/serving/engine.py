@@ -57,7 +57,6 @@ from theanompi_tpu_torch.obs.tracer import Tracer, child_context, force_sample
 from theanompi_tpu_torch.serving import kv_transfer
 from theanompi_tpu_torch.serving.blocks import OutOfBlocks
 from theanompi_tpu_torch.serving.decoder import LlamaDecoder
-from theanompi_tpu_torch.serving.paged_attention import MAX_KERNEL_ROWS
 from theanompi_tpu_torch.serving.speculation import NGramDrafter
 from theanompi_tpu_torch.serving.tokenize import TokenizeService
 from theanompi_tpu_torch.utils.recorder import ServingRecorder
@@ -246,16 +245,6 @@ class Engine:
                     "decoder only — the verify window's over-provisioned "
                     "KV writes need the trash-block discipline "
                     "(PagedLlamaDecoder); rebuild with paged=True"
-                )
-            rows = self.speculate_k * decoder._rep
-            if decoder.device.type == "cuda" and rows > MAX_KERNEL_ROWS:
-                raise ValueError(
-                    f"speculate_k={self.speculate_k} gives verify windows "
-                    f"of {rows} query rows per (slot, kv head) "
-                    f"(speculate_k x {decoder._rep} query heads per kv "
-                    f"head); kernel K4 takes at most {MAX_KERNEL_ROWS}: "
-                    f"use speculate_k <= "
-                    f"{MAX_KERNEL_ROWS // decoder._rep}"
                 )
         self.drafter = (
             (drafter if drafter is not None else NGramDrafter())

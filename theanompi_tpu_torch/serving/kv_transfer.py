@@ -82,7 +82,9 @@ def build_handoff(decoder, manager, slot: int, n_prompt: int,
 def compatible(decoder, handoff: dict) -> tuple[bool, str]:
     """Can THIS decoder receive ``handoff``?  Returns ``(ok, why)``
     — the engine sheds ``"handoff_failed"`` with ``why`` in the log
-    when not, and the router falls back to a full re-prefill."""
+    when not, and the router falls back to a full re-prefill.  The
+    kv-head count compared is the model's GLOBAL one (a record carries
+    every head whatever the sender's tp), so any tp receives it."""
     if not getattr(decoder, "paged", False):
         return False, "receiver is not a paged decoder"
     missing = [k for k in HANDOFF_FIELDS if k not in handoff]
@@ -119,9 +121,13 @@ def inject_handoff(decoder, manager, slot: int, handoff: dict) -> None:
     """Receive a handoff into ``slot``: the caller has already
     reserved the table (``manager.assign(slot, [], n_blocks)``); this
     scatters the payload into the receiver's pools at the slot's
-    fresh block ids.  After this the slot is exactly what a local
-    prefill of the same prompt would have produced."""
+    fresh block ids (each rank of a tp > 1 receiver keeps its heads of
+    the record's global ones).  After this the slot is exactly what a
+    local prefill of the same prompt would have produced."""
     n = handoff["n_blocks"]
+    if handoff["n_kv_heads"] != decoder.model.n_kv_heads:
+        raise ValueError(f"handoff of {handoff['n_kv_heads']} kv heads "
+                         f"for a model of {decoder.model.n_kv_heads}")
     if manager.n_owned[slot] < n:
         raise ValueError(f"slot {slot} owns {manager.n_owned[slot]} "
                          f"blocks, the handoff needs {n}")

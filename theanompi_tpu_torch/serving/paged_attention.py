@@ -16,8 +16,11 @@ masked softmax attention.  ``paged_attend`` dispatches by device: CPU
 tensors take the reference, CUDA tensors launch the hand-written
 kernels of ``csrc/paged_attend.cu``, which stream the blocks from the
 pools and never build the gathered window: the window is split into
-fixed runs of positions, one CTA each (flash-decoding), and a second
-kernel merges the splits' partial softmax states.
+fixed runs of positions, and the Q * rep query rows of a (slot, kv
+head) into groups of 16, one CTA each (flash-decoding), and a second
+kernel merges the splits' partial softmax states.  Any number of kv
+heads and query rows runs (a tensor-parallel rank passes its local
+heads).
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ import torch
 from theanompi_tpu_torch.ops.attention import KERNEL_DTYPES, NEG_INF
 
 PAGED_HEAD_DIMS = (32, 64, 128)
-MAX_KERNEL_ROWS = 16           # nq * rep: the tensor cores' M dimension
 
 _count_lock = threading.Lock()
 
@@ -103,11 +105,6 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
         raise ValueError(
             f"paged_attend_cuda supports head dims {PAGED_HEAD_DIMS}, "
             f"got {hd}"
-        )
-    if nq * rep > MAX_KERNEL_ROWS:
-        raise ValueError(
-            f"paged_attend_cuda takes at most {MAX_KERNEL_ROWS} query "
-            f"rows per (slot, kv head), got nq*rep = {nq * rep}"
         )
     tensors = (q, k_pool, v_pool, tables, pos)
     if ctas is not None:

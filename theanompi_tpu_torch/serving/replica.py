@@ -48,7 +48,10 @@ Two transports share that loop:
 ``python -m theanompi_tpu_torch.serving.replica --spec-json '{...}'``
 hosts a checkpoint-restored decoder as a replica child (the
 ``serving_fleet`` phase of ``chip_smoke.py`` uses it); it prints
-``REPLICA_READY <port>`` once serving.
+``REPLICA_READY <port>`` once serving.  With ``config["tp"] > 1`` it
+is rank 0 of a tensor-parallel model group: it starts the follower
+ranks as child processes of its own (one per further entry of the
+spec's ``devices``), and only rank 0 serves TCP.
 """
 
 from __future__ import annotations
@@ -695,34 +698,69 @@ def serve_replica_main(argv=None) -> None:
     '{...}'`` — build a checkpoint-restored decoder, host it as a TCP
     replica, print ``REPLICA_READY <port>``, serve until ``shutdown``.
 
-    Spec keys: ``config`` (model dict; the port serves tp = 1),
-    ``checkpoint`` (dir), ``device`` (default: the card, resolved by
+    Spec keys: ``config`` (model dict incl. ``tp``), ``checkpoint``
+    (dir), ``device`` (tp = 1; default: the card, resolved by
     ``parallel.mesh.resolve_device``; ``"cpu"`` for the CPU),
-    ``paged`` (bool), ``decoder`` (decoder kwargs), ``engine`` (Engine
-    kwargs), ``name``/``index``, ``host``/``port``,
+    ``devices`` (tp > 1: one entry a rank, e.g. ``[0, 1]`` or
+    ``["cpu", "cpu"]``), ``backend`` (tp > 1: the device group's,
+    ``"nccl"`` by default on cards; ``"gloo"`` for ranks that share a
+    card), ``paged`` (bool), ``decoder`` (decoder kwargs), ``engine``
+    (Engine kwargs), ``name``/``index``, ``host``/``port``,
     ``role`` (``unified``/``prefill``/``decode``),
     ``trace_sample`` (int, 0 = off — span tracing with this replica's
     name as the Perfetto process lane and its role as the thread
     lane; the router stitches the spans it ships back on Results).
+
+    At tp > 1 this process is rank 0: it starts ranks 1..tp-1 as
+    ``--rank r --init-method tcp://...`` children (killed with it),
+    which load their shards and follow rank 0's decoder calls; it exits
+    when one of them dies first.
     """
     import argparse
     import json
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--spec-json", required=True)
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--init-method", default=None)
     args = ap.parse_args(argv)
     spec = json.loads(args.spec_json)
+    config = dict(spec["config"])
+    tp = int(config.get("tp", 1))
 
     from theanompi_tpu_torch.parallel.mesh import resolve_device
     from theanompi_tpu_torch.serving.decoder import decoder_from_checkpoint
     from theanompi_tpu_torch.utils.recorder import ServingRecorder
 
+    group, followers = None, []
+    if tp > 1:
+        from theanompi_tpu_torch.parallel.mesh import ModelGroup
+
+        devices = list(spec.get("devices") or [])
+        if len(devices) != tp:
+            raise ValueError(f"tp={tp} needs a devices list of {tp} "
+                             f"entries, got {devices}")
+        init = args.init_method
+        if args.rank > 0:
+            _exit_with_parent()
+        else:
+            init = f"tcp://127.0.0.1:{_free_port()}"
+            followers = [_start_follower(args.spec_json, r, init)
+                         for r in range(1, tp)]
+            released = _exit_with_followers(followers)
+        device = resolve_device(devices[args.rank])
+        group = ModelGroup.join(device, args.rank, tp, init,
+                                backend=spec.get("backend"))
+    else:
+        device = resolve_device(spec.get("device"))
     dec = decoder_from_checkpoint(
-        dict(spec["config"]), spec["checkpoint"],
-        device=resolve_device(spec.get("device")),
-        paged=bool(spec.get("paged", False)),
+        config, spec["checkpoint"], device=device,
+        paged=bool(spec.get("paged", False)), group=group,
         **dict(spec.get("decoder", {})),
     )
+    if args.rank > 0:
+        dec.follow()
+        return
     index = int(spec.get("index", 0))
     tracer = None
     if int(spec.get("trace_sample", 0)) > 0:
@@ -746,6 +784,64 @@ def serve_replica_main(argv=None) -> None:
     ).start()
     print(f"REPLICA_READY {srv.address[1]}", flush=True)
     srv.wait()
+    if followers:
+        released.set()
+        dec.close()                  # releases the followers' loops
+        for proc in followers:
+            proc.wait(timeout=60)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_follower(spec_json: str, rank: int, init_method: str):
+    """Follower rank ``rank`` of a tp > 1 replica as a child process
+    (it exits when this process dies: ``_exit_with_parent``)."""
+    import subprocess
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.serving.replica",
+         "--spec-json", spec_json, "--rank", str(rank),
+         "--init-method", init_method],
+    )
+
+
+def _exit_with_parent(interval_s: float = 1.0) -> None:
+    """A follower's watchdog thread: end this process when the replica
+    that started it is gone (its parent changes), so a SIGKILLed
+    replica leaves no rank blocked on a header that never comes."""
+    import os
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(interval_s)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _exit_with_followers(followers, interval_s: float = 1.0):
+    """Rank 0's watchdog thread (tp > 1): end this process when a
+    follower rank exits before it is released (it raised, or was
+    killed), so rank 0 does not block in a collective that rank never
+    joins.  Set the returned event before releasing the followers."""
+    import os
+
+    released = threading.Event()
+
+    def watch():
+        while not released.wait(interval_s):
+            if any(p.poll() is not None for p in followers):
+                os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    return released
 
 
 if __name__ == "__main__":
