@@ -12,11 +12,12 @@ NVIDIA card.
     python3 chip_smoke.py --phases serving_fleet  # router, replicas, ...
     python3 chip_smoke.py --phases serving_tp  # tp = 2 serving, card 0
     python3 chip_smoke.py --phases exchange    # zero1, int8/fp8, .shards
+    python3 chip_smoke.py --phases resilience  # supervisor, drills, elastic
 
 Phases (``--phases`` takes a comma list of kernels, serving,
 serving_ext, serving_fleet, serving_tp, training, exchange, cnn, async,
-async_dist; the card-and-build phase always runs; each phase's seconds
-are printed at the end):
+async_dist, resilience; the card-and-build phase always runs; each
+phase's seconds are printed at the end):
 
 1. card and build — the card's name and power limit from nvidia-smi;
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
@@ -199,7 +200,35 @@ are printed at the end):
    deliveries, and exactly the best-scoring process saved.  These runs
    measure the TCP exchange and the host on one card, not scaling
    across cards;
-11. the kernels line — one JSON object with every kernel's numbers.
+11. resilience — the supervisor, the drills, checkpoint validation and
+   the elastic resume, on the port's BSP worker; the children's K1-K3
+   launches, steps and checkpoint seconds come from the journals their
+   processes keep (``install_journal``: the supervised runs start this
+   script as their worker, which runs the port's
+   ``bsp_worker.worker_main`` inside the journal).  First the drill
+   matrix: the small fp32 model (K1-K3 SIMT) in one
+   ``BSP().init(launch="supervised")`` from an
+   init checkpoint, ``TM_FAULT_AT`` = ``RES_DRILLS`` (die, hang,
+   sigterm, corrupt_ckpt, each after a committed checkpoint; an 8 s
+   watchdog for the hang): each restart's cause, exit code and
+   ``resumed_from`` asserted, ``ckpt_3.npz`` quarantined as
+   ``*.corrupt``, the 15 losses bitwise an unsupervised run's from the
+   same init, each restart's time to recovery and the MTTR printed.
+   Then graceful preemption at Llama-3-8B widths (bf16, ``RES_LAYERS``
+   deep, K1-K3 on the tensor cores): one supervised launch, a sigterm
+   after step 2, the preemption checkpoint stamped ``next_iter`` 3 and
+   the relaunch resumed there: 3 steps a life (none lost or repeated),
+   losses bitwise an uninterrupted run's, K1/K2/K3 launches 26/12/12;
+   the checkpoint's GiB, the preemption save, the resume (validation and
+   load) and the epoch's save seconds, the time to recovery.  Then the
+   elastic shrink: two ranks on card 0 over gloo (``--resilience-rank
+   r`` children under an elastic ``Supervisor``), the small model under
+   bucketed zero1, ``shrink_world`` in epoch 1: world sizes [2, 1], the
+   ``"global"`` policy's batch 4, the zero1 state resharded, the losses
+   within ``RES_ELASTIC_RTOL`` of a one-rank resume of the same
+   checkpoint, and the preemption agreement's one-element allreduce
+   timed at each world;
+12. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
 Any failure raises and the exit code is not 0.  Without a CUDA device,
@@ -296,6 +325,15 @@ REDUCED = {
     "which stages every collective through the host (a deployment gives "
     "each rank a card and NCCL, which refuses two ranks on one card): "
     "the run has one card",
+    "n_layers (resilience, full width)": "2 (32): one supervised run "
+    "writes, validates and reads back a 17.8 GB fp32 checkpoint (masters "
+    "and Adam moments) at 2 layers, 96.4 GB at 32; the widths are "
+    "Llama-3-8B's",
+    "steps (resilience, full width)": "6, one epoch (the sigterm drill after "
+    "step 2, resumed at step 3): the run's time limit",
+    "ranks (resilience, elastic)": "two processes on card 0 over gloo, "
+    "shrunk to one (a deployment gives each rank a card and NCCL, which "
+    "refuses two ranks on one card): the run has one card",
     "dataset (cnn, native feed)": "8 x 128 train and 2 x 128 val "
     "synthetic 256 x 256 uint8 images written as .tmb files (ImageNet: "
     "1.28 M / 50 k): a cut of the dataset's size, not a width",
@@ -334,7 +372,8 @@ FLEET_LAYERS = 4
 # speculative = one-token equality is asserted
 EXT_LAYERS = 32
 PHASES = ("kernels", "serving", "serving_ext", "serving_fleet",
-          "serving_tp", "training", "exchange", "cnn", "async", "async_dist")
+          "serving_tp", "training", "exchange", "cnn", "async", "async_dist",
+          "resilience")
 
 
 def log(*a):
@@ -4301,6 +4340,473 @@ def run_exchange_phase(dev, n_layers: int, records: dict) -> None:
     log(f"[exchange tcp] arm {time.perf_counter() - t0:.1f} s")
 
 
+# the resilience phase: the supervisor, the drills, checkpoint validation
+# and the elastic resume, on the port's BSP worker
+RES_EPOCHS = 5           # the drill matrix: 3 steps an epoch, small fp32
+# each drill fires after a committed checkpoint: die in epoch 1 (back to
+# ckpt_0), hang in 2 (back to ckpt_1), sigterm in 3 (the preemption
+# checkpoint, resumed inside epoch 3), corrupt_ckpt in 4 (ckpt_3
+# quarantined, back to ckpt_2)
+RES_DRILLS = "1:1:die,2:1:hang,3:0:sigterm,4:1:corrupt_ckpt"
+RES_CAUSES = [("preemption", 137, [0, None]), ("hang", None, [1, None]),
+              ("sigterm", 0, [3, 1]), ("preemption", 137, [2, None])]
+RES_STALL_S = 8.0        # a small model's step and epoch save take < 1 s
+RES_GRACE_S = 120.0      # a life's first beat: start, CUDA, build, step
+RES_LAYERS = 2           # the full-width arm's depth (REDUCED)
+RES_STEPS = 6            # its epoch: sigterm after step 2, resumed at 3
+RES_SIGTERM = "0:2:sigterm"
+RES_WIDE_STALL_S = 600.0  # covers the 17.8 GB epoch-end save
+RES_CHILD_TIMEOUT_S = 600
+RES_SUPERVISE = dict(backoff_base_s=0.1, backoff_cap_s=1.0, seed=0,
+                     poll_interval_s=0.05)
+# the elastic relaunch against a one-rank resume of the same checkpoint:
+# the same one-rank computation on the same card (gloo in the child,
+# NCCL here: a one-rank reduce-scatter and all-gather are copies)
+RES_ELASTIC_RTOL = 1e-6
+
+
+def process_age_s() -> float | None:
+    """Seconds since this process started (Linux ``/proc``), else None."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+        return up - ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def install_journal(directory: str) -> None:
+    """Keep this process's journal, ``<directory>/worker.<pid>.json``,
+    current after every step, restore and save: the steps it ran, the
+    K1/K2/K3 wrappers' launch counts (all, and those on the tensor
+    cores), the resume's seconds (``validate_s``: the checkpoint chosen
+    and hashed; ``load_s``: its restore; ``resume_s`` both), each save's
+    seconds, and the process's age when its model was built and when its
+    first step ended.  A supervised run's lives are processes of their
+    own, some ended by ``os._exit`` (a drill): the journal is how this
+    script reads their launches and checkpoint times.  It wraps the
+    port's functions in this process only."""
+    from theanompi_tpu_torch.models import base
+    from theanompi_tpu_torch.models.llama import Llama
+    from theanompi_tpu_torch.ops import attention as att
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    path = Path(directory) / f"worker.{os.getpid()}.json"
+    rec = {"steps": 0, "validate_s": None, "load_s": None, "resume_s": None,
+           "save_s": [], "age_s": {}}
+
+    def write() -> None:
+        rec["launches"] = {k: [fn.launches, fn.tc_launches] for k, fn in (
+            ("K1", att.flash_fwd_cuda), ("K2", att.flash_bwd_dkv_cuda),
+            ("K3", att.flash_bwd_dq_cuda))}
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(rec))
+        os.replace(tmp, path)
+
+    def wrap(owner, name: str, after) -> None:
+        fn = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            after(time.perf_counter() - t0)
+            write()
+            return out
+
+        setattr(owner, name, timed)
+
+    def step(_dt: float) -> None:
+        rec["steps"] += 1
+        if rec["steps"] == 1:
+            rec["age_s"]["first_step"] = process_age_s()
+
+    def loaded(dt: float) -> None:
+        rec["load_s"] = dt
+        rec["resume_s"] = (rec["validate_s"] or 0.0) + dt
+
+    wrap(bsp_worker, "resume_checkpoint",
+         lambda dt: rec.__setitem__("validate_s", dt))
+    wrap(base.TMModel, "load", loaded)
+    wrap(base.TMModel, "save", rec["save_s"].append)
+    wrap(Llama, "build_model",
+         lambda _dt: rec["age_s"].__setitem__("built", process_age_s()))
+    wrap(Llama, "train_iter", step)
+
+
+def journal_worker() -> None:
+    """One process of a supervised arm's run (``journaled_bsp``): the
+    port's ``bsp_worker.worker_main`` (its argv: ``--spec-json``,
+    ``--rank``, ...) under ``install_journal``."""
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    install_journal(os.environ["CHIP_SMOKE_JOURNAL"])
+    bsp_worker.worker_main()
+
+
+def journaled_bsp():
+    """``BSP()`` whose processes start as this script (``journal_worker``)
+    in place of ``python -m theanompi_tpu_torch.workers.bsp_worker``: the
+    same ``worker_main`` and ``run``, with the journal kept."""
+    from theanompi_tpu_torch import BSP
+
+    rule = BSP()
+    rule.worker_module = "chip_smoke"
+    return rule
+
+
+def journals(d: Path) -> list[dict]:
+    """The journals (``install_journal``) a supervised run's processes
+    left in ``d``, oldest process first."""
+    return [json.loads(f.read_text())
+            for f in sorted(d.glob("worker.*.json"),
+                            key=lambda f: f.stat().st_mtime)]
+
+
+def journal_launches(js: list[dict]) -> dict:
+    """K1/K2/K3 launches summed over every process: ``{k: [all, on the
+    tensor cores]}``."""
+    out = {k: [0, 0] for k in ("K1", "K2", "K3")}
+    for j in js:
+        for k, (n, tc) in j["launches"].items():
+            out[k][0] += n
+            out[k][1] += tc
+    return out
+
+
+def supervised_env(**env) -> None:
+    """Set (or, for None, drop) environment variables for the next
+    launch, which copies this process's environment."""
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+
+
+def restarts_line(rep: dict) -> list:
+    return [{k: e[k] for k in ("cause", "exit_code", "resumed_from",
+                               "recovery_s", "backoff_s", "world_size",
+                               "resharded")} for e in rep["restarts"]]
+
+
+def check_restarts(name: str, rep: dict, want: list) -> None:
+    got = [(e["cause"], e["exit_code"], e["resumed_from"])
+           for e in rep["restarts"]]
+    log(f"[{name}] restarts {json.dumps(restarts_line(rep))}, MTTR "
+        f"{rep['mttr_s']} s")
+    if not rep["completed"] or got != want:
+        raise AssertionError(f"{name}: restarts {got}, want {want}")
+
+
+def final_losses(d: Path) -> list:
+    from theanompi_tpu_torch.utils import checkpoint as ckpt
+
+    meta = ckpt.checkpoint_meta(ckpt.latest_checkpoint(d))
+    return meta["recorder"]["train_losses"]
+
+
+def resilience_drills(dev, root: Path, records: dict) -> dict:
+    """Arm 1: the drill matrix on the small fp32 model (K1-K3 SIMT), one
+    rank on card 0, one ``BSP().init(launch="supervised")``; against an
+    unsupervised run from the same init checkpoint."""
+    from theanompi_tpu_torch import BSP
+    from theanompi_tpu_torch.models.llama import save_init_checkpoint
+
+    init, d, ref, jd = (root / n for n in ("init", "drills", "ref",
+                                           "journal"))
+    save_init_checkpoint(TRAIN_SMALL, init)
+    shutil.copytree(init, d)
+    jd.mkdir()
+    supervised_env(TM_FAULT_AT=RES_DRILLS, CHIP_SMOKE_JOURNAL=jd)
+    t0 = time.perf_counter()
+    try:
+        rule = journaled_bsp()
+        rule.init(devices=[dev.index], launch="supervised",
+                  config=TRAIN_SMALL, n_epochs=RES_EPOCHS,
+                  checkpoint_dir=str(d), resume=True, verbose=False,
+                  supervise=dict(RES_SUPERVISE, stall_timeout_s=RES_STALL_S,
+                                 startup_grace_s=RES_GRACE_S), **LLAMA)
+        rep = rule.wait()
+    finally:
+        supervised_env(TM_FAULT_AT=None, CHIP_SMOKE_JOURNAL=None)
+    wall = time.perf_counter() - t0
+    check_restarts("resilience drills", rep, RES_CAUSES)
+    quarantined = sorted(p.name for p in d.glob("*.corrupt"))
+    if "ckpt_3.npz.corrupt" not in quarantined:
+        raise AssertionError(f"resilience drills: quarantined {quarantined}")
+    got = final_losses(d)
+    shutil.copytree(init, ref)
+    rule = BSP()
+    rule.init(devices=[dev.index], launch="inprocess", config=TRAIN_SMALL,
+              n_epochs=RES_EPOCHS, checkpoint_dir=str(ref), resume=True,
+              verbose=False, **LLAMA)
+    want = rule.wait()["recorder"].train_losses
+    js = journals(jd)
+    launches = journal_launches(js)
+    res = {"wall_s": wall, "lives": len(js), "mttr_s": rep["mttr_s"],
+           "recovery_s": [e["recovery_s"] for e in rep["restarts"]],
+           "age_s_by_life": [j["age_s"] for j in js],
+           "quarantined": quarantined, "losses": got,
+           "equal_to_unsupervised": got == want, "launches": launches}
+    log(f"[resilience drills] {json.dumps(res)} on {card_line()}")
+    if len(got) != RES_EPOCHS * 3 or got != want:
+        raise AssertionError(f"resilience drills: losses {got}, the "
+                             f"unsupervised run's {want}")
+    if any(tc for _, tc in launches.values()) or \
+            not all(n for n, _ in launches.values()):
+        raise AssertionError(f"resilience drills: launches {launches} (fp32 "
+                             f"SIMT kernels, each launched)")
+    for k in ("K1", "K2", "K3"):
+        add_launches(records.setdefault(f"{k} fp32", {}),
+                     resilience_drills=launches[k][0])
+    return res
+
+
+def wide_config() -> dict:
+    from theanompi_tpu_torch.models import LLAMA3_8B
+
+    return dict(LLAMA3_8B, n_layers=RES_LAYERS, seq_len=2048, batch_size=2,
+                n_train=RES_STEPS * 2, n_val=2, compute_dtype="bfloat16",
+                optimizer="adam", lr=1e-4, remat=True, xent_chunks="auto",
+                exch_strategy="ici32", seed=0)
+
+
+def resilience_preemption(dev, root: Path, records: dict) -> dict:
+    """Arm 2: graceful preemption at Llama-3-8B widths (bf16, K1-K3 on
+    the tensor cores), ``RES_LAYERS`` deep: one supervised launch, a
+    sigterm drill after step 2, the preemption checkpoint, the relaunch
+    resumed inside the epoch; against an uninterrupted run."""
+    import torch
+
+    from theanompi_tpu_torch import BSP
+
+    cfg = wide_config()
+    d, jd = root / "wide", root / "wide_journal"
+    jd.mkdir()
+    torch.cuda.empty_cache()
+    supervised_env(TM_FAULT_AT=RES_SIGTERM, CHIP_SMOKE_JOURNAL=jd)
+    t0 = time.perf_counter()
+    try:
+        rule = journaled_bsp()
+        rule.init(devices=[dev.index], launch="supervised", config=cfg,
+                  n_epochs=1, checkpoint_dir=str(d), verbose=False,
+                  supervise=dict(RES_SUPERVISE,
+                                 stall_timeout_s=RES_WIDE_STALL_S,
+                                 startup_grace_s=RES_WIDE_STALL_S), **LLAMA)
+        rep = rule.wait()
+    finally:
+        supervised_env(TM_FAULT_AT=None, CHIP_SMOKE_JOURNAL=None)
+    wall = time.perf_counter() - t0
+    nxt = int(RES_SIGTERM.split(":")[1]) + 1
+    check_restarts("resilience preemption", rep, [("sigterm", 0, [0, nxt])])
+    got = final_losses(d)
+    ckpt_gib = sum(f.stat().st_size for f in d.glob("ckpt_*.npz")) / 2**30
+    first, second = journals(jd)
+    launches = journal_launches([first, second])
+    shutil.rmtree(d)
+    out = BSP()
+    out.init(devices=[dev.index], launch="inprocess", config=cfg, n_epochs=1,
+             verbose=False, **LLAMA)
+    want = out.wait()["recorder"].train_losses
+    torch.cuda.empty_cache()
+    res = {"config": {k: cfg[k] for k in ("dim", "n_layers", "n_heads",
+                                          "n_kv_heads", "ffn_dim", "vocab",
+                                          "seq_len", "batch_size")},
+           "wall_s": wall, "ckpt_gib": ckpt_gib,
+           "preemption_save_s": first["save_s"],
+           "resume_s": second["resume_s"],
+           "resume_validate_s": second["validate_s"],
+           "resume_load_s": second["load_s"], "epoch_save_s": second["save_s"],
+           "recovery_s": rep["restarts"][0]["recovery_s"],
+           "age_s_by_life": [first["age_s"], second["age_s"]],
+           "steps_before_after": [first["steps"], second["steps"]],
+           "losses": got, "uninterrupted": want,
+           "equal_to_uninterrupted": got == want, "launches": launches}
+    log(f"[resilience preemption] {json.dumps(res)} on {card_line()}")
+    if res["steps_before_after"] != [nxt, RES_STEPS - nxt]:
+        raise AssertionError(f"resilience preemption: steps a life "
+                             f"{res['steps_before_after']}: a step lost or "
+                             f"repeated")
+    if len(got) != RES_STEPS or got != want:
+        raise AssertionError(f"resilience preemption: losses {got}, the "
+                             f"uninterrupted run's {want}")
+    wl = {"K1": 2 * RES_LAYERS * RES_STEPS + RES_LAYERS,
+          "K2": RES_LAYERS * RES_STEPS, "K3": RES_LAYERS * RES_STEPS}
+    if {k: v for k, v in launches.items()} != {k: [n, n]
+                                                for k, n in wl.items()}:
+        raise AssertionError(f"resilience preemption: launches {launches}, "
+                             f"want {wl} all on the tensor cores")
+    for k in ("K1", "K2", "K3"):
+        add_launches(records.setdefault(k, {}),
+                     resilience_preemption=launches[k][0])
+    return res
+
+
+def elastic_config() -> dict:
+    """The elastic arm's small fp32 model: batch 2 a rank at two ranks
+    (global 4), zero1 over a bucketed layout, so the one-rank relaunch
+    regrids the flat optimizer shards (a real reshard)."""
+    return dict(TRAIN_SMALL, n_train=12, n_val=4, exch_strategy="zero1",
+                exchange_bucket_mb=0.25, elastic=True)
+
+
+def resilience_rank(dev, rank: int, world: int, init: str,
+                    spec: dict) -> None:
+    """One rank of the elastic arm (``--resilience-rank r``): a gloo group
+    on card 0 (NCCL refuses two ranks on one card), the one-element max
+    allreduce of the preemption agreement and its host read timed at
+    this world (the cost a supervised step pays at more than one rank),
+    then the port's BSP worker in that group."""
+    import torch
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    install_journal(os.environ["CHIP_SMOKE_JOURNAL"])
+    init_group(dev, rank, world, init, backend="gloo")
+    try:
+        flag = torch.zeros(1, device=dev)
+        for _ in range(5):
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            flag.item()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            flag.item()
+        flag_ms = (time.perf_counter() - t0) / 50 * 1e3
+        if rank == 0:     # written now: a drill may end this life
+            Path(spec["out"]).with_suffix(".flag").write_text(
+                json.dumps({"world": world, "flag_allreduce_ms": flag_ms}))
+        out = bsp_worker.run(devices=[dev.index] * world, rank=rank,
+                             world_size=world, init_method=init,
+                             config=spec["config"], n_epochs=spec["n_epochs"],
+                             checkpoint_dir=spec["checkpoint_dir"],
+                             resume=spec["resume"], verbose=False, **LLAMA)
+        if rank == 0:
+            Path(spec["out"]).write_text(json.dumps({
+                "world": world, "losses": out["recorder"].train_losses,
+                "elastic_resume": out["elastic_resume"],
+                "resharded": out["resharded"],
+                "resumed_from": out["resumed_from"]}))
+    finally:
+        destroy_group()
+
+
+def resilience_elastic(dev, root: Path, records: dict) -> dict:
+    """Arm 3: two ranks on card 0 over gloo under an elastic supervisor;
+    ``shrink_world`` in epoch 1 takes the world to 1; the relaunch keeps
+    the global batch and reshards the zero1 state; against a one-rank
+    run resumed from a copy of the same checkpoint."""
+    from theanompi_tpu_torch import BSP, launcher
+    from theanompi_tpu_torch.utils.supervisor import Supervisor
+
+    cfg = elastic_config()
+    d, jd, out = root / "elastic", root / "elastic_journal", root / "el"
+    jd.mkdir()
+    out.mkdir()
+
+    def cmd_for(resume: bool, n_devices: int | None = None) -> list:
+        n = int(n_devices or 2)
+        spec = json.dumps({"config": cfg, "n_epochs": 2, "resume": resume,
+                           "checkpoint_dir": str(d),
+                           "out": str(out / f"world{n}.json")})
+        return launcher.rank_group_cmd([
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--resilience-rank",
+             str(r), "--resilience-world", str(n), "--resilience-init",
+             launcher.INIT_METHOD, "--resilience-spec", spec]
+            for r in range(n)])
+
+    supervised_env(TM_FAULT_AT="1:1:shrink_world", CHIP_SMOKE_JOURNAL=jd)
+    t0 = time.perf_counter()
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        rep = Supervisor(cmd_for=cmd_for, checkpoint_dir=str(d), elastic=True,
+                         n_devices=2, env=env, verbose=False,
+                         stall_timeout_s=RES_STALL_S * 3,
+                         startup_grace_s=RES_GRACE_S, **RES_SUPERVISE).run()
+    finally:
+        supervised_env(TM_FAULT_AT=None, CHIP_SMOKE_JOURNAL=None)
+    wall = time.perf_counter() - t0
+    check_restarts("resilience elastic", rep, [("preemption", 137, [0, None])])
+    one = json.loads((out / "world1.json").read_text())
+    ref = root / "elastic_ref"
+    ref.mkdir()
+    shutil.copytree(d / "ckpt_0.shards", ref / "ckpt_0.shards")
+    rule = BSP()
+    rule.init(devices=[dev.index], launch="inprocess", config=cfg,
+              n_epochs=2, checkpoint_dir=str(ref), resume=True,
+              verbose=False, **LLAMA)
+    want = rule.wait()["recorder"].train_losses
+    got = final_losses(d)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    launches = journal_launches(journals(jd))
+    res = {"wall_s": wall, "world_size_history": rep["world_size_history"],
+           "elastic_resume": one["elastic_resume"],
+           "resharded": one["resharded"], "losses": got, "resumed_one_rank":
+           want, "max_rel_diff": rel, "launches": launches,
+           "recovery_s": rep["restarts"][0]["recovery_s"],
+           "flag_allreduce_ms": {
+               n: json.loads((out / f"world{n}.flag").read_text())[
+                   "flag_allreduce_ms"] for n in (2, 1)}}
+    log(f"[resilience elastic] {json.dumps(res)} on {card_line()}")
+    if rep["world_size_history"] != [2, 1]:
+        raise AssertionError(f"resilience elastic: world sizes "
+                             f"{rep['world_size_history']}")
+    note = {"policy": "global", "saved_world": 2, "saved_global": 4,
+            "batch_size": 4}
+    if one["elastic_resume"] != note or not one["resharded"] or \
+            not rep["restarts"][0]["resharded"]:
+        raise AssertionError(f"resilience elastic: note "
+                             f"{one['elastic_resume']}, resharded "
+                             f"{one['resharded']}")
+    if len(got) != len(want) or rel > RES_ELASTIC_RTOL:
+        raise AssertionError(f"resilience elastic: losses {got}, the "
+                             f"one-rank resume's {want}")
+    if any(tc for _, tc in launches.values()) or \
+            not all(n for n, _ in launches.values()):
+        raise AssertionError(f"resilience elastic: launches {launches} (fp32 "
+                             f"SIMT kernels, each launched)")
+    for k in ("K1", "K2", "K3"):
+        add_launches(records.setdefault(f"{k} fp32", {}),
+                     resilience_elastic=launches[k][0])
+    return res
+
+
+def run_resilience_phase(dev, records: dict) -> None:
+    """The resilience phase (module docstring): the drill matrix, graceful
+    preemption at full width, the elastic shrink."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    arms = {}
+    try:
+        for name, arm in (("drills", resilience_drills),
+                          ("preemption", resilience_preemption),
+                          ("elastic", resilience_elastic)):
+            t0 = time.perf_counter()
+            arms[name] = arm(dev, root, records)
+            arms[name]["arm_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("[resilience] " + json.dumps({
+        "arm_s": {k: v["arm_s"] for k, v in arms.items()},
+        "mttr_s": {k: v.get("mttr_s") for k, v in arms.items()},
+        "flag_allreduce_ms_gloo_by_world":
+            arms["elastic"]["flag_allreduce_ms"],
+        "preemption_ckpt_gib": arms["preemption"]["ckpt_gib"],
+        "preemption_save_s": arms["preemption"]["preemption_save_s"],
+        "resume_s": arms["preemption"]["resume_s"]}) + f" on {card_line()}")
+
+
 def ptxas_kernels(report: str) -> list[dict]:
     """Each entry function of an ``nvcc -Xptxas -v`` report: its
     (mangled) name, registers and spill bytes (stores + loads)."""
@@ -4374,7 +4880,7 @@ def parse_args(argv=None):
                     help=f"comma list of {PHASES} (default: all)")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the full-width models (default: 8; "
-                    "32 serving_ext)")
+                    "32 serving_ext, 4 serving_fleet and serving_tp)")
     # rank 1 of the serving_tp phase, started by rank 0
     ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
@@ -4383,6 +4889,20 @@ def parse_args(argv=None):
                     help=argparse.SUPPRESS)
     ap.add_argument("--exchange-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--exchange-dir", default=None, help=argparse.SUPPRESS)
+    # a rank of the resilience phase's elastic arm, started by its
+    # supervisor's rank-group runner
+    ap.add_argument("--resilience-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--resilience-world", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--resilience-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resilience-spec", default=None, help=argparse.SUPPRESS)
+    # a process of the resilience phase's supervised runs
+    # (journal_worker), which bsp_worker.worker_main parses
+    ap.add_argument("--spec-json", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world-size", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
     ns.phases = [p for p in ns.phases.split(",") if p]
     bad = set(ns.phases) - set(PHASES)
@@ -4404,6 +4924,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if ns.spec_json is not None:
+        journal_worker()
+        return 0
     if ns.tp_rank:
         serving_tp_follower(torch.device("cuda", 0), ns.tp_init,
                             ns.layers or TP_LAYERS)
@@ -4411,6 +4934,11 @@ def main(argv=None) -> int:
     if ns.exchange_rank is not None:
         exchange_rank(torch.device("cuda", 0), ns.exchange_rank,
                       ns.exchange_init, ns.exchange_dir)
+        return 0
+    if ns.resilience_rank is not None:
+        resilience_rank(torch.device("cuda", 0), ns.resilience_rank,
+                        ns.resilience_world, ns.resilience_init,
+                        json.loads(ns.resilience_spec))
         return 0
     from theanompi_tpu_torch.kernels import _build
     from theanompi_tpu_torch.models import LLAMA3_8B, Llama
@@ -4609,7 +5137,12 @@ def main(argv=None) -> int:
         # phase 10: EASGD and GoSGD across processes (no TPU kernel on it)
         run_async_dist_phase(dev)
 
-    # phase 11: the kernels line, the card, the result
+    if "resilience" in ns.phases:
+        phase_start("resilience", t_start)
+        # phase 11: the supervisor, the drills, the elastic resume
+        run_resilience_phase(dev, records)
+
+    # phase 12: the kernels line, the card, the result
     log(json.dumps({"kernels": [
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
                              "K3 fp32", "K4", "rms_norm")

@@ -374,11 +374,23 @@ def test_no_producer_thread_outlives_a_failed_run(monkeypatch):
 # -- the knob repairs ---------------------------------------------------------
 
 def test_fault_drills_are_refused_naming_a9(monkeypatch):
-    monkeypatch.setenv("TM_FAULT_AT", "0:3")
-    with pytest.raises(NotImplementedError, match="A9"):
-        wrn_run(n_epochs=1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        WResNet(CFG, device="cpu")
+    """The classifier path runs under a drill list: ``stall_loader`` on
+    the synchronous feed (no producer to stall) leaves the run as it
+    was, and a malformed list is refused before anything is built."""
+    from theanompi_tpu_torch.utils import faults
+
+    monkeypatch.setenv("TM_FAULT_AT", "0:3:stall_loader")
+    faults.reset_fault_cache()
+    try:
+        out = wrn_run(n_epochs=1)
+        assert out["iterations"] == 8 and out["loader"] is None
+        assert WResNet(CFG, device="cpu").config["depth"] == 10
+        monkeypatch.setenv("TM_FAULT_AT", "0:3:melt")
+        faults.reset_fault_cache()
+        with pytest.raises(ValueError, match="TM_FAULT_AT"):
+            wrn_run(n_epochs=1)
+    finally:
+        faults.reset_fault_cache()
 
 
 def test_debug_sync_on_one_rank(monkeypatch, capsys):

@@ -110,10 +110,19 @@ def test_servers_and_clients_cross_the_packages(jm, port_llama, ref_ids,
         assert router.recorder.dispatched["tcp0"] == 3
         # pings carried the server's role and slots
         assert client.role == "unified" and client.slots() == 2
-        # the server's recorder state loads in the client's package
-        state = client.recorder_state()
-        rec = (JaxRecorder if cli_pkg is jax_serving else ServingRecorder)()
-        rec.load_state_dict(state)
+        # the server's recorder state loads in the client's package.
+        # Both engines resolve a request's future before they record its
+        # completion, so the client can read the recorder one completion
+        # short: wait (up to a deadline) for the third, then hold it.
+        deadline = time.monotonic() + 10.0
+        while True:
+            rec = (JaxRecorder if cli_pkg is jax_serving
+                   else ServingRecorder)()
+            rec.load_state_dict(client.recorder_state())
+            if rec.summary()["n_completed"] >= 3 \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
         assert rec.summary()["n_completed"] == 3
         assert "serving_requests_total" in client.metrics_txt()
         # span flight records rode the results: every request's tree

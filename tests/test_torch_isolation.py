@@ -88,7 +88,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "theanompi_tpu_torch.models.base",
             "theanompi_tpu_torch.utils.checkpoint",
             "theanompi_tpu_torch.utils.sharded_checkpoint",
-            "theanompi_tpu_torch.utils.reshard"} <= set(MODULES)
+            "theanompi_tpu_torch.utils.reshard",
+            # resilience: the supervisor, heartbeats and drills
+            "theanompi_tpu_torch.utils.supervisor"} <= set(MODULES)
 
 
 def test_native_loader_source_is_the_ports_own_copy():
@@ -229,7 +231,8 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
      ValueError, "unknown exch_compression"),
     (dict(config=dict(TRAIN, exchange_bucket_mb=-1)), ValueError,
      "exchange_bucket_mb"),
-    (dict(config=dict(TRAIN, elastic=True)), NotImplementedError, "A9"),
+    (dict(config=dict(TRAIN, elastic=True, elastic_batch_policy="all")),
+     ValueError, "elastic_batch_policy"),
     (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
     (dict(config=dict(TRAIN, loader_pipeline=1)), ValueError,
      "at least 2 ring slots"),
@@ -251,24 +254,36 @@ def test_bad_values_fail_before_the_model_is_built(monkeypatch, kwargs,
 
 
 def test_fault_drills_fail_before_the_model_is_built(monkeypatch):
+    """A malformed ``TM_FAULT_AT`` fails before the build; a well-formed
+    drill list goes on to build the model."""
+    from theanompi_tpu_torch.utils import faults
     from theanompi_tpu_torch.workers import bsp_worker
 
     def built(*a, **k):
         raise AssertionError("the model was built")
 
     monkeypatch.setattr(Llama, "build_model", built)
-    monkeypatch.setenv("TM_FAULT_AT", "0:2")
-    with pytest.raises(NotImplementedError, match="A9"):
-        bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
-                       **LLAMA)
+    monkeypatch.setenv("TM_FAULT_AT", "0:2:explode")
+    faults.reset_fault_cache()
+    try:
+        with pytest.raises(ValueError, match="TM_FAULT_AT"):
+            bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
+                           **LLAMA)
+        monkeypatch.setenv("TM_FAULT_AT", "0:2,1:0:sigterm")
+        faults.reset_fault_cache()
+        with pytest.raises(AssertionError, match="the model was built"):
+            bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
+                           **LLAMA)
+    finally:
+        faults.reset_fault_cache()
 
 
 def test_replica_child_needs_the_card_and_builds_under_fault_drills(
         no_cuda, monkeypatch, tmp_path):
     """``serve_replica_main`` resolves its device like every entry point
-    (the card unless the spec says "cpu"); ``TM_FAULT_AT`` stays off
-    the serving path: a decoder builds with a drill in the
-    environment, while training refuses it (A9)."""
+    (the card unless the spec says "cpu"); a decoder builds with a
+    drill in the environment, and so does a training run, whose loop
+    never reaches the replica drill's step."""
     from theanompi_tpu_torch.models.llama import params_to_jax
     from theanompi_tpu_torch.serving.replica import serve_replica_main
     from theanompi_tpu_torch.utils.checkpoint import save_checkpoint
@@ -283,17 +298,23 @@ def test_replica_child_needs_the_card_and_builds_under_fault_drills(
                                   paged=True, max_slots=2, max_seq=16,
                                   block_size=4, prefill_chunk=4)
     assert dec.pools[0]["k"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A9"):
-        from theanompi_tpu_torch.workers import bsp_worker
+    from theanompi_tpu_torch.utils import faults
+    from theanompi_tpu_torch.workers import bsp_worker
 
-        bsp_worker.run(devices=["cpu"], config=TRAIN, verbose=False,
-                       **LLAMA)
+    faults.reset_fault_cache()
+    try:
+        out = bsp_worker.run(devices=["cpu"], config=TRAIN, n_epochs=1,
+                             verbose=False, **LLAMA)
+    finally:
+        faults.reset_fault_cache()
+    assert out["iterations"] == 2 and not out["preempted"]
 
 
-def test_unported_rules_and_modes_raise():
+def test_unported_rules_and_modes_raise(tmp_path):
     """A process of a multi-process async run drives one device: two
-    devices given to it are refused; the supervised mode waits for
-    ROADMAP A9."""
+    devices given to it are refused; a supervised launch needs the
+    checkpoint directory its relaunches resume from, and then holds a
+    supervisor rather than a process."""
     from theanompi_tpu_torch import EASGD, GOSGD, BSP
 
     lstm = dict(modelfile="theanompi_tpu_torch.models.lstm",
@@ -302,7 +323,12 @@ def test_unported_rules_and_modes_raise():
         with pytest.raises(ValueError, match="one process drives one"):
             rule.init(devices=["cpu"] * 2, launch="inprocess", world_size=2,
                       init_method="tcp://localhost:1", **lstm)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="checkpoint_dir"):
         BSP().init(devices=["cpu"], launch="supervised", **LLAMA)
+    rule = BSP()
+    rule.init(devices=["cpu"], launch="supervised",
+              checkpoint_dir=str(tmp_path / "ck"), **LLAMA)
+    assert rule._handle.supervisor is not None
+    assert rule._handle.poll() is None      # no life started yet
     with pytest.raises(RuntimeError, match="init"):
         BSP().wait()

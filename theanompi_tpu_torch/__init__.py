@@ -23,7 +23,11 @@ the same path.  Ported so far:
   ``workers.easgd_worker.run`` / ``workers.gosgd_worker.run`` ->
   ``workers.replica_engine.ReplicaEngine`` (W replicas stacked on one
   device, ``devices=["cpu"] * W`` or ``[0] * W``), exchanging through
-  the ``parallel.exchange`` merges (``elastic_*``, ``gossip_*``).
+  the ``parallel.exchange`` merges (``elastic_*``, ``gossip_*``);
+- supervised and elastic runs of those rules: ``launch="supervised"``
+  or ``elastic=...`` -> ``utils.supervisor.Supervisor`` over the
+  launcher's rank-group runner, with heartbeats, graceful preemption,
+  the ``TM_FAULT_AT`` drills and validated checkpoints.
 
 The TPU kernels on those paths are hand-written CUDA C++ in
 ``csrc/``: the flash-attention forward and backward (``ops.attention``)

@@ -22,9 +22,9 @@ Port of ``theanompi_tpu/data/pipeline.py``.  Two pieces:
   by the epoch permutation, not by the transport: the pipelined stream
   is bitwise the synchronous feed, and a starved consumer degrades to a
   synchronous fetch (counted in ``starved``) instead of deadlocking.
-  The JAX producer's ``stall_loader`` fault drill belongs to the
-  resilience layer (ROADMAP.md A9) and is not here; a slow ``fetch``
-  exercises the same degrade path.
+  The ``stall_loader`` fault drill (``utils/faults.py``) stalls the
+  producer for ``TM_STALL_LOADER_N`` batches to drive that degrade
+  path, as in the JAX producer.
 
 Neither the producer nor ``next()`` reads a device value: the ring
 bounds batches in flight by COUNT, and the step waits on the copy's
@@ -271,6 +271,8 @@ class StreamingLoader:
             self._thread.start()
 
     def _produce(self) -> None:
+        from theanompi_tpu_torch.utils import faults
+
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.set_device(self._device)
         while True:
@@ -283,6 +285,13 @@ class StreamingLoader:
                 if self._stop:
                     return
                 gen, i = self._gen, self._next_prod
+            if faults.consume_loader_stall():
+                # the stall drill: the producer stops staging for this
+                # iteration — sleep past the consumer's timeout so the
+                # degrade path (synchronous fetch + starved counter)
+                # takes over instead of a deadlock
+                time.sleep(self.timeout_s)
+                continue
             staged = self._stage(self._fetch(i))
             with self._cv:
                 if gen == self._gen and i == self._next_prod:

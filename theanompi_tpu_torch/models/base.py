@@ -24,11 +24,17 @@ and optimizer update, and the checkpoint round trip.
   ``ef_layout``).  Rank 0 writes an npz; a run whose state is split
   over more than one rank (zero1, the EF residuals) writes a
   ``.shards`` checkpoint, every rank its own shards.
-- ``load`` restores the newest checkpoint (either format) that
-  verifies, through the model's ``restore_trees`` hook, after the JAX
-  package's layout guards; ``load(reshard=True)`` re-lays a zero1 or EF
-  state saved at another world size or bucket layout
-  (``utils/reshard.py``).
+- ``save(extra_meta=...)`` adds to the stamps (the preemption path's
+  ``next_iter``); ``config["keep_last_checkpoints"]`` prunes older
+  checkpoints past the newest N.
+- ``load`` restores the newest checkpoint (either format) through the
+  model's ``restore_trees`` hook, after the JAX package's layout
+  guards.  It validates first (``config["validate_checkpoint"]``,
+  default on): a checkpoint that fails its digests is quarantined as
+  ``*.corrupt`` (by rank 0) and the previous one is used.
+  ``load(reshard=True)`` — or ``config["elastic"]`` when the caller
+  passes no ``reshard`` — re-lays a zero1 or EF state saved at another
+  world size or bucket layout (``utils/reshard.py``).
 
 ``ClassifierModel`` is the generic image classifier the CNN zoo
 (``wresnet``, ``resnet50``, ``alex_net``, ``vgg16``, ``googlenet``)
@@ -44,7 +50,6 @@ under JAX keystr keys, so they load in either package.
 
 from __future__ import annotations
 
-import os
 import warnings
 from pathlib import Path
 from typing import Any
@@ -99,32 +104,43 @@ def resolve_dtype(name) -> torch.dtype:
 
 #: config knobs of the JAX package that the port does not run yet
 UNPORTED_KNOBS = {
-    "elastic": "A9 (elastic resume, supervisor and fault drills)",
     "trace": "A13 (span tracing)",
     "step_profile": "A13 (step-phase profiler)",
 }
 
 
+def resume_checkpoint(directory: str | Path, validate: bool = True,
+                      device: torch.device | None = None) -> Path | None:
+    """The checkpoint a resume loads, chosen once for every rank: rank 0
+    takes the newest that passes validation (``latest_checkpoint``,
+    which quarantines each corrupt one it meets) and broadcasts its step
+    and format, so a checkpoint is hashed once a life, not once a rank.
+    ``device``: where the group's tensors live (the card under nccl)."""
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return ckpt.latest_checkpoint(directory, validate=validate)
+    pick = torch.full((2,), -1, dtype=torch.int64, device=device)
+    if dist.get_rank() == 0:
+        path = ckpt.latest_checkpoint(directory, validate=validate)
+        if path is not None:
+            m = ckpt._CKPT_RE.fullmatch(path.name)
+            pick[0], pick[1] = int(m.group(1)), int(m.group(2) == ".shards")
+    dist.broadcast(pick, src=0)
+    step, sharded = pick.tolist()
+    if step < 0:
+        return None
+    return Path(directory) / f"ckpt_{step}{'.shards' if sharded else '.npz'}"
+
+
 def refuse_unported(cfg: dict) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a config
-    knob (or ``TM_FAULT_AT``) of a feature the port does not run yet,
-    and ``ValueError`` for a bad ``loader_pipeline``.  Training paths
-    only: the serving fleet runs its ``TM_FAULT_AT`` drills
-    (``die_replica``, ``spike_load``; ``utils/faults.py``), and a
-    serving decoder builds whatever the variable holds."""
+    knob of a feature the port does not run yet, and ``ValueError`` for
+    a bad ``loader_pipeline``."""
     for knob, item in UNPORTED_KNOBS.items():
         if cfg.get(knob):
             raise NotImplementedError(
                 f"config {knob}={cfg[knob]!r} is not ported yet "
                 f"(ROADMAP.md {item})"
             )
-    if os.environ.get("TM_FAULT_AT"):
-        raise NotImplementedError(
-            f"TM_FAULT_AT={os.environ['TM_FAULT_AT']!r}: the training "
-            f"fault drills and their supervisor are not ported yet "
-            f"(ROADMAP.md A9; the serving fleet's die_replica and "
-            f"spike_load drills run)"
-        )
     resolve_loader_depth(cfg)
     if int(cfg.get("steps_per_call", 0) or 0) > 1:
         raise NotImplementedError(
@@ -387,7 +403,14 @@ class TMModel:
         shards, as a ``.shards`` checkpoint."""
         return self._world > 1 and (self._zero1 or bool(self.ef_state))
 
-    def save(self, directory: str, recorder=None) -> None:
+    def save(self, directory: str, recorder=None,
+             extra_meta: dict | None = None) -> None:
+        """Write a checkpoint (rank 0's npz, or every rank's ``.shards``
+        when the state is split).  ``extra_meta`` rides in the sidecar:
+        the graceful-preemption path stamps ``next_iter``, so a
+        mid-epoch checkpoint resumes at the exact boundary.
+        ``config["keep_last_checkpoints"]`` bounds the history on
+        disk."""
         world = dist.get_world_size() if dist.is_initialized() else 1
         rank = dist.get_rank() if dist.is_initialized() else 0
         meta = {"epoch": self.epoch, "lr": self.current_lr,
@@ -409,15 +432,21 @@ class TMModel:
             meta["zero1_layout"] = list(self._zero1_layout)
         if self._ef_layout is not None:
             meta["ef_layout"] = list(self._ef_layout)
+        if extra_meta:
+            meta.update(extra_meta)
+        keep_last = getattr(self, "config", {}).get("keep_last_checkpoints")
+        keep_last = int(keep_last) if keep_last is not None else None
         if self._split_state():
             save_sharded_checkpoint(directory, self.epoch,
                                     self.checkpoint_trees(), meta,
-                                    rank=rank, world=world)
+                                    rank=rank, world=world,
+                                    keep_last=keep_last)
             return
         if rank != 0:
             return
         trees = {g: _to_numpy(t) for g, t in self.checkpoint_trees().items()}
-        ckpt.save_checkpoint(directory, self.epoch, trees, meta)
+        ckpt.save_checkpoint(directory, self.epoch, trees, meta,
+                             keep_last=keep_last)
 
     def _world_changed(self, meta: dict) -> bool:
         """The checkpoint's world stamp differs from this run's: a
@@ -526,48 +555,49 @@ class TMModel:
             raise
 
     def load(self, directory: str, recorder=None,
-             reshard: bool = False) -> bool:
-        """Restore the newest checkpoint under ``directory`` (npz or
-        ``.shards``) that verifies; False when there is none.  A zero1
-        or EF state saved under another layout refuses, unless
-        ``reshard=True``: then it is gathered to pack order and
+             reshard: bool | None = None,
+             path: str | Path | None = None) -> bool:
+        """Restore the newest valid checkpoint under ``directory`` (npz
+        or ``.shards``); False when there is none.  Validation is on
+        unless ``config["validate_checkpoint"]`` is False: a checkpoint
+        that fails its digests is quarantined as ``*.corrupt`` and the
+        previous one loads (``resume_checkpoint``: rank 0 validates and
+        every rank loads its choice).  ``path``: a checkpoint the caller
+        already chose that way.  A zero1 or EF state saved under another
+        layout refuses, unless ``reshard=True`` (or ``config["elastic"]``
+        when ``reshard`` is None): then it is gathered to pack order and
         re-scattered onto the compiled layout (the elastic resume)."""
-        directory = Path(directory)
-        if not directory.is_dir():
+        cfg = getattr(self, "config", {})
+        if reshard is None:
+            reshard = bool(cfg.get("elastic"))
+        if path is None:
+            path = resume_checkpoint(
+                directory, bool(cfg.get("validate_checkpoint", True)),
+                self.device)
+        if path is None:
             return False
         like = self.checkpoint_trees()
-        for path in ckpt.checkpoints(directory):
-            meta = ckpt.checkpoint_meta(path)
-            plan = self._reshard_plan(meta, like) if reshard else None
-            if plan is None:
-                self._check_layouts(meta, like)
-            try:
-                trees = (self._load_resharded(path, like, plan) if plan
-                         else self._load_trees(path, like))
-            except OSError as e:
-                print(f"checkpoint: skipping {path.name}: {e}", flush=True)
-                continue
-            except ValueError as e:
-                if "digest" not in str(e):
-                    raise
-                print(f"checkpoint: skipping {path.name}: {e}", flush=True)
-                continue
-            ex = {g: trees.pop(g) for g in ("opt_state", "ef_state")
-                  if g in trees and (g == "ef_state" or self._zero1)}
-            self.restore_trees({
-                g: t if self.flat_checkpoint or t == () else
-                ckpt.unflatten(t) for g, t in trees.items()})
-            self._restore_exchange(ex)
-            self.restored_meta = meta
-            self.resharded_from = plan and {
-                "world_size": plan["world_size"],
-                "groups": sorted(plan["groups"])}
-            self.epoch = int(meta.get("epoch", 0))
-            self.current_lr = float(meta.get("lr", self.current_lr))
-            if recorder is not None and "recorder" in meta:
-                recorder.load_state_dict(meta["recorder"])
-            return True
-        return False
+        meta = ckpt.checkpoint_meta(path)
+        plan = self._reshard_plan(meta, like) if reshard else None
+        if plan is None:
+            self._check_layouts(meta, like)
+        trees = (self._load_resharded(path, like, plan) if plan
+                 else self._load_trees(path, like))
+        ex = {g: trees.pop(g) for g in ("opt_state", "ef_state")
+              if g in trees and (g == "ef_state" or self._zero1)}
+        self.restore_trees({
+            g: t if self.flat_checkpoint or t == () else
+            ckpt.unflatten(t) for g, t in trees.items()})
+        self._restore_exchange(ex)
+        self.restored_meta = meta
+        self.resharded_from = plan and {
+            "world_size": plan["world_size"],
+            "groups": sorted(plan["groups"])}
+        self.epoch = int(meta.get("epoch", 0))
+        self.current_lr = float(meta.get("lr", self.current_lr))
+        if recorder is not None and "recorder" in meta:
+            recorder.load_state_dict(meta["recorder"])
+        return True
 
 
 def _global_shape(leaf) -> tuple:

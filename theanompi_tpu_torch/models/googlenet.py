@@ -192,13 +192,13 @@ class GoogLeNet(ClassifierModel):
         )
         self._init_params()
 
-    def load(self, directory, recorder=None):
+    def load(self, directory, recorder=None, **kwargs):
         """Checkpoint restore with a structure guard: the parameter tree
         depends on ``fused_inception`` (a fused module holds one merged
         1x1 weight where an unfused one holds three), so a mismatch
         surfaces as a missing or mis-shaped leaf — name the knob."""
         try:
-            return super().load(directory, recorder)
+            return super().load(directory, recorder, **kwargs)
         except (KeyError, ValueError) as e:
             raise RuntimeError(
                 f"checkpoint restore failed: {e}\n"

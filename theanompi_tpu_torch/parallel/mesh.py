@@ -76,7 +76,10 @@ def resolve_devices(devices=None) -> list[torch.device]:
         n = torch.cuda.device_count()
         if any(d.index >= n for d in out):
             raise ValueError(f"requested {devices}, have {n} cards")
-    if len(set(out)) != len(out) and out[0].type == "cuda":
+    if len(set(out)) != len(out) and out[0].type == "cuda" and not (
+            dist.is_initialized() and dist.get_backend() == "gloo"):
+        # NCCL takes one card a rank; ranks that joined a gloo group
+        # before the run (init_group(backend="gloo")) may share one
         raise ValueError(f"a card appears twice in {devices}")
     return out
 
@@ -178,11 +181,14 @@ def init_group(device: torch.device, rank: int = 0, world_size: int = 1,
 
     ``backend``: ``"nccl"`` (the default for a CUDA device) or
     ``"gloo"`` (the default for the CPU; on a card only when asked,
-    e.g. for ranks that share one card, which NCCL refuses).  Under
+    e.g. for ranks that share one card, which NCCL refuses).  With
+    ``backend=None`` an existing group's backend is kept, so a run
+    started inside a gloo group its caller made goes on in it.  Under
     NCCL, ranks that name the same card are an error, raised on every
     rank before the group is made."""
     if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        backend = (dist.get_backend() if dist.is_initialized()
+                   else "nccl" if device.type == "cuda" else "gloo")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got "
                          f"{backend!r}")

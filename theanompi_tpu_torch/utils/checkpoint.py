@@ -17,6 +17,14 @@ other format, which zero1 runs of more than one rank write; the
 functions here that pick and read a checkpoint take either
 (``checkpoints``, ``checkpoint_meta``, ``load_trees``,
 ``load_raw_group``, ``load_latest_params``).
+
+Validation and retention, as in the JAX package: ``verify_checkpoint``
+deep-probes one checkpoint of either format, ``latest_checkpoint(
+validate=True)`` returns the newest that passes and renames each
+corrupt candidate it met to ``*.corrupt`` (``quarantine_checkpoint``:
+kept for a post-mortem, never deleted, never found again), and
+``prune_checkpoints`` (``save_checkpoint(keep_last=N)``) bounds how
+many committed checkpoints a run that restarts many times leaves.
 """
 
 from __future__ import annotations
@@ -24,12 +32,18 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
+import zipfile
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)(\.npz|\.shards)")
+#: threads that read and hash a checkpoint's arrays (file reads and
+#: zlib drop the GIL)
+_IO_THREADS = 8
 _KEY_RE = re.compile(r"\[(?:'([^']*)'|(\d+))\]")
 
 
@@ -38,7 +52,9 @@ def array_digest(arr: np.ndarray) -> int:
     digest the JAX package stamps at save time."""
     arr = np.ascontiguousarray(arr)
     header = f"{arr.dtype.str}:{arr.shape}".encode()
-    return zlib.crc32(arr.tobytes(), zlib.crc32(header)) & 0xFFFFFFFF
+    # the bytes as a view (no copy), so threads can hash a large state
+    return zlib.crc32(arr.reshape(-1).view(np.uint8),
+                      zlib.crc32(header)) & 0xFFFFFFFF
 
 
 def parse_keystr(key: str) -> list:
@@ -70,6 +86,31 @@ def _listify(node):
     return out
 
 
+def _read_checked(path: Path, name: str, digests: dict) -> np.ndarray:
+    """One array of an npz, read through the zip (its member's CRC-32 is
+    checked as it is read to its end) and held to its digest, when
+    ``digests`` has any.  Each call opens the file, so threads may read
+    members side by side."""
+    with zipfile.ZipFile(path) as zf, zf.open(f"{name}.npy") as f:
+        arr = np.lib.format.read_array(f, allow_pickle=False)
+    if digests and array_digest(arr) != int(digests[name]):
+        raise ValueError(f"{path}: digest mismatch at {name!r}")
+    return arr
+
+
+def _read_npz(path: Path, names, digests: dict) -> dict[str, np.ndarray]:
+    """``{name: _read_checked(...)}`` of ``names``, in threads."""
+    with ThreadPoolExecutor(_IO_THREADS) as ex:
+        return dict(zip(names, ex.map(
+            lambda n: _read_checked(path, n, digests), names)))
+
+
+def _npz_names(path: Path) -> list[str]:
+    """The array names of an npz (its members less ``.npy``)."""
+    with zipfile.ZipFile(path) as zf:
+        return [n[:-4] for n in zf.namelist() if n.endswith(".npy")]
+
+
 def load_group(path: str | Path, group: str = "params",
                flat: bool = False) -> dict:
     """One group of an npz checkpoint as a nested dict/list tree of
@@ -85,19 +126,14 @@ def load_group(path: str | Path, group: str = "params",
     if meta_path.exists():
         digests = json.loads(meta_path.read_text()).get("_digests", {}) or {}
     prefix = f"{group}:"
-    tree: dict = {}
-    with np.load(path) as z:
-        names = [k for k in z.files if k.startswith(prefix)]
-        if not names:
-            raise KeyError(f"checkpoint {path} has no group {group!r}")
-        for name in names:
-            arr = z[name]
-            if digests:
-                if name not in digests:
-                    raise ValueError(f"{path}: no digest for {name!r}")
-                if array_digest(arr) != int(digests[name]):
-                    raise ValueError(f"{path}: digest mismatch at {name!r}")
-            tree[name[len(prefix):]] = arr
+    names = [k for k in _npz_names(path) if k.startswith(prefix)]
+    if not names:
+        raise KeyError(f"checkpoint {path} has no group {group!r}")
+    missing = [k for k in names if digests and k not in digests]
+    if missing:
+        raise ValueError(f"{path}: no digest for {missing[0]!r}")
+    tree = {k[len(prefix):]: a
+            for k, a in _read_npz(path, names, digests).items()}
     return tree if flat else unflatten(tree)
 
 
@@ -163,10 +199,13 @@ def unflatten(flat: dict):
 
 
 def save_checkpoint(directory: str | Path, step: int, trees: dict,
-                    meta: dict | None = None) -> Path:
+                    meta: dict | None = None,
+                    keep_last: int | None = None) -> Path:
     """Write ``{directory}/ckpt_{step}.npz`` and its ``.json`` sidecar
     (metadata plus per-array digests), the sidecar first and the npz
-    renamed into place, as the JAX package does."""
+    renamed into place, as the JAX package does.  ``keep_last`` prunes
+    older checkpoints past the newest N (never the one just written;
+    quarantined ``*.corrupt`` files are never touched)."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     flat = {}
@@ -174,14 +213,116 @@ def save_checkpoint(directory: str | Path, step: int, trees: dict,
         for k, v in tree_to_flat(tree).items():
             flat[f"{group}:{k}"] = v
     sidecar = dict(meta or {})
-    sidecar["_digests"] = {k: array_digest(v) for k, v in flat.items()}
+    with ThreadPoolExecutor(_IO_THREADS) as ex:
+        sidecar["_digests"] = dict(zip(flat, ex.map(array_digest,
+                                                     flat.values())))
     (directory / f"ckpt_{step}.json").write_text(json.dumps(sidecar))
     tmp = directory / f".ckpt_{step}.npz.tmp"
     final = directory / f"ckpt_{step}.npz"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, final)
+    if keep_last is not None:
+        prune_checkpoints(directory, keep_last, protect={final})
     return final
+
+
+def verify_checkpoint(path: str | Path) -> bool:
+    """Deep-probe one committed checkpoint: structurally readable AND
+    every array matches its save-time digest (a ``.shards`` directory:
+    ``verify_sharded_checkpoint``).  Checkpoints from before digest
+    stamping verify structurally only.  Never raises — any failure to
+    read is a failed verification."""
+    path = Path(path)
+    try:
+        if path.name.endswith(".shards"):
+            from theanompi_tpu_torch.utils.sharded_checkpoint import (
+                verify_sharded_checkpoint,
+            )
+
+            return verify_sharded_checkpoint(path)
+        digests: dict = {}
+        meta_path = path.with_suffix(".json")
+        if meta_path.exists():
+            digests = json.loads(meta_path.read_text()).get(
+                "_digests", {}) or {}
+        names = _npz_names(path)
+        if digests and set(digests) != set(names):
+            return False  # missing/extra member = truncation/mixup
+        with ThreadPoolExecutor(_IO_THREADS) as ex:  # a corrupt member raises
+            for _ in ex.map(lambda n: _read_checked(path, n, digests).size,
+                            names):
+                pass
+        return True
+    except Exception:
+        return False
+
+
+def quarantine_checkpoint(path: str | Path) -> Path:
+    """Rename a corrupt checkpoint (and its sidecar) to ``*.corrupt``
+    — undiscoverable by ``latest_checkpoint`` but kept on disk for a
+    post-mortem.  Never deletes."""
+    path = Path(path)
+    dst = path.with_name(path.name + ".corrupt")
+    n = 0
+    while dst.exists():  # repeat corruption of the same step
+        n += 1
+        dst = path.with_name(f"{path.name}.corrupt{n}")
+    os.replace(path, dst)
+    if path.suffix == ".npz":
+        sidecar = path.with_suffix(".json")
+        if sidecar.exists():
+            os.replace(sidecar, sidecar.with_name(
+                sidecar.name + (f".corrupt{n}" if n else ".corrupt")))
+    return dst
+
+
+def latest_checkpoint(directory: str | Path,
+                      validate: bool = False) -> Path | None:
+    """Newest checkpoint in ``directory`` — either format.
+    ``validate=True`` deep-probes candidates newest first
+    (``verify_checkpoint``) and returns the newest one that PASSES; a
+    corrupt candidate is quarantined (renamed ``*.corrupt``, never
+    deleted), so a resume falls back to the previous valid checkpoint
+    instead of dying or silently diverging on a post-commit bit flip.
+    The ranks of a run call it through ``models.base.resume_checkpoint``
+    (rank 0 alone, so no two rename one file)."""
+    directory = Path(directory)
+    if not directory.is_dir():
+        return None
+    for p in checkpoints(directory):
+        if not validate or verify_checkpoint(p):
+            return p
+        q = quarantine_checkpoint(p)
+        print(f"checkpoint: {p.name} failed validation — quarantined as "
+              f"{q.name}, falling back to the previous checkpoint",
+              flush=True)
+    return None
+
+
+def prune_checkpoints(directory: str | Path, keep_last: int,
+                      protect: set | None = None) -> list[Path]:
+    """Delete committed checkpoints beyond the newest ``keep_last``.
+    The just-written checkpoint is passed in ``protect`` by savers;
+    quarantined ``*.corrupt`` files never match and are never
+    collected.  Returns the deleted paths."""
+    if keep_last < 1:
+        raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+    directory = Path(directory)
+    protect = {Path(p) for p in (protect or set())}
+    removed: list[Path] = []
+    for p in checkpoints(directory)[keep_last:]:
+        if p in protect:
+            continue
+        if p.is_dir():
+            shutil.rmtree(p)
+        else:
+            p.unlink()
+            sidecar = p.with_suffix(".json")
+            if sidecar.exists():
+                sidecar.unlink()
+        removed.append(p)
+    return removed
 
 
 def checkpoint_meta(path: str | Path) -> dict:

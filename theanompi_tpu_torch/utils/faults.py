@@ -1,13 +1,16 @@
 """Deterministic fault injection (SURVEY §5.3 failure recovery).
 
-A copy of ``theanompi_tpu/utils/faults.py`` (stdlib only); the one
-change is that ``corrupt_ckpt`` finds the newest checkpoint through the
+A copy of ``theanompi_tpu/utils/faults.py`` (stdlib only), with two
+changes.  ``corrupt_ckpt`` finds the newest checkpoint through the
 port's ``utils/checkpoint.checkpoints`` (npz files and committed
-``.shards`` directories).  The port's serving fleet
-runs the serving drills (``die_replica`` in ``serving/replica.py``,
-``spike_load`` in ``serving/autoscaler.py``); its training paths still
-refuse ``TM_FAULT_AT`` until the training drills and the supervisor
-are ported (``models/base.refuse_unported``, ROADMAP.md A9).
+``.shards`` directories).  And a run of the port is one process a rank,
+so ``maybe_inject_fault`` takes the caller's ``rank`` and a ``barrier``
+over its ranks: every rank fires the same fault at the same boundary,
+but only rank 0 touches files (the fired-state line, the corrupted
+checkpoint, the world file) — two ranks XOR-ing the same 16 bytes
+would leave the checkpoint intact — and the ranks meet at the barrier
+after rank 0's writes, before any of them dies or hangs, so a death
+never outruns the write its relaunch depends on.
 
 The reference's failure story was "checkpoint every epoch, restart
 from the last one"; proving the rebuild honors it — and that the
@@ -161,6 +164,13 @@ def _target() -> list[tuple[int, int, str]] | None:
     return _parsed  # type: ignore[return-value]
 
 
+def targets() -> list[tuple[int, int, str]] | None:
+    """The parsed ``TM_FAULT_AT`` list (None without drills); a
+    malformed value raises ``ValueError`` — the worker calls this before
+    its model is built, so a typo fails in milliseconds."""
+    return _target()
+
+
 # -- fired-state persistence (supervised relaunches) -------------------------
 
 def _state_file() -> Path | None:
@@ -180,12 +190,13 @@ def _load_state() -> set[int]:
     return out
 
 
-def _mark_fired(idx: int) -> None:
+def _mark_fired(idx: int, write: bool = True) -> None:
     """Record BEFORE executing: a die/hang between write and action
-    must still count as fired on the next launch."""
+    must still count as fired on the next launch.  ``write=False`` (a
+    rank other than 0) records it in this process only."""
     _fired.add(idx)
     f = _state_file()
-    if f is None:
+    if f is None or not write:
         return
     f.parent.mkdir(parents=True, exist_ok=True)
     with open(f, "a") as fh:
@@ -267,9 +278,15 @@ def _corrupt_latest_checkpoint(checkpoint_dir: str) -> str:
 
 def _shrink_world(action: str, world: int | None) -> None:
     """Write the reduced device count to ``TM_WORLD_FILE`` (the
-    elastic supervisor's probe), then die preemption-style.  The
-    baseline is the calling worker's own world when the file doesn't
-    exist yet; repeated drills compound (8 → 7 → 6 ...)."""
+    elastic supervisor's probe), then die preemption-style."""
+    _write_world(action, world)
+    os._exit(137)
+
+
+def _write_world(action: str, world: int | None) -> None:
+    """The world-file half of ``_shrink_world``.  The baseline is the
+    calling worker's own world when the file doesn't exist yet;
+    repeated drills compound (8 → 7 → 6 ...)."""
     wf = os.environ.get("TM_WORLD_FILE")
     if not wf:
         raise RuntimeError(
@@ -296,21 +313,35 @@ def _shrink_world(action: str, world: int | None) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(f"{new}\n")
     print(f"{_ENV}: world shrunk {cur} -> {new} ({wf})", flush=True)
-    os._exit(137)
 
 
 def _execute(action: str, epoch: int, it: int,
              checkpoint_dir: str | None,
-             world: int | None = None) -> None:
+             world: int | None = None, rank: int = 0,
+             barrier=None) -> None:
     print(
         f"{_ENV}: injecting fault at epoch {epoch} iter {it}"
         + (f" ({action})" if action != "die" else ""),
         flush=True,
     )
-    if action == "die":
+    if action == "corrupt_ckpt" and not checkpoint_dir:
+        raise RuntimeError(
+            f"{_ENV}: corrupt_ckpt needs the worker's "
+            f"checkpoint_dir (pass checkpoint_dir= to "
+            f"maybe_inject_fault, or run with a checkpoint_dir)"
+        )
+    if rank == 0:
+        # the file half of the action, on one rank only
+        if action == "corrupt_ckpt":
+            where = _corrupt_latest_checkpoint(checkpoint_dir)
+            print(f"{_ENV}: corrupted committed checkpoint {where}",
+                  flush=True)
+        elif action in ("lose_device", "shrink_world"):
+            _write_world(action, world)
+    if barrier is not None:
+        barrier()   # rank 0's writes land before any rank acts
+    if action in ("die", "corrupt_ckpt", "lose_device", "shrink_world"):
         os._exit(137)
-    if action in ("lose_device", "shrink_world"):
-        _shrink_world(action, world)
     if action == "hang":
         # a stuck collective: alive but never progressing — only a
         # stall watchdog ends this (SIGKILL; no handler could run)
@@ -337,17 +368,6 @@ def _execute(action: str, epoch: int, it: int,
         # flag; the loop checkpoints at this boundary and exits 0
         signal.raise_signal(signal.SIGTERM)
         return
-    if action == "corrupt_ckpt":
-        if not checkpoint_dir:
-            raise RuntimeError(
-                f"{_ENV}: corrupt_ckpt needs the worker's "
-                f"checkpoint_dir (pass checkpoint_dir= to "
-                f"maybe_inject_fault, or run with a checkpoint_dir)"
-            )
-        where = _corrupt_latest_checkpoint(checkpoint_dir)
-        print(f"{_ENV}: corrupted committed checkpoint {where}",
-              flush=True)
-        os._exit(137)
     raise AssertionError(action)
 
 
@@ -357,13 +377,17 @@ def maybe_inject_fault(
     i_last: int | None = None,
     checkpoint_dir: str | None = None,
     world: int | None = None,
+    rank: int = 0,
+    barrier=None,
 ) -> None:
     """Fire the first not-yet-fired fault targeting ``epoch`` and an
     iteration in ``[i, i_last]`` (``i_last`` defaults to ``i``;
     chunked dispatch loops pass the whole range so a target inside a
     multi-step chunk still fires).  ``checkpoint_dir`` feeds the
     ``corrupt_ckpt`` action; ``world`` (the caller's device count)
-    seeds the ``lose_device``/``shrink_world`` elastic drills."""
+    seeds the ``lose_device``/``shrink_world`` elastic drills.  A rank
+    of a multi-process run passes its ``rank`` and a ``barrier`` over
+    the ranks (module docstring)."""
     faults = _target()
     if not faults:
         return
@@ -372,6 +396,7 @@ def maybe_inject_fault(
         if idx in _fired:
             continue
         if e == epoch and i <= it <= hi:
-            _mark_fired(idx)
-            _execute(action, epoch, it, checkpoint_dir, world=world)
+            _mark_fired(idx, write=rank == 0)
+            _execute(action, epoch, it, checkpoint_dir, world=world,
+                     rank=rank, barrier=barrier)
             return  # sigterm returns; one fault per boundary

@@ -6,8 +6,9 @@
   (loss, err) kept as device scalars and read at the next print window
   or epoch end (the read is the fence), val records, epoch times, and
   ``state_dict``/``load_state_dict`` in the JAX layout, so a checkpoint's
-  recorder state crosses between the packages.  Left out: span
-  tracing, restart accounting (A9) and ``metrics_txt`` (A13).
+  recorder state crosses between the packages; ``record_restart`` and
+  ``mttr_s``, the restart accounting of a supervised run.  Left out:
+  span tracing and ``metrics_txt`` (A13).
 - ``Reservoir``/``ServingRecorder`` — copies of the serving section
   (numpy only): per-request TTFT/TPOT, tokens/s, slot occupancy, queue
   depth, KV-block gauges, the speculative accept rate, the tokenize
@@ -153,6 +154,49 @@ class Recorder:
                 f"{seg['comm']:.1f}s wait {seg['wait']:.1f}s){val_str}",
                 flush=True,
             )
+
+    def record_restart(
+        self,
+        cause: str,
+        resumed_epoch: int | None = None,
+        resumed_iter: int | None = None,
+        recovery_s: float | None = None,
+        restart: int | None = None,
+        world_size: int | None = None,
+        resharded: bool | None = None,
+    ) -> None:
+        """One supervised relaunch: why the previous life died, where
+        this one resumed, and the worker-side recovery latency (failure
+        detection → restored and ready to train).  ``world_size`` and
+        ``resharded`` (elastic runs) record the DP width this life trains
+        at and whether the resume re-laid the flat exchange state; kept
+        through ``state_dict``, so the history survives later
+        checkpointed restarts."""
+        self.restart_events.append({
+            "restart": (restart if restart is not None
+                        else len(self.restart_events) + 1),
+            "cause": cause,
+            "resumed_epoch": resumed_epoch,
+            "resumed_iter": resumed_iter,
+            "recovery_s": recovery_s,
+            "world_size": world_size,
+            "resharded": resharded,
+        })
+        if self.verbose:
+            at = (f"epoch {resumed_epoch}"
+                  + (f" iter {resumed_iter}" if resumed_iter else "")
+                  if resumed_epoch is not None else "scratch")
+            rec = f" after {recovery_s:.1f}s" if recovery_s else ""
+            print(f"restart #{self.restart_events[-1]['restart']}: "
+                  f"cause={cause}, resumed from {at}{rec}", flush=True)
+
+    @property
+    def mttr_s(self) -> float | None:
+        """Mean time-to-recovery over recorded restarts (None until a
+        recovery has been measured)."""
+        rs = [e["recovery_s"] for e in self.restart_events
+              if e.get("recovery_s") is not None]
+        return sum(rs) / len(rs) if rs else None
 
     def state_dict(self) -> dict:
         self.flush()

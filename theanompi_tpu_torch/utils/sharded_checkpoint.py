@@ -95,10 +95,13 @@ def _digest_of(arr: np.ndarray) -> int:
 
 def save_sharded_checkpoint(directory: str | Path, step: int, trees: dict,
                             meta: dict | None = None, *, rank: int = 0,
-                            world: int = 1) -> Path:
+                            world: int = 1,
+                            keep_last: int | None = None) -> Path:
     """Write ``{directory}/ckpt_{step}.shards/``: this rank's shards of
     every leaf of ``trees`` (``{group: tree}``); every rank of a
-    ``world`` > 1 calls it, in step, on the default process group."""
+    ``world`` > 1 calls it, in step, on the default process group.
+    ``keep_last``: rank 0 then prunes older checkpoints past the newest
+    N (``checkpoint.prune_checkpoints``)."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"ckpt_{step}{_SUFFIX}"
@@ -165,6 +168,12 @@ def save_sharded_checkpoint(directory: str | Path, step: int, trees: dict,
         if final.exists():
             shutil.rmtree(final)
         os.replace(tmp, final)
+    if keep_last is not None and rank == 0:
+        # after the commit marker: every rank has moved its files, so
+        # collecting older steps cannot race a writer of THIS step
+        from theanompi_tpu_torch.utils.checkpoint import prune_checkpoints
+
+        prune_checkpoints(directory, keep_last, protect={final})
     return final
 
 

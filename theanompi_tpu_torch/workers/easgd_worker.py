@@ -25,10 +25,13 @@ one worker on one device and process 0 also hosts the TCP center
 server (``parallel/center_server.py``): ``_run_distributed``.  Every
 ``tau`` steps a worker copies its parameters to the host, exchanges
 them with the center at its own pace, and copies the result back into
-the same parameter tensors.  The supervisor hooks (heartbeats,
-preemption) are not ported yet (ROADMAP.md A9): resume goes through
-``bsp_worker._resume`` in both forms.  ``server_device`` is accepted
-and ignored, as in JAX.
+the same parameter tensors.  Both forms carry the JAX worker's
+resilience hooks: ``utils/supervisor.begin_resilient_run`` restores the
+newest valid checkpoint (inside an epoch at a stamped ``next_iter``);
+at each iteration boundary the ``TM_FAULT_AT`` drills fire, the
+heartbeat is stamped (by process 0 across processes) and a SIGTERM
+ends the loop with a checkpoint of the center stamped ``next_iter`` and
+``preempted``.  ``server_device`` is accepted and ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -60,7 +63,9 @@ from theanompi_tpu_torch.parallel.strategies import (
     resolve_compression,
 )
 from theanompi_tpu_torch.utils import Recorder
-from theanompi_tpu_torch.workers.bsp_worker import _resume, worker_main
+from theanompi_tpu_torch.utils import faults as _faults
+from theanompi_tpu_torch.utils import supervisor as _sup
+from theanompi_tpu_torch.workers.bsp_worker import worker_main
 from theanompi_tpu_torch.workers.replica_engine import (
     ReplicaEngine,
     load_leaves,
@@ -162,8 +167,9 @@ def run(
     recorder = Recorder(rank=0, size=n_workers, print_freq=print_freq,
                         verbose=verbose)
     # a resumed run restarts every worker from the restored center
-    start_iter, resumed_from = _resume(model, recorder, checkpoint_dir,
-                                       resume, verbose)
+    start_iter, resumed_from = _sup.begin_resilient_run(
+        model, recorder, checkpoint_dir, resume,
+        verbose=verbose)
     engine = ReplicaEngine(model, n_workers)
     center = [p.detach().clone() for p in model.params]
     data = model.data
@@ -182,6 +188,8 @@ def run(
                      engine.mean_opt_state())
 
     step = n_exchanges = 0
+    preempted = False
+    i = 0
     try:
         while model.epoch < model.n_epochs:
             epoch = model.epoch
@@ -236,7 +244,16 @@ def run(
                     recorder.end("comm")
                     n_exchanges += int(exch.sum())
                 recorder.print_train_info(i)
+                _faults.maybe_inject_fault(epoch, i,
+                                           checkpoint_dir=checkpoint_dir)
+                _sup.heartbeat(recorder.n_iter, epoch, i,
+                               resumed_from=resumed_from)
+                if _sup.preemption_requested():
+                    preempted = True
+                    break
             start_iter = 0
+            if preempted:
+                break
             if data.n_batch_val:
                 # server semantics: validate the CENTER weights
                 recorder.flush()
@@ -251,7 +268,20 @@ def run(
     finally:
         if feed is not None:
             feed.stop()
-    adopt_center()
+        # an in-process host gets its normal SIGTERM semantics back
+        _sup.uninstall_preemption_handler()
+    adopt_center()  # final/preempted weights = center + momentum
+    if preempted:
+        if checkpoint_dir:
+            model.save(checkpoint_dir, recorder,
+                       extra_meta={"next_iter": i + 1, "preempted": True})
+        if verbose:
+            print(f"preempted: checkpointed epoch {model.epoch} iter "
+                  f"{i + 1}, exiting cleanly", flush=True)
+        _sup.heartbeat(recorder.n_iter, model.epoch, i, status="preempted")
+    else:
+        _sup.heartbeat(recorder.n_iter, model.epoch, None,
+                       status="completed")
 
     last_val = recorder.val_records[-1] if recorder.val_records else {}
     out = {
@@ -262,11 +292,11 @@ def run(
                              if recorder.train_losses else None),
         "final_val": last_val,
         "epoch_times": recorder.epoch_times,
-        "preempted": False,
+        "preempted": preempted,
         "resumed_from": resumed_from,
         "restarts": recorder.restart_events,
         "n_restarts": len(recorder.restart_events),
-        "mttr_s": None,
+        "mttr_s": recorder.mttr_s,
         "device": str(device),
         "n_workers": n_workers,
         "recorder": recorder,
@@ -337,8 +367,9 @@ def _run_distributed(
                             verbose=verbose)
         # every process loads (a shared checkpoint_dir), so all workers
         # agree on the restored epoch and start from the center weights
-        start_iter, resumed_from = _resume(model, recorder, checkpoint_dir,
-                                           resume, verbose and pid == 0)
+        start_iter, resumed_from = _sup.begin_resilient_run(
+            model, recorder, checkpoint_dir, resume,
+            verbose=verbose and pid == 0)
         if pid == 0:
             host, port = bind_host(kv.host if kv else "127.0.0.1"), 0
             if center_addr:
@@ -373,7 +404,20 @@ def _run_distributed(
             finally:
                 load_leaves(model.params, local)
 
+        def fault_barrier() -> None:
+            """A drill's files are process 0's to write (utils/faults.py):
+            the others wait for them before acting."""
+            if kv is None:
+                return
+            key = f"tm_fault_{model.epoch}_{i}"
+            if pid == 0:
+                kv.set(key, "1")
+            else:
+                kv.get(key, 600000)
+
         step = n_exchanges = 0
+        preempted = False
+        i = 0
         center_vals: list[dict] = []
         center_stats = None
         while model.epoch < model.n_epochs:
@@ -391,7 +435,21 @@ def _run_distributed(
                     recorder.end("comm")
                     n_exchanges += 1
                 recorder.print_train_info(i)
+                _faults.maybe_inject_fault(epoch, i,
+                                           checkpoint_dir=checkpoint_dir,
+                                           rank=pid, barrier=fault_barrier)
+                if pid == 0:
+                    _sup.heartbeat(recorder.n_iter, epoch, i,
+                                   resumed_from=resumed_from)
+                if _sup.preemption_requested():
+                    preempted = True
+                    break
             start_iter = 0
+            if preempted:
+                # drain through the normal teardown: announce stop to
+                # the center, which checkpoints the center weights with
+                # next_iter so the relaunch continues mid-epoch
+                break
             if data.n_batch_val:
                 vals = [model.val_iter(j, recorder)
                         for j in range(data.n_batch_val)]
@@ -436,7 +494,9 @@ def _run_distributed(
             # the center owns the final weights and checkpoint
             load_leaves(model.params, server.center_tree())
             if checkpoint_dir:
-                model.save(checkpoint_dir, recorder)
+                model.save(checkpoint_dir, recorder, extra_meta=(
+                    {"next_iter": i + 1, "preempted": True}
+                    if preempted else None))
             center_stats = server.stats()
             if verbose:
                 print(f"EASGD center: {center_stats['exchanges']} exchanges,"
@@ -444,7 +504,11 @@ def _run_distributed(
                       f" (max {center_stats['max_wait_s'] * 1e3:.1f}ms), "
                       f"mean hold {center_stats['mean_hold_s'] * 1e3:.1f}ms",
                       flush=True)
+        if pid == 0:
+            _sup.heartbeat(recorder.n_iter, model.epoch, None,
+                           status="preempted" if preempted else "completed")
     finally:
+        _sup.uninstall_preemption_handler()
         if tcp is not None:
             tcp.close()
         if server is not None:
@@ -462,11 +526,11 @@ def _run_distributed(
         "epochs": model.epoch,
         "iterations": recorder.n_iter,
         "exchanges": n_exchanges,
-        "preempted": False,
+        "preempted": preempted,
         "resumed_from": resumed_from,
         "restarts": recorder.restart_events,
         "n_restarts": len(recorder.restart_events),
-        "mttr_s": None,
+        "mttr_s": recorder.mttr_s,
         "process_index": pid,
         "final_train_loss": (recorder.train_losses[-1]
                              if recorder.train_losses else None),

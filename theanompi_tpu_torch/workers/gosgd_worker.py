@@ -26,9 +26,13 @@ Across processes (``world_size`` > 1) each process is one worker on
 one device, ``_run_distributed``: pushes are fire-and-forget TCP sends
 to a random peer (``parallel/gossip_net.py``), every iteration merges
 whatever arrived, and the run ends with a receive-side quiesce so no
-score mass is left on the wire.  The supervisor hooks (heartbeats,
-preemption) are not ported yet (ROADMAP.md A9): resume goes through
-``bsp_worker._resume`` in both forms.
+score mass is left on the wire.  Both forms carry the JAX worker's
+resilience hooks: ``utils/supervisor.begin_resilient_run`` restores the
+newest valid checkpoint (inside an epoch at a stamped ``next_iter``);
+at each iteration boundary the ``TM_FAULT_AT`` drills fire, the
+heartbeat is stamped (by process 0 across processes) and a SIGTERM
+ends the loop with a checkpoint stamped ``next_iter`` and
+``preempted``.
 """
 
 from __future__ import annotations
@@ -61,7 +65,9 @@ from theanompi_tpu_torch.parallel.strategies import (
     resolve_compression,
 )
 from theanompi_tpu_torch.utils import Recorder
-from theanompi_tpu_torch.workers.bsp_worker import _resume, worker_main
+from theanompi_tpu_torch.utils import faults as _faults
+from theanompi_tpu_torch.utils import supervisor as _sup
+from theanompi_tpu_torch.workers.bsp_worker import worker_main
 from theanompi_tpu_torch.workers.replica_engine import (
     ReplicaEngine,
     resolve_async_run,
@@ -141,8 +147,9 @@ def run(
                         verbose=verbose)
     # a resumed run restarts every replica from the adopted best one;
     # the scores re-level from uniform
-    start_iter, resumed_from = _resume(model, recorder, checkpoint_dir,
-                                       resume, verbose)
+    start_iter, resumed_from = _sup.begin_resilient_run(
+        model, recorder, checkpoint_dir, resume,
+        verbose=verbose)
     engine = ReplicaEngine(model, n_workers)
     scores = torch.full((n_workers,), 1.0 / n_workers, dtype=torch.float32,
                         device=device)
@@ -176,6 +183,8 @@ def run(
               f"global batch", flush=True)
 
     n_rounds = 0
+    preempted = False
+    i = 0
     try:
         while model.epoch < model.n_epochs:
             epoch = model.epoch
@@ -223,7 +232,16 @@ def run(
                     float(scores[0])
                     recorder.end("comm")
                 recorder.print_train_info(i)
+                _faults.maybe_inject_fault(epoch, i,
+                                           checkpoint_dir=checkpoint_dir)
+                _sup.heartbeat(recorder.n_iter, epoch, i,
+                               resumed_from=resumed_from)
+                if _sup.preemption_requested():
+                    preempted = True
+                    break
             start_iter = 0
+            if preempted:
+                break
             if data.n_batch_val:
                 # per replica, each on its shard of the val set
                 recorder.flush()
@@ -238,8 +256,21 @@ def run(
     finally:
         if feed is not None:
             feed.stop()
+        # an in-process host gets its normal SIGTERM semantics back
+        _sup.uninstall_preemption_handler()
     scores = drain(scores)
     best = _adopt_best(engine, scores)
+    if preempted:
+        if checkpoint_dir:
+            model.save(checkpoint_dir, recorder,
+                       extra_meta={"next_iter": i + 1, "preempted": True})
+        if verbose:
+            print(f"preempted: checkpointed epoch {model.epoch} iter "
+                  f"{i + 1}, exiting cleanly", flush=True)
+        _sup.heartbeat(recorder.n_iter, model.epoch, i, status="preempted")
+    else:
+        _sup.heartbeat(recorder.n_iter, model.epoch, None,
+                       status="completed")
 
     last_val = recorder.val_records[-1] if recorder.val_records else {}
     return {
@@ -250,11 +281,11 @@ def run(
                              if recorder.train_losses else None),
         "final_val": last_val,
         "epoch_times": recorder.epoch_times,
-        "preempted": False,
+        "preempted": preempted,
         "resumed_from": resumed_from,
         "restarts": recorder.restart_events,
         "n_restarts": len(recorder.restart_events),
-        "mttr_s": None,
+        "mttr_s": recorder.mttr_s,
         "device": str(device),
         "n_workers": n_workers,
         "scores": scores.tolist(),
@@ -351,8 +382,9 @@ def _run_distributed(
                             verbose=verbose)
         # a shared checkpoint_dir: everyone restarts from the adopted
         # best weights of the previous run
-        start_iter, resumed_from = _resume(model, recorder, checkpoint_dir,
-                                           resume, verbose and pid == 0)
+        start_iter, resumed_from = _sup.begin_resilient_run(
+            model, recorder, checkpoint_dir, resume,
+            verbose=verbose and pid == 0)
         peer = GossipPeer(host=bind_host(kv.host))
         kv.set(f"tm_gosgd_{tag}_peer_{pid}",
                f"{peer.address[0]}:{peer.address[1]}")
@@ -385,6 +417,17 @@ def _run_distributed(
                 n_merges += 1
             return score
 
+        def fault_barrier() -> None:
+            """A drill's files are process 0's to write (utils/faults.py):
+            the others wait for them before acting."""
+            key = f"tm_gosgd_{tag}_fault_{model.epoch}_{i}"
+            if pid == 0:
+                kv.set(key, "1")
+            else:
+                kv.get(key, 600000)
+
+        preempted = False
+        i = 0
         while model.epoch < model.n_epochs:
             epoch = model.epoch
             recorder.start_epoch()
@@ -408,7 +451,20 @@ def _run_distributed(
                     n_pushes += 1
                 recorder.end("comm")
                 recorder.print_train_info(i)
+                _faults.maybe_inject_fault(epoch, i,
+                                           checkpoint_dir=checkpoint_dir,
+                                           rank=pid, barrier=fault_barrier)
+                if pid == 0:
+                    _sup.heartbeat(recorder.n_iter, epoch, i,
+                                   resumed_from=resumed_from)
+                if _sup.preemption_requested():
+                    preempted = True
+                    break
             start_iter = 0
+            if preempted:
+                # drain through the normal quiesce, then the best worker
+                # checkpoints with next_iter
+                break
             if data.n_batch_val:
                 vals = [model.val_iter(j, recorder)
                         for j in range(data.n_batch_val)]
@@ -501,9 +557,15 @@ def _run_distributed(
         if checkpoint_dir:
             # the highest post-drain score saves the final checkpoint
             if pid == max(final_scores, key=lambda r: final_scores[r]):
-                model.save(checkpoint_dir, recorder)
+                model.save(checkpoint_dir, recorder, extra_meta=(
+                    {"next_iter": i + 1, "preempted": True}
+                    if preempted else None))
         bytes_sent, bytes_received = peer.bytes_sent, peer.bytes_received
+        if pid == 0:
+            _sup.heartbeat(recorder.n_iter, model.epoch, None,
+                           status="preempted" if preempted else "completed")
     finally:
+        _sup.uninstall_preemption_handler()
         if peer is not None:
             peer.close()
         if kv is not None:
@@ -518,11 +580,11 @@ def _run_distributed(
     return {
         "epochs": model.epoch,
         "iterations": recorder.n_iter,
-        "preempted": False,
+        "preempted": preempted,
         "resumed_from": resumed_from,
         "restarts": recorder.restart_events,
         "n_restarts": len(recorder.restart_events),
-        "mttr_s": None,
+        "mttr_s": recorder.mttr_s,
         "pushes": n_pushes,
         "delivered": sum(delivered.values()),
         "merges": n_merges,
