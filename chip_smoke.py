@@ -12,11 +12,13 @@ NVIDIA card.
     python3 chip_smoke.py --phases serving_fleet  # router, replicas, ...
     python3 chip_smoke.py --phases serving_tp  # tp = 2 serving, card 0
     python3 chip_smoke.py --phases exchange    # zero1, int8/fp8, .shards
+    python3 chip_smoke.py --phases parallel_train  # tp = 2, sp = 2 training
     python3 chip_smoke.py --phases resilience  # supervisor, drills, elastic
 
 Phases (``--phases`` takes a comma list of kernels, serving,
-serving_ext, serving_fleet, serving_tp, training, exchange, cnn, async,
-async_dist, resilience; the card-and-build phase always runs; each
+serving_ext, serving_fleet, serving_tp, training, exchange,
+parallel_train, cnn, async, async_dist, resilience; the card-and-build
+phase always runs; each
 phase's seconds are printed at the end):
 
 1. card and build — the card's name and power limit from nvidia-smi;
@@ -138,6 +140,32 @@ phase's seconds are printed at the end):
    exchange alone over the TCP center on the fp32, int8 and fp8 wires
    (bytes each way, the D2H / exchange / H2D split) and the codec's
    identity (the center decodes what the sender decodes);
+7c. parallel_train — Llama training at tp > 1 and sp > 1 through
+   ``bsp_worker.run``, ranks on card 0 over gloo: the one-rank run in
+   this process (a one-rank NCCL group), then two children
+   (``chip_smoke.py --pt-rank r``) that run in turn tp = 2, sp = 2 with
+   ring attention and sp = 2 with Ulysses, then four that run tp = 2 x
+   sp = 2 (ring); each layout first at the small width in fp32 (SGD at
+   lr 0.5; K1-K3 on the SIMT kernels), then at Llama-3-8B widths,
+   ``PT_LAYERS`` deep, seq 8192, batch 1, bf16, Adam, remat, the
+   chunked head (the tensor cores), ``PT_STEPS`` steps from the same
+   seed's init (drawn whole, then sharded) and batches.  Every rank's
+   losses are held to the one-rank run's within ``PT_RTOL`` and the
+   norm of each leaf's first exchanged gradient (its shards' over the
+   model group) to the one-rank run's within ``PT_GRAD_RTOL`` (Adam
+   hides a gradient's scale from the losses), its K1/K2/K3 launches
+   to the formula (seq rank r folds r + 1 ring hops a layer, the
+   forward twice under remat) on its dtype's route, and no plain
+   version of K1-K3 and no SDPA may run on the path; each rank's step
+   time, tokens/s, peak memory and the wall time of its collectives
+   (the ring's hop, the Ulysses all-to-all, the tp all-reduces, the
+   gradient exchange: at sp = 2 the seq group's f32 gradient mean) are
+   printed.  Then K1, K2 and K3 against their plain versions at every
+   shape and causality the path gives them (``pt_path_shapes``), and
+   K2/K3 against the global (lse, delta) of a two-block merge, as the
+   ring's backward feeds them; K1, K2 and K3 timed at the ring's full
+   (non-causal) hop shape [1, 32, 4096, 128] bf16 beside their bounds
+   and SDPA;
 8. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
    (``TM_DATA_DIR`` points at an empty directory under ``build/``): a
    small fp32 WResNet trained 3 BSP steps on the card and on the CPU
@@ -218,7 +246,7 @@ phase's seconds are printed at the end):
    deep, K1-K3 on the tensor cores): one supervised launch, a sigterm
    after step 2, the preemption checkpoint stamped ``next_iter`` 3 and
    the relaunch resumed there: 3 steps a life (none lost or repeated),
-   losses bitwise an uninterrupted run's, K1/K2/K3 launches 26/12/12;
+   losses bitwise an uninterrupted run's, K1/K2/K3 launches 13/6/6;
    the checkpoint's GiB, the preemption save, the resume (validation and
    load) and the epoch's save seconds, the time to recovery.  Then the
    elastic shrink: two ranks on card 0 over gloo (``--resilience-rank
@@ -325,12 +353,23 @@ REDUCED = {
     "which stages every collective through the host (a deployment gives "
     "each rank a card and NCCL, which refuses two ranks on one card): "
     "the run has one card",
-    "n_layers (resilience, full width)": "2 (32): one supervised run "
-    "writes, validates and reads back a 17.8 GB fp32 checkpoint (masters "
-    "and Adam moments) at 2 layers, 96.4 GB at 32; the widths are "
-    "Llama-3-8B's",
+    "n_layers (resilience, full width)": "1 (32): one supervised run "
+    "writes, validates and reads back a 15.2 GB fp32 checkpoint (masters "
+    "and Adam moments) at 1 layer (17.8 GB at 2, until the parallel_train "
+    "phase took its time), 96.4 GB at 32; the widths are Llama-3-8B's",
     "steps (resilience, full width)": "6, one epoch (the sigterm drill after "
     "step 2, resumed at step 3): the run's time limit",
+    "n_layers (parallel_train)": "2 (32): two ranks at sp = 2 "
+    "hold the whole fp32 model and its Adam state each (23.8 GB at 2 "
+    "layers, 352 GB at 32), two or four of them on one card; the widths "
+    "and seq_len 8192 are Llama-3-8B's",
+    "ranks (parallel_train)": "tp = 2, sp = 2 and tp = 2 x sp = 2 as two "
+    "and four processes on card 0 over gloo, which stages every collective "
+    "through the host (a deployment gives each rank a card and NCCL, which "
+    "refuses two ranks on one card): the run has one card",
+    "steps (parallel_train)": "3 a layout, batch 1, no val "
+    "pass: the run's time limit (the seq group's gradient mean "
+    "moves the fp32 gradients through gloo every step)",
     "ranks (resilience, elastic)": "two processes on card 0 over gloo, "
     "shrunk to one (a deployment gives each rank a card and NCCL, which "
     "refuses two ranks on one card): the run has one card",
@@ -372,8 +411,8 @@ FLEET_LAYERS = 4
 # speculative = one-token equality is asserted
 EXT_LAYERS = 32
 PHASES = ("kernels", "serving", "serving_ext", "serving_fleet",
-          "serving_tp", "training", "exchange", "cnn", "async", "async_dist",
-          "resilience")
+          "serving_tp", "training", "exchange", "parallel_train", "cnn",
+          "async", "async_dist", "resilience")
 
 
 def log(*a):
@@ -4352,7 +4391,7 @@ RES_CAUSES = [("preemption", 137, [0, None]), ("hang", None, [1, None]),
               ("sigterm", 0, [3, 1]), ("preemption", 137, [2, None])]
 RES_STALL_S = 8.0        # a small model's step and epoch save take < 1 s
 RES_GRACE_S = 120.0      # a life's first beat: start, CUDA, build, step
-RES_LAYERS = 2           # the full-width arm's depth (REDUCED)
+RES_LAYERS = 1           # the full-width arm's depth (REDUCED)
 RES_STEPS = 6            # its epoch: sigterm after step 2, resumed at 3
 RES_SIGTERM = "0:2:sigterm"
 RES_WIDE_STALL_S = 600.0  # covers the 17.8 GB epoch-end save
@@ -4807,6 +4846,614 @@ def run_resilience_phase(dev, records: dict) -> None:
         "resume_s": arms["preemption"]["resume_s"]}) + f" on {card_line()}")
 
 
+# -- phase 12: tensor- and sequence-parallel training ------------------------
+
+PT_LAYERS = 2            # depth of the full-width layouts (REDUCED)
+PT_SEQ = 8192            # LLAMA3_8B.seq_len: the ring's home
+PT_STEPS = 3
+# the layouts of the two-process arm, run in turn in the same processes
+PT_PAIR = {"tp2": dict(tp=2), "ring": dict(sp=2, sp_mode="ring"),
+           "ulysses": dict(sp=2, sp_mode="ulysses")}
+# the four-process arm
+PT_QUAD = {"tp2_ring": dict(tp=2, sp=2, sp_mode="ring")}
+# per-step losses of a layout against the one-rank run from the same
+# init and batches.  bf16: the layouts round other partial sums (two
+# row-parallel partial products, the ring's per-hop merge of o rounded
+# to bf16 by K1, the all-to-alls' other block shapes) and Adam carries
+# that on (measured at most 3.1e-6 over 3 steps on an H100); fp32 (the
+# SIMT kernels): summation order only (measured 7.5e-8)
+PT_RTOL = {"bfloat16": 1e-4, "float32": 1e-5}
+# the L2 norm of each leaf's gradient after the first step's exchange
+# (a sharded leaf's over its model group) against the one-rank run's:
+# the losses move little in 3 Adam steps from a random init and Adam
+# hides a gradient's scale, so this is what holds the layouts' gradients
+# at full width.  bf16: the layouts round other partial sums (see
+# PT_RTOL); fp32: summation order only
+PT_GRAD_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
+#: the Llama's flash entry points' plain versions and SDPA: the path must
+#: call none of them on the card
+PT_PLAIN = ("mha_reference", "mha_reference_fwd", "flash_bwd_reference")
+
+
+def pt_config(dtype: str, **layout) -> dict:
+    """A parallel_train run: Llama-3-8B widths at ``PT_LAYERS`` and seq
+    ``PT_SEQ`` in bf16 (Adam, remat, the chunked head), or the small
+    model in fp32 (SGD at lr 0.5, which a wrongly scaled gradient would
+    move); batch 1, ``PT_STEPS`` steps, no val pass."""
+    from theanompi_tpu_torch.models import LLAMA3_8B
+
+    if dtype == "bfloat16":
+        cfg = dict(LLAMA3_8B, n_layers=PT_LAYERS, seq_len=PT_SEQ,
+                   compute_dtype="bfloat16", optimizer="adam", lr=1e-4,
+                   remat=True, xent_chunks="auto", seed=0)
+    else:
+        cfg = dict(SMALL, optimizer="sgd", lr=0.5, remat=True)
+    cfg.update(batch_size=1, n_train=PT_STEPS, n_val=0,
+               exch_strategy="ici32", **layout)
+    return cfg
+
+
+def grad_norm_probe(cls, box: dict):
+    """Wrap ``cls._exchange_update`` so that the first step's exchanged
+    gradients (the exchange reduces them in place; the optimizer reads
+    them) leave each leaf's sum of squares in ``box``, by leaf name
+    (an fp32 norm: no copy of the leaf, so the peak memory is the
+    path's own); returns the original for restoring."""
+    import torch
+
+    from theanompi_tpu_torch.models.llama import LAYER_KEYS
+
+    orig = cls._exchange_update
+
+    def probe(self, leaves, grads):
+        orig(self, leaves, grads)
+        if not box:
+            names = (["embed"] + [f"layers.{i}.{k}"
+                                  for i in range(len(self.params["layers"]))
+                                  for k in LAYER_KEYS]
+                     + ["final_norm", "lm_head"])
+            box.update((n, float(torch.linalg.vector_norm(g)) ** 2)
+                       for n, g in zip(names, grads))
+
+    cls._exchange_update = probe
+    return orig
+
+
+def pt_grad_norms(ranks: list, name: str) -> dict:
+    """Each leaf's full gradient norm from the ranks of one layout: a
+    sharded leaf's sums of squares added over the model group of data
+    and seq coordinate 0, a replicated leaf's from model rank 0."""
+    from theanompi_tpu_torch.models.llama import SHARD_AXIS
+
+    heads = [rk["jobs"][name] for rk in ranks
+             if rk["jobs"][name]["coords"][0] == 0
+             and rk["jobs"][name]["coords"][2] == 0]
+    out = {}
+    for leaf in heads[0]["grad_sq"]:
+        parts = [h["grad_sq"][leaf] for h in heads]
+        sharded = SHARD_AXIS[leaf.rsplit(".", 1)[-1]] is not None
+        out[leaf] = math.sqrt(sum(parts) if sharded else parts[0])
+    return out
+
+
+def pt_launches_per_step(layout: dict, seq_rank: int) -> dict:
+    """K1/K2/K3 launches a rank makes a step: the forward runs twice
+    under remat; at sp = s causal the ring folds seq rank r's r + 1
+    visible hops a layer (Ulysses and tp run one launch a layer)."""
+    hops = (seq_rank + 1 if layout.get("sp", 1) > 1
+            and layout.get("sp_mode", "ring") == "ring" else 1)
+    n = pt_config("bfloat16")["n_layers"] * hops
+    return {"K1": 2 * n, "K2": n, "K3": n}
+
+
+class _TimedDist:
+    """``torch.distributed`` as one of the port's modules sees it, with
+    the wall time of each of its all-to-alls and all-reduces (the device
+    synchronized around it) kept under the module's ``kind``: the ring's
+    hop, the Ulysses all-to-all, the tp all-reduces, the gradient
+    exchange's all-reduces (at sp = 2 and one data replica, the seq
+    group's f32 gradient mean)."""
+
+    def __init__(self, real, kind: str, times: dict):
+        self._real, self._kind, self._times = real, kind, times
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def _timed(self, kind, fn, *a, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self._times.setdefault(kind, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def all_to_all_single(self, *a, **kw):
+        return self._timed(self._kind, self._real.all_to_all_single, *a,
+                           **kw)
+
+    def all_reduce(self, *a, **kw):
+        return self._timed(self._kind, self._real.all_reduce, *a, **kw)
+
+
+def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
+    """One rank of a parallel_train arm (``--pt-rank``): a gloo group on
+    card 0, then each job (name, config) through ``bsp_worker.run`` in
+    turn, with each step timed, K1/K2/K3 counted, the plain versions and
+    SDPA counted (none may run), the layout's collectives timed and the
+    peak memory; its numbers as the last line of standard output."""
+    import torch
+    import torch.distributed as tdist
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.models import llama as llama_mod
+    from theanompi_tpu_torch.ops import attention as attn
+    from theanompi_tpu_torch.parallel import exchange, ring_attention, ulysses
+    from theanompi_tpu_torch.parallel import tp as tp_lib
+    from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
+    from theanompi_tpu_torch.workers import bsp_worker
+
+    init_group(dev, rank, world, init, backend="gloo")
+    counters = {"K1": attn.flash_fwd_cuda, "K2": attn.flash_bwd_dkv_cuda,
+                "K3": attn.flash_bwd_dq_cuda}
+    plain_calls = {}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for name in PT_PLAIN:
+        setattr(attn, name, counting(name, getattr(attn, name)))
+    F.scaled_dot_product_attention = counting(
+        "sdpa", F.scaled_dot_product_attention)
+    times = {}
+    ring_attention.dist = _TimedDist(tdist, "ring_hop", times)
+    ulysses.dist = _TimedDist(tdist, "ulysses_a2a", times)
+    exchange.dist = _TimedDist(tdist, "grad_exchange", times)
+    tp_lib.dist = _TimedDist(tdist, "tp_all_reduce", times)
+    steps = []
+    train_iter = llama_mod.Llama.train_iter
+
+    def timed(self, count, recorder):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_iter(self, count, recorder)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+
+    llama_mod.Llama.train_iter = timed
+    grad_sq = {}
+    exchange_update = grad_norm_probe(llama_mod.Llama, grad_sq)
+    out = {}
+    try:
+        for name, cfg in jobs:
+            reset_counts(*counters.values())
+            plain_calls.clear()
+            times.clear()
+            steps.clear()
+            grad_sq.clear()
+            torch.cuda.reset_peak_memory_stats()
+            res = bsp_worker.run(
+                devices=[dev] * world, rank=rank, world_size=world,
+                init_method=init, config=cfg, n_epochs=1, verbose=False,
+                **LLAMA)
+            model = res["model"]
+            out[name] = {
+                "losses": res["recorder"].train_losses,
+                "step_s": list(steps),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "tc_launches": {k: fn.tc_launches
+                                for k, fn in counters.items()},
+                "plain_calls": dict(plain_calls),
+                "collective_ms": {k: list(v) for k, v in times.items()},
+                "seq_rank": model.layout.seq.rank,
+                "coords": list(model.layout.coords),
+                "params_b_rank": sum(t.numel() for t in model._leaves())
+                / 1e9,
+                "grad_sq": dict(grad_sq),
+            }
+            del res, model
+            torch.cuda.empty_cache()
+    finally:
+        llama_mod.Llama.train_iter = train_iter
+        llama_mod.Llama._exchange_update = exchange_update
+        destroy_group()
+    print(json.dumps({"rank": rank, "jobs": out}), flush=True)
+
+
+def pt_spawn(world: int, jobs: list) -> list[dict]:
+    """Start ``world`` ranks on card 0 (``chip_smoke.py --pt-rank r``)
+    over one gloo group; their numbers, rank order."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    spec = json.dumps(jobs)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--pt-rank", str(r),
+         "--pt-world", str(world), "--pt-init", init, "--pt-jobs", spec],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            log_, _ = p.communicate(timeout=DIST_CHILD_TIMEOUT_S)
+            outs.append(log_)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel_train: rank {r} of {world} "
+                                 f"exited {p.returncode}:\n{o[-6000:]}")
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def pt_reference(dev, dtype: str) -> dict:
+    """The one-rank run of ``pt_config(dtype)`` in this process (a
+    one-rank NCCL group), each step timed; K1/K2/K3 counted."""
+    import torch
+
+    from theanompi_tpu_torch.models import Llama
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
+
+    counters = {"K1": flash_fwd_cuda, "K2": flash_bwd_dkv_cuda,
+                "K3": flash_bwd_dq_cuda}
+    steps = []
+    train_iter = Llama.train_iter
+
+    def timed(self, count, recorder):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_iter(self, count, recorder)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters.values())
+    Llama.train_iter = timed
+    grad_sq = {}
+    exchange_update = grad_norm_probe(Llama, grad_sq)
+    try:
+        out = bsp([dev.index], pt_config(dtype), verbose=False)
+    finally:
+        Llama.train_iter = train_iter
+        Llama._exchange_update = exchange_update
+    res = {"losses": out["recorder"].train_losses, "step_s": steps,
+           "grad_norms": {k: math.sqrt(v) for k, v in grad_sq.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "tc_launches": {k: fn.tc_launches for k, fn in counters.items()},
+           "params_b": out["model"].n_params() / 1e9}
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
+             card: str) -> dict:
+    """Hold every rank of one layout's run to the one-rank run: the
+    losses within ``PT_RTOL`` (and equal across the ranks), each leaf's
+    first exchanged gradient norm within ``PT_GRAD_RTOL``, K1/K2/K3 at
+    the formula's count on the dtype's route, no plain version and no
+    SDPA on the path; its numbers (step ms, tokens/s, collectives,
+    peak, the worst gradient norm) logged, then every failure raised
+    together."""
+    rtol = PT_RTOL[dtype]
+    want_losses = ref["losses"]
+    tokens = PT_SEQ if dtype == "bfloat16" else SMALL["seq_len"]
+    fails = []
+    norms = pt_grad_norms(ranks, name)
+    grad_rel = {k: abs(norms[k] - w) / w
+                for k, w in ref["grad_norms"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    if set(norms) != set(ref["grad_norms"]) \
+            or not all(map(math.isfinite, grad_rel.values())) \
+            or grad_rel[worst] > PT_GRAD_RTOL[dtype]:
+        fails.append(f"gradient norms: {worst} at relative "
+                     f"{grad_rel[worst]} of one rank's (> "
+                     f"{PT_GRAD_RTOL[dtype]}); all: {grad_rel}")
+    per_rank = []
+    for r, rk in enumerate(ranks):
+        job = rk["jobs"][name]
+        losses = job["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+        if len(losses) != PT_STEPS or not all(map(math.isfinite, losses)) \
+                or max(rel) > rtol:
+            fails.append(f"rank {r}: losses {losses} against one rank's "
+                         f"{want_losses}: relative {rel} (> {rtol})")
+        per = pt_launches_per_step(layout, job["seq_rank"])
+        want = {k: v * PT_STEPS for k, v in per.items()}
+        if job["launches"] != want:
+            fails.append(f"rank {r} (seq rank {job['seq_rank']}): "
+                         f"launches {job['launches']}, want {want}")
+        tc = job["tc_launches"]
+        if tc != (want if dtype == "bfloat16" else
+                  {k: 0 for k in want}):
+            fails.append(f"rank {r}: tensor-core launches {tc} of {want}")
+        if job["plain_calls"]:
+            fails.append(f"rank {r}: plain versions or SDPA called "
+                         f"{job['plain_calls']}")
+        med = statistics.median(job["step_s"][1:])
+        coll = {k: {"calls": len(v), "median_ms": statistics.median(v),
+                    "total_ms_per_step": sum(v) / PT_STEPS}
+                for k, v in job["collective_ms"].items()}
+        per_rank.append({"rank": r, "coords": job["coords"],
+                         "losses": losses, "max_rel_vs_one_rank": max(rel),
+                         "step_s": job["step_s"], "median_step_ms":
+                         med * 1e3, "tokens_per_s": tokens / med,
+                         "peak_gib": job["peak_gib"],
+                         "params_b_rank": job["params_b_rank"],
+                         "launches": job["launches"], "collectives": coll})
+    res = {"layout": name, "dtype": dtype, "config": layout,
+           "one_rank_losses": want_losses, "rtol": rtol,
+           "grad_norm_worst": {"leaf": worst, "rel": grad_rel[worst],
+                               "rtol": PT_GRAD_RTOL[dtype]},
+           "ranks": per_rank}
+    log(f"[parallel_train {name} {dtype}] {json.dumps(res)} on {card}")
+    if fails:
+        raise AssertionError(f"parallel_train {name} {dtype}: "
+                             + "; ".join(fails))
+    return res
+
+
+def pt_path_shapes(dtype: str) -> list:
+    """((B, H, T, D), causal) of every K1-K3 launch shape on the
+    parallel_train path in ``dtype``, with the arms that launch it: the
+    one rank [H, T]; a tp = 2 rank [H/2, T]; a ring rank [H, T/2], its
+    diagonal hop causal and the earlier block full; a Ulysses rank
+    [H/2, T] (heads split by the all-to-all); a tp = 2 x sp = 2 ring
+    rank [H/2, T/2]."""
+    cfg = pt_config(dtype)
+    h, t, d = cfg["n_heads"], cfg["seq_len"], cfg["dim"] // cfg["n_heads"]
+    at: dict = {}
+    arms = [("one rank", {})] + list(PT_PAIR.items()) + list(PT_QUAD.items())
+    for name, lay in arms:
+        tp, sp = lay.get("tp", 1), lay.get("sp", 1)
+        ring = sp > 1 and lay.get("sp_mode") == "ring"
+        shape = (cfg["batch_size"], h // tp // (1 if ring else sp),
+                 t // sp if ring else t, d)
+        for causal in ((True, False) if ring else (True,)):
+            at.setdefault((shape, causal), []).append(name)
+    return list(at.items())
+
+
+def kernels_vs_plain(got: dict, q, k, v, do, lse, delta, causal: bool,
+                     dtype: str) -> dict:
+    """(max abs error, within ``TOL``) of each of ``got`` (``o``/``lse``
+    from K1, ``dq``/``dk``/``dv`` from K3/K2 run against ``lse`` and
+    ``delta``) against the plain versions evaluated in fp32 on the same
+    inputs, a few heads at a time (they hold [B, h, T, T] f32
+    scores)."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_reference,
+        mha_reference_fwd,
+    )
+
+    b, h, t, _ = q.shape
+    step = max(1, 2**29 // (b * t * k.shape[2]))
+    worst = {n: (0.0, True) for n in got}
+    for h0 in range(0, h, step):
+        sl = (slice(None), slice(h0, h0 + step))
+        qf, kf, vf, dof = (x[sl].float() for x in (q, k, v, do))
+        ref = {}
+        if "o" in got:
+            ref["o"], ref["lse"] = mha_reference_fwd(qf, kf, vf,
+                                                     causal=causal)
+        ref["dq"], ref["dk"], ref["dv"] = flash_bwd_reference(
+            qf, kf, vf, dof, lse[sl], delta[sl], causal=causal)
+        for n, x in got.items():
+            err, ok = compare(x[sl], ref[n],
+                              "float32" if n == "lse" else dtype)
+            worst[n] = (max(worst[n][0], err), worst[n][1] and ok)
+        del ref, qf, kf, vf, dof
+    return worst
+
+
+def pt_kernel_checks(dev, records: dict) -> dict:
+    """K1, K2 and K3 against their plain versions at every shape of
+    ``pt_path_shapes`` in bf16 (the tensor cores) and fp32 (SIMT), and
+    K2/K3 against a GLOBAL (lse, delta): a ring rank's queries over two
+    blocks (its diagonal causal, an earlier one full), the lse and o of
+    their merge fed to K2/K3 for each block, as the ring's backward
+    does; every failure raised together.  Returns the max abs errors,
+    ``{dtype: {shape: {output: error}}}``, the shapes keyed by
+    ``pt_shape_key``."""
+    import torch
+
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_fwd_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out, bad = {}, []
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def bwd(q, k, v, do, lse, delta, causal, sm):
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm)
+        return {"dq": flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal,
+                                        sm), "dk": dk, "dv": dv}
+
+    def note(key, dtype, errs):
+        out.setdefault(dtype, {})[key] = {n: e for n, (e, _) in
+                                          errs.items()}
+        if not all(ok for _, ok in errs.values()):
+            bad.append(f"{dtype} {key}: {errs}")
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for (shape, causal), _ in pt_path_shapes(dtype):
+            q, k, v, do = (randn(shape, dt) for _ in range(4))
+            sm = shape[-1] ** -0.5
+            o, lse = flash_fwd_cuda(q, k, v, causal, sm)
+            delta = (do.float() * o.float()).sum(-1)
+            got = dict(bwd(q, k, v, do, lse, delta, causal, sm), o=o, lse=lse)
+            note(pt_shape_key(shape, causal), dtype, kernels_vs_plain(got, q, k, v, do, lse, delta,
+                                              causal, dtype))
+            del q, k, v, do, o, lse, delta, got
+        # the ring's backward: the global residuals of a two-block merge
+        (shape, _), _ = next(x for x in pt_path_shapes(dtype)
+                             if "ring" in x[1])
+        q, k0, v0, k1, v1, do = (randn(shape, dt) for _ in range(6))
+        sm = shape[-1] ** -0.5
+        o0, l0 = flash_fwd_cuda(q, k0, v0, True, sm)
+        o1, l1 = flash_fwd_cuda(q, k1, v1, False, sm)
+        lse = torch.logaddexp(l0, l1)
+        o = (torch.exp(l0 - lse)[..., None] * o0.float()
+             + torch.exp(l1 - lse)[..., None] * o1.float()).to(dt)
+        delta = (do.float() * o.float()).sum(-1)
+        for kb, vb, causal, which in ((k0, v0, True, "diagonal"),
+                                      (k1, v1, False, "earlier")):
+            got = bwd(q, kb, vb, do, lse, delta, causal, sm)
+            note(f"{list(shape)} global lse, {which} block "
+                 f"{'causal' if causal else 'full'}", dtype,
+                 kernels_vs_plain(got, q, kb, vb, do, lse, delta, causal,
+                                  dtype))
+        del q, k0, v0, k1, v1, do, o0, o1, o, lse, delta, got
+        torch.cuda.empty_cache()
+    log(f"[parallel_train] K1/K2/K3 against their plain versions at the "
+        f"path's shapes (max abs error): {json.dumps(out)}")
+    for key in ("K1", "K2", "K3"):
+        for dtype, rk in (("bfloat16", key), ("float32", f"{key} fp32")):
+            if rk in records:
+                records[rk]["parallel_train_shapes"] = {
+                    s: max(e[n] for n in e if n in {
+                        "K1": ("o", "lse"), "K2": ("dk", "dv"),
+                        "K3": ("dq",)}[key])
+                    for s, e in out[dtype].items()
+                    if key != "K1" or "o" in e}
+    if bad:
+        raise AssertionError("parallel_train: kernels disagree with their "
+                             "plain versions: " + "; ".join(bad))
+    return out
+
+
+def pt_shape_key(shape, causal: bool) -> str:
+    return f"{list(shape)} {'causal' if causal else 'full'}"
+
+
+def pt_hop_kernels(dev, records: dict, errs: dict) -> None:
+    """K1, K2 and K3 at the ring's full (non-causal) hop shape
+    [1, 32, 4096, 128] bf16, timed beside their bounds, their plain
+    versions and SDPA's forward and backward; ``errs`` are their errors
+    against the plain versions at that shape (``pt_kernel_checks``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    flush = torch.empty(256 * 2**20, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    shape = (1, 32, PT_SEQ // 2, 128)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    sm = shape[-1] ** -0.5
+    o, lse = flash_fwd_cuda(q, k, v, False, sm)
+    delta = (do.float() * o.float()).sum(-1)
+    b, h, t, d = shape
+    f_ms = time_ms(lambda: flash_fwd_cuda(q, k, v, False, sm), flush=flush)
+    k2_ms = time_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                               False, sm), flush=flush)
+    k3_ms = time_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                              False, sm), flush=flush)
+    plain_f = time_ms(lambda: mha_reference_fwd(q, k, v, causal=False),
+                      reps=5, flush=flush)
+    plain_b = time_ms(lambda: flash_bwd_reference(q, k, v, do, lse, delta,
+                                                  causal=False),
+                      reps=5, flush=flush)
+    sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                     flush=flush)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    og = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_b = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                                 retain_graph=True),
+                     flush=flush)
+    f_bound = bound(4 * d * b * h * t * t,
+                    4 * q.numel() * q.element_size() + lse.numel() * 4,
+                    "bfloat16")
+    k2_bound = bwd_bound("dkv", q, "bfloat16", causal=False)
+    k3_bound = bwd_bound("dq", q, "bfloat16", causal=False)
+    shape_s = f"{list(shape)} bfloat16 full (a ring hop off the diagonal)"
+    for key, err, ms, plain, lib, (b_ms, b_by) in (
+            ("K1", max(errs["o"], errs["lse"]), f_ms, plain_f, sdpa_f,
+             f_bound),
+            ("K2", max(errs["dk"], errs["dv"]), k2_ms, plain_b, sdpa_b,
+             k2_bound),
+            ("K3", errs["dq"], k3_ms, plain_b, sdpa_b, k3_bound)):
+        rec = {"shape": shape_s, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by}
+        log(f"{key} at the ring's full hop shape {shape_s}: "
+            f"{json.dumps(rec)}")
+        if key in records:
+            records[key]["full_hop_shape"] = rec
+    del flush
+
+
+def run_parallel_train_phase(dev, records: dict, card: str) -> None:
+    """Phase parallel_train: Llama training at tp = 2, sp = 2 (ring and
+    Ulysses) and tp = 2 x sp = 2, ranks on card 0 over gloo, against the
+    one-rank run from the same init (drawn whole from the seed, then
+    sharded) and batches; each layout in fp32 at the small width (the
+    SIMT kernels) and in bf16 at Llama-3-8B widths (the tensor cores);
+    then K1/K2/K3 at the ring's full hop shape."""
+    t0 = time.perf_counter()
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        refs[dtype] = pt_reference(dev, dtype)
+        log(f"[parallel_train one rank {dtype}] {json.dumps(refs[dtype])} "
+            f"on {card}")
+    arms = {}
+    for world, layouts in ((2, PT_PAIR), (4, PT_QUAD)):
+        jobs = [(f"{name}_{dtype}", pt_config(dtype, **layout))
+                for name, layout in layouts.items()
+                for dtype in ("float32", "bfloat16")]
+        ta = time.perf_counter()
+        ranks = pt_spawn(world, jobs)
+        log(f"[parallel_train] {world} ranks on card 0: "
+            f"{time.perf_counter() - ta:.1f} s")
+        for name, layout in layouts.items():
+            for dtype in ("float32", "bfloat16"):
+                arms[f"{name}_{dtype}"] = pt_check(
+                    f"{name}_{dtype}", dtype, layout, ranks, refs[dtype],
+                    card)
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    fp32 = {"K1 fp32": 0, "K2 fp32": 0, "K3 fp32": 0}
+    for key, res in arms.items():
+        for rk in res["ranks"]:
+            for k, n in rk["launches"].items():
+                if res["dtype"] == "bfloat16":
+                    launches[k] += n
+                else:
+                    fp32[f"{k} fp32"] += n
+    for k, n in list(launches.items()) + list(fp32.items()):
+        if k in records:
+            add_launches(records[k], parallel_train=n)
+    errs = pt_kernel_checks(dev, records)
+    pt_hop_kernels(dev, records, errs["bfloat16"][pt_shape_key(
+        (1, 32, PT_SEQ // 2, 128), False)])
+    log(f"[parallel_train] {time.perf_counter() - t0:.1f} s")
+
+
 def ptxas_kernels(report: str) -> list[dict]:
     """Each entry function of an ``nvcc -Xptxas -v`` report: its
     (mangled) name, registers and spill bytes (stores + loads)."""
@@ -4889,6 +5536,13 @@ def parse_args(argv=None):
                     help=argparse.SUPPRESS)
     ap.add_argument("--exchange-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--exchange-dir", default=None, help=argparse.SUPPRESS)
+    # a rank of the parallel_train phase's arms, started by the phase
+    ap.add_argument("--pt-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--pt-world", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--pt-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pt-jobs", default=None, help=argparse.SUPPRESS)
     # a rank of the resilience phase's elastic arm, started by its
     # supervisor's rank-group runner
     ap.add_argument("--resilience-rank", type=int, default=None,
@@ -4923,6 +5577,14 @@ def main(argv=None) -> int:
         print("chip_smoke: theanompi_tpu_torch/ is not beside this script",
               file=sys.stderr)
         return 2
+    # one bytecode cache, inside the checkout, for every process the run
+    # starts: an interpreter set to write none compiles torch's modules
+    # again in each child (on the H100 host, ~2.5 s a process, most of it
+    # in the imports of the first activation checkpoint)
+    cache = str(ROOT / "build" / "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = cache, False
     sys.path.insert(0, str(ROOT))
     if ns.spec_json is not None:
         journal_worker()
@@ -4934,6 +5596,10 @@ def main(argv=None) -> int:
     if ns.exchange_rank is not None:
         exchange_rank(torch.device("cuda", 0), ns.exchange_rank,
                       ns.exchange_init, ns.exchange_dir)
+        return 0
+    if ns.pt_rank is not None:
+        pt_rank(torch.device("cuda", 0), ns.pt_rank, ns.pt_world,
+                ns.pt_init, json.loads(ns.pt_jobs))
         return 0
     if ns.resilience_rank is not None:
         resilience_rank(torch.device("cuda", 0), ns.resilience_rank,
@@ -5120,6 +5786,11 @@ def main(argv=None) -> int:
         phase_start("exchange", t_start)
         # zero1, the compressed wire, .shards and its reshard, the codec
         run_exchange_phase(dev, ns.layers or 8, records)
+
+    if "parallel_train" in ns.phases:
+        phase_start("parallel_train", t_start)
+        # tp = 2, sp = 2 ring and Ulysses, tp = 2 x sp = 2 on card 0
+        run_parallel_train_phase(dev, records, card)
 
     if "cnn" in ns.phases:
         phase_start("cnn", t_start)

@@ -90,7 +90,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "theanompi_tpu_torch.utils.sharded_checkpoint",
             "theanompi_tpu_torch.utils.reshard",
             # resilience: the supervisor, heartbeats and drills
-            "theanompi_tpu_torch.utils.supervisor"} <= set(MODULES)
+            "theanompi_tpu_torch.utils.supervisor",
+            # training at tp > 1 and sp > 1: the ring and Ulysses
+            "theanompi_tpu_torch.parallel.ring_attention",
+            "theanompi_tpu_torch.parallel.ulysses",
+            "theanompi_tpu_torch.ops.attention"} <= set(MODULES)
 
 
 def test_native_loader_source_is_the_ports_own_copy():
@@ -234,6 +238,11 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     (dict(config=dict(TRAIN, elastic=True, elastic_batch_policy="all")),
      ValueError, "elastic_batch_policy"),
     (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
+    (dict(config=dict(TRAIN, pp=2)), NotImplementedError, "A12"),
+    (dict(config=dict(TRAIN, n_experts=4)), NotImplementedError, "A12"),
+    (dict(config=dict(TRAIN, tp=2)), ValueError, "needs at least 2"),
+    (dict(config=dict(TRAIN, sp=2, sp_mode="ulysses")), ValueError,
+     "needs at least 2"),
     (dict(config=dict(TRAIN, loader_pipeline=1)), ValueError,
      "at least 2 ring slots"),
     (dict(devices=["meta"]), ValueError, "unsupported device"),

@@ -12,6 +12,7 @@ import torch
 
 from theanompi_tpu.models import llama as jax_llama
 from theanompi_tpu_torch.models import llama as port_llama
+from theanompi_tpu_torch.parallel import mesh as port_mesh
 from theanompi_tpu_torch.parallel import tp as port_tp
 from theanompi_tpu_torch.parallel.mesh import ModelGroup
 from theanompi_tpu_torch.utils.checkpoint import parse_keystr
@@ -117,17 +118,33 @@ def test_config_checks():
         port_llama.Llama(dict(CFG, n_kv_heads=3), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         port_llama.Llama(dict(CFG, compute_dtype="float16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_llama.Llama(dict(CFG, sp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_llama.Llama(dict(CFG, n_experts=4), device="cpu")
-    # tp = 2 serves over a two-rank group and trains nowhere yet
+    # pp and MoE stay refused (A12); sp is a layout knob with the JAX
+    # asserts on it
+    for knob in (dict(pp=2), dict(n_experts=4), dict(ep=2)):
+        with pytest.raises(NotImplementedError, match="A12"):
+            port_llama.Llama(dict(CFG, **knob), device="cpu")
+    with pytest.raises(ValueError, match="sp_mode"):
+        port_llama.Llama(dict(CFG, sp=2, sp_mode="tree"), device="cpu")
+    with pytest.raises(ValueError, match="seq_len"):
+        port_llama.Llama(dict(CFG, sp=3), device="cpu")
+    with pytest.raises(ValueError, match="ulysses"):
+        port_llama.Llama(dict(CFG, sp=4, sp_mode="ulysses"), device="cpu")
+    assert port_llama.Llama(dict(CFG, sp=2), device="cpu").sp == 2
+    # tp = 2 runs over a two-rank group (a ModelGroup or a layout's)
     with pytest.raises(ValueError, match="ModelGroup"):
         port_llama.Llama(dict(CFG, tp=2), device="cpu")
     two = ModelGroup(rank=0, size=2, device_group=None, cpu_group=None)
     m = port_llama.Llama(dict(CFG, tp=2), device="cpu", group=two)
-    with pytest.raises(NotImplementedError, match="A12"):
-        m.build_model()
+    m.build_model()
+    # training at tp·sp > 1 runs over the layout the BSP worker builds
+    # before the model (one process cannot lay out two model ranks)
+    had_group = torch.distributed.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="Layout built before"):
+            m.compile_iter_fns()
+    finally:
+        if not had_group:
+            port_mesh.destroy_group()
 
 
 def test_llama3_8b_shape_is_the_jax_one():

@@ -166,6 +166,16 @@ class TMModel:
     #: the exchange of the compile (``_compile_exchange``)
     _rank: int = 0
     _world: int = 1
+    #: the exchange's group when the model lays the world out (tp, sp;
+    #: ``_rank``/``_world`` are then its data coordinate and size): the
+    #: data axis, or (data × seq) on an f32 wire at sp > 1; None: the
+    #: default group, every rank a data replica
+    _dp_group = None
+    #: the seq axis's group on a 16-bit wire at sp > 1: the gradients'
+    #: f32 mean over it comes before the data exchange
+    _seq_group = None
+    #: whether ``checkpoint_trees`` is a collective (it gathers shards)
+    _save_collective: bool = False
     _zero1: bool = False
     _compression: str | None = None
     _fspec = None
@@ -333,7 +343,11 @@ class TMModel:
                 r1=self.ef_state.get("r1"), r2=self.ef_state.get("r2"),
                 bucket_elems=self._bucket_elems)
         else:
-            self._strategy(grads, bucket_elems=self._bucket_elems)
+            if self._seq_group is not None:
+                allreduce_mean(grads, group=self._seq_group,
+                               bucket_elems=self._bucket_elems)
+            self._strategy(grads, group=self._dp_group,
+                           bucket_elems=self._bucket_elems)
         self.opt_state = self.optimizer.update(leaves, grads, self.opt_state,
                                                lr)
 
@@ -413,8 +427,10 @@ class TMModel:
         disk."""
         world = dist.get_world_size() if dist.is_initialized() else 1
         rank = dist.get_rank() if dist.is_initialized() else 0
+        # world_size: the data replicas (JAX dp_replicas); n_devices: all
+        dp = self._world if self._dp_group is not None else world
         meta = {"epoch": self.epoch, "lr": self.current_lr,
-                "world_size": world, "n_devices": world}
+                "world_size": dp, "n_devices": world}
         gb = getattr(getattr(self, "data", None), "global_batch", None)
         if gb is not None:
             meta["global_batch"] = int(gb)
@@ -442,9 +458,12 @@ class TMModel:
                                     rank=rank, world=world,
                                     keep_last=keep_last)
             return
+        # a model whose trees gather shards runs the gather on every rank
+        trees = self.checkpoint_trees() if self._save_collective else None
         if rank != 0:
             return
-        trees = {g: _to_numpy(t) for g, t in self.checkpoint_trees().items()}
+        trees = {g: _to_numpy(t) for g, t in
+                 (trees or self.checkpoint_trees()).items()}
         ckpt.save_checkpoint(directory, self.epoch, trees, meta,
                              keep_last=keep_last)
 

@@ -1,5 +1,5 @@
 """Llama-family decoder transformer, no MoE: serving at tp >= 1 and BSP
-training at tp = sp = pp = 1.
+training at tp >= 1 and sp >= 1 (pp = 1).
 
 Port of ``theanompi_tpu/models/llama.py``: the model math (RMSNorm,
 interleaved-pair RoPE with theta 10000, GQA, SwiGLU, untied LM head),
@@ -23,11 +23,11 @@ weights ``[in, out]`` so every product is ``x @ w``.
   the fused LM head (chunked over the vocab at >= 64k, else dense), the
   backward (attention through kernels K1-K3 on the card), the
   allreduce-mean of the gradients by the named strategy over the
-  process group, and the optimizer update.  Each rank takes rows
-  ``[r*B, (r+1)*B)`` of the global batch, as the JAX ``batch_spec``
-  shards it, staged as int64 ids through ``data.HostStager`` (or the
-  streaming feed, with ``loader_pipeline``); loss and error are means
-  over the ranks.
+  data group, and the optimizer update.  A rank at data coordinate d
+  takes rows ``[d*B, (d+1)*B)`` of the global batch, as the JAX
+  ``batch_spec`` shards it, staged as int64 ids through
+  ``data.HostStager`` (or the streaming feed, with ``loader_pipeline``);
+  loss and error are means over the data and seq ranks.
 
 - Tensor-parallel serving (``tp > 1`` with a ``ModelGroup``, one
   process a rank): each rank holds the JAX ``param_specs`` shard of
@@ -38,8 +38,26 @@ weights ``[in, out]`` so every product is ``x @ w``.
   GQA's grouping.  Random parameters are drawn in full from the seed
   and sliced, so every tp serves the same weights.
 
-Training at tp > 1, sp/pp > 1, MoE and selective remat (``remat_save``)
-are not ported yet (ROADMAP.md).
+- Training at tp > 1 and sp > 1 (one process a rank, the world laid
+  out as a ``parallel.mesh.Layout``: data × model × seq, seq fastest).
+  The model axis shards the leaves as serving does; the replicated
+  input of each column-parallel product goes through
+  ``tp.copy_to_group`` and each row-parallel sum through
+  ``tp.reduce_from_group`` (the JAX psum/pvary transposes), and the
+  fused head reduces over the vocab shards.  The seq axis gives each
+  rank ``T/sp`` columns of the inputs and targets at positions
+  ``seq_idx·T/sp + arange``; attention runs as ring attention
+  (``sp_mode="ring"``, ``parallel/ring_attention.py``) or Ulysses
+  (``"ulysses"``, ``parallel/ulysses.py``).  Each rank's loss is its
+  local mean over sp (the JAX pmean's cotangent) and every leaf's
+  gradient is summed over the seq group in f32 (JAX's autodiff psum)
+  before the data exchange.  The fp32 masters are drawn whole and
+  sharded, so init equals the tp = 1 model's; checkpoints gather the
+  model group's shards and hold full arrays.
+
+pp > 1, MoE and selective remat (``remat_save``) are not ported yet
+(ROADMAP.md); neither are zero1, the compressed wire and elastic
+resume at tp·sp > 1.
 """
 
 from __future__ import annotations
@@ -58,7 +76,14 @@ from theanompi_tpu_torch.ops.attention import flash_attention
 # row-count-independent kernel (ops/norm.rms_norm_rows) has no backward
 from theanompi_tpu_torch.ops.norm import rms_norm
 from theanompi_tpu_torch.parallel import tp as tp_lib
-from theanompi_tpu_torch.parallel.mesh import init_group, resolve_device
+from theanompi_tpu_torch.parallel.mesh import (
+    current_layout,
+    init_group,
+    resolve_device,
+)
+from theanompi_tpu_torch.parallel.ring_attention import ring_attention
+from theanompi_tpu_torch.parallel.strategies import resolve_compression
+from theanompi_tpu_torch.parallel.ulysses import ulysses_attention
 from theanompi_tpu_torch.utils import checkpoint as ckpt
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
@@ -133,7 +158,8 @@ class Llama(TMModel):
     """Llama: config, parameters and device, for serving and training.
 
     Config knobs read: ``dim, n_layers, n_heads, n_kv_heads, ffn_dim,
-    vocab, seq_len, compute_dtype, seed, tp`` and, for training,
+    vocab, seq_len, compute_dtype, seed, tp, sp, sp_mode`` and, for
+    training,
     ``batch_size`` (per rank), ``n_train, n_val, n_epochs, lr,
     optimizer, weight_decay, remat, xent_chunks, exch_strategy,
     exchange_bucket_mb, lr_schedule, loader_pipeline``.  Serving
@@ -141,9 +167,11 @@ class Llama(TMModel):
     at first use unless ``params`` is given (e.g. from
     :func:`params_from_jax` or a checkpoint); training draws the same
     values in fp32 at ``compile_iter_fns``.  ``device`` defaults to the card;
-    ``device="cpu"`` runs on the CPU.  At ``tp > 1`` (serving only)
-    ``group`` is this rank's ``parallel.mesh.ModelGroup`` of ``tp``
-    ranks and ``params`` its shards.
+    ``device="cpu"`` runs on the CPU.  At ``tp > 1`` ``group`` is this
+    rank's ``parallel.mesh.ModelGroup`` of ``tp`` ranks (by default the
+    model axis of the ``current_layout()``, which the BSP worker builds)
+    and ``params`` its shards.  At ``sp > 1`` (training) the seq axis
+    comes from the layout.
     """
 
     def __init__(self, config: dict | None = None, device=None, *,
@@ -168,22 +196,39 @@ class Llama(TMModel):
             raise ValueError(
                 "n_heads must be a multiple of n_kv_heads (GQA groups)"
             )
-        unported = {k: c[k] for k in ("sp", "pp", "n_experts", "ep")
+        unported = {k: c[k] for k in ("pp", "n_experts", "ep")
                     if int(c.get(k, 0 if k == "n_experts" else 1))
                     != (0 if k == "n_experts" else 1)}
         if unported:
             raise NotImplementedError(
-                f"the port runs sp=pp=1 without MoE; {unported} is not "
+                f"the port runs pp=1 without MoE; {unported} is not "
                 f"ported yet (ROADMAP.md A12: parallel layouts, MoE)"
             )
         self.tp = int(c.get("tp", 1))
-        self.group = group
+        self.sp = int(c.get("sp", 1))
+        self.sp_mode = str(c.get("sp_mode", "ring"))
+        if self.sp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got "
+                             f"{self.sp_mode!r}")
+        if self.seq_len % self.sp:
+            raise ValueError(f"seq_len {self.seq_len} must divide by sp "
+                             f"{self.sp}")
+        # the layout the BSP worker built for this run, if it fits
+        lay = current_layout()
+        if lay is not None and (lay.sizes["model"], lay.sizes["seq"]) \
+                != (self.tp, self.sp):
+            lay = None
+        self.layout = lay
+        if group is None and lay is not None and self.tp > 1:
+            group = lay.model
+        self.group = group if group is not None and group.size > 1 else None
         self.tp_rank = group.rank if group is not None else 0
         if self.tp > 1:
             if group is None or group.size != self.tp:
                 raise ValueError(
-                    f"tp={self.tp} serves over a ModelGroup of {self.tp} "
-                    f"ranks (parallel.mesh.ModelGroup.join), got {group}"
+                    f"tp={self.tp} runs over a ModelGroup of {self.tp} "
+                    f"ranks (parallel.mesh.ModelGroup.join, or the model "
+                    f"axis of a parallel.mesh.Layout), got {group}"
                 )
             for name, n in (("n_heads", self.n_heads),
                             ("n_kv_heads", self.n_kv_heads),
@@ -195,6 +240,13 @@ class Llama(TMModel):
         elif group is not None and group.size != 1:
             raise ValueError(f"a {group.size}-rank group needs tp="
                              f"{group.size} in the config")
+        if self.sp_mode == "ulysses":
+            h_loc = self.n_heads // self.tp
+            hkv_loc = self.n_kv_heads // self.tp
+            if h_loc % self.sp or hkv_loc % self.sp:
+                raise ValueError(
+                    f"ulysses needs per-TP-shard heads divisible by sp: "
+                    f"H/tp={h_loc}, Hkv/tp={hkv_loc}, sp={self.sp}")
         if c.get("device_data_cache"):
             raise NotImplementedError(
                 "device_data_cache for Llama is not ported yet (ROADMAP.md "
@@ -292,31 +344,45 @@ class Llama(TMModel):
     # -- forward ----------------------------------------------------------
 
     def _layer(self, p, x, pos):
-        """One decoder block: x [B, T, D] in the compute dtype."""
-        cd = self.compute_dtype
-        h, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
-        xn = rms_norm(x, p["attn_norm"])
+        """One decoder block on this rank's shards: x [B, T/sp, D] in the
+        compute dtype, H/tp query and Hkv/tp kv heads."""
+        cd, g = self.compute_dtype, self.group
+        h, hkv = self.n_heads // self.tp, self.n_kv_heads // self.tp
+        hd = self.head_dim
+        xn = tp_lib.copy_to_group(rms_norm(x, p["attn_norm"]), g)
         q = rope(_heads(tp_lib.col_parallel(xn, p["wq"]), h, hd), pos)
         k = rope(_heads(tp_lib.col_parallel(xn, p["wk"]), hkv, hd), pos)
         v = _heads(tp_lib.col_parallel(xn, p["wv"]), hkv, hd)
+        # GQA: K/V stay compact on the wire; repeated only to compute
         rep = h // hkv
-        if rep != 1:
-            # GQA: jnp.repeat on axis 1 is repeat_interleave on dim 1
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
-        o = flash_attention(q, k, v, causal=True)
-        x = x + tp_lib.row_parallel(_unheads(o), p["wo"]).to(cd)
-        xn = rms_norm(x, p["mlp_norm"])
+        if self.sp == 1:
+            if rep != 1:
+                # jnp.repeat on axis 1 is repeat_interleave on dim 1
+                k = k.repeat_interleave(rep, dim=1)
+                v = v.repeat_interleave(rep, dim=1)
+            o = flash_attention(q, k, v, causal=True)
+        elif self.sp_mode == "ring":
+            o = ring_attention(q, k, v, self.layout.seq, causal=True,
+                               kv_rep=rep)
+        else:
+            o = ulysses_attention(q, k, v, self.layout.seq, causal=True,
+                                  kv_rep=rep)
+        x = x + tp_lib.row_parallel(_unheads(o), p["wo"], g).to(cd)
+        xn = tp_lib.copy_to_group(rms_norm(x, p["mlp_norm"]), g)
         gate = F.silu(tp_lib.col_parallel(xn, p["w_gate"]))
         up = tp_lib.col_parallel(xn, p["w_up"])
-        return x + tp_lib.row_parallel(gate * up, p["w_down"]).to(cd)
+        return x + tp_lib.row_parallel(gate * up, p["w_down"], g).to(cd)
 
     def _forward(self, params, ids):
-        """ids [B, T] -> final-normed hidden states [B, T, D]; each
-        layer under non-reentrant ``checkpoint`` when ``remat`` and
-        gradients are on (its forward runs again in the backward)."""
-        pos = torch.arange(ids.shape[1], device=ids.device)
-        x = tp_lib.embed_lookup(ids, params["embed"], self.vocab)
+        """ids [B, T/sp] (this rank's columns) -> final-normed hidden
+        states [B, T/sp, D]; each layer under non-reentrant
+        ``checkpoint`` when ``remat`` and gradients are on (its forward,
+        collectives included, runs again in the backward)."""
+        t_loc = ids.shape[1]
+        seq_idx = self.layout.seq.rank if self.sp > 1 else 0
+        pos = seq_idx * t_loc + torch.arange(t_loc, device=ids.device)
+        x = tp_lib.embed_lookup(ids, params["embed"], self.vocab,
+                                self.group)
         x = x.to(self.compute_dtype)
         remat = self.remat and torch.is_grad_enabled()
         for p in params["layers"]:
@@ -335,20 +401,16 @@ class Llama(TMModel):
         yf = y.reshape(-1)
         if self._n_xent_chunks > 1:
             loss_vec, pred = tp_lib.chunked_unembed_xent(
-                h2, params["lm_head"], yf, self.vocab, self._n_xent_chunks)
+                h2, params["lm_head"], yf, self.vocab, self._n_xent_chunks,
+                self.group)
         else:
             loss_vec, pred = tp_lib.dense_unembed_xent(
-                h2, params["lm_head"], yf, self.vocab)
+                h2, params["lm_head"], yf, self.vocab, self.group)
         return loss_vec.mean(), (pred != yf).float().mean()
 
     # -- contract -----------------------------------------------------------
 
     def build_model(self, n_replicas: int = 1) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"training at tp={self.tp} is not ported yet (ROADMAP.md "
-                f"A12: parallel/tp.py training); tp > 1 serves only"
-            )
         self.data = MarkovLMData(
             vocab=self.vocab,
             seq_len=self.seq_len,
@@ -365,8 +427,9 @@ class Llama(TMModel):
     def compile_iter_fns(self, exch_strategy: str | None = None,
                          **unknown) -> None:
         """Resolve the exchange, join (or create, one rank) the process
-        group, pick the head, and draw fp32 master parameters and fresh
-        optimizer state."""
+        group, take the layout the BSP worker built at tp·sp > 1 (data ×
+        tp × sp), pick the head, and draw fp32 master parameters (whole,
+        then this rank's shards) and fresh optimizer state."""
         if unknown:
             raise TypeError(
                 f"Llama.compile_iter_fns: unknown kwargs {sorted(unknown)}"
@@ -375,25 +438,54 @@ class Llama(TMModel):
             raise RuntimeError("call build_model() before compile_iter_fns()")
         if not dist.is_initialized():
             init_group(self.device)        # a one-rank group of its own
-        self._rank, self._world = dist.get_rank(), dist.get_world_size()
+        lay = self.layout
+        if self.tp * self.sp > 1:
+            if lay is None:
+                raise ValueError(
+                    f"tp={self.tp}, sp={self.sp} trains over a "
+                    f"parallel.mesh.Layout built before the model "
+                    f"(Layout.build, as bsp_worker.run does)")
+            if self.tp > 1 and self.group is not lay.model:
+                raise ValueError(f"the model group {self.group} is not "
+                                 f"the layout's model axis {lay.model}")
+            cfg = self.config
+            for knob, on in (
+                    ("exch_strategy=zero1",
+                     str(exch_strategy or cfg.get("exch_strategy", "ici32"))
+                     .startswith("zero1")),
+                    ("exch_compression", bool(resolve_compression(cfg)[0])),
+                    ("elastic", bool(cfg.get("elastic")))):
+                if on:
+                    raise NotImplementedError(
+                        f"{knob} at tp*sp={self.tp * self.sp} > 1 is not "
+                        f"ported yet (ROADMAP.md A12: the flat exchange "
+                        f"state and its .shards layout per model shard)")
+        if lay is not None:
+            # the batch rows and the BSP exchange run over the data axis
+            self._rank, self._world = lay.data.rank, lay.dp_replicas
+            self._dp_group = lay.data.device_group
+        else:
+            self._rank, self._world = dist.get_rank(), dist.get_world_size()
+        self._save_collective = self.group is not None
         b = int(self.config.get("batch_size", 8))
         if self._world * b != self.data.global_batch:
             raise ValueError(
-                f"{self._world} ranks x per-rank batch {b} != global batch "
-                f"{self.data.global_batch} (build_model n_replicas must "
-                f"match the group)"
+                f"{self._world} data replicas x per-replica batch {b} != "
+                f"global batch {self.data.global_batch} (build_model "
+                f"n_replicas must match the layout's data axis)"
             )
         # the chunked head is a memory feature: "auto" chunks only at a
-        # vocab >= 64k; an int pins the count; 0/1 is the dense head
+        # local vocab >= 64k; an int pins the count; 0/1 is the dense head
+        v_loc = self.vocab // self.tp
         xc = self.config.get("xent_chunks", "auto")
         if xc == "auto":
-            n = tp_lib.pick_xent_chunks(self.vocab) \
-                if self.vocab >= 65536 else 1
+            n = tp_lib.pick_xent_chunks(v_loc) if v_loc >= 65536 else 1
         else:
             n = max(1, int(xc or 1))
-            if self.vocab % n:
+            if v_loc % n:
                 raise ValueError(
-                    f"xent_chunks={n} must divide the vocab {self.vocab}"
+                    f"xent_chunks={n} must divide the local vocab {v_loc} "
+                    f"(vocab {self.vocab} / tp {self.tp})"
                 )
         self._n_xent_chunks = n
         params = self.init_params(torch.float32)
@@ -402,6 +494,14 @@ class Llama(TMModel):
         self._params = params
         self.opt_state = None
         self._compile_exchange(exch_strategy)
+        if self.sp > 1:
+            # the seq ranks' gradients sum in f32, as JAX's autodiff psum
+            # over seq: an f32 wire means them over (data × seq) in one
+            # pass, a 16-bit wire means them over seq first
+            if self._strategy.wire_dtype is None:
+                self._dp_group = lay.data_seq.device_group
+            else:
+                self._seq_group = lay.seq.device_group
         if not self._zero1:          # zero1 holds the state of its shard
             self.opt_state = self.optimizer.init(list(_leaves(params)))
         # this rank's rows of each global (inputs, targets) batch, as
@@ -409,17 +509,31 @@ class Llama(TMModel):
         self._init_feed(b, dtypes=(torch.int64, torch.int64))
 
     def _rank_mean(self, *xs) -> torch.Tensor:
+        """The means of ``xs`` over the data and seq ranks (the model
+        ranks hold equal values), as the JAX pmean over (data, seq)."""
         stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
                                              device=self.device)
                              for x in xs])
-        dist.all_reduce(stats)
-        return stats / self._world
+        if self.layout is None:
+            dist.all_reduce(stats)
+            return stats / self._world
+        ds = self.layout.data_seq
+        dist.all_reduce(stats, group=ds.device_group)
+        return stats / ds.size
+
+    def _seq_columns(self, *ts):
+        """This seq rank's ``T/sp`` columns of each [B, T] batch."""
+        if self.sp == 1:
+            return ts
+        t_loc, s = self.seq_len // self.sp, self.layout.seq.rank
+        return tuple(t[:, s * t_loc:(s + 1) * t_loc].contiguous()
+                     for t in ts)
 
     def train_iter(self, count: int, recorder) -> None:
         recorder.start()
         staged = (self._feed.next(count) if self._feed is not None
                   else self._stager.stage(self.data.train_batch(count)))
-        x, y = staged.wait()
+        x, y = self._seq_columns(*staged.wait())
         recorder.end("wait")
         recorder.start()
         leaves = list(_leaves(self.params))
@@ -432,13 +546,15 @@ class Llama(TMModel):
 
     @torch.no_grad()
     def val_iter(self, count: int, recorder):
-        x, y = self._stager.stage(self.data.val_batch(count)).wait()
+        x, y = self._seq_columns(
+            *self._stager.stage(self.data.val_batch(count)).wait())
         h = self._forward(self.params, x)
         logits = tp_lib.col_parallel(h, self.params["lm_head"])
+        g = self.group
         stats = self._rank_mean(
-            tp_lib.sharded_softmax_xent(logits, y, self.vocab),
-            tp_lib.sharded_top1_err(logits, y, self.vocab),
-            tp_lib.sharded_topk_err(logits, y, self.vocab, k=5),
+            tp_lib.sharded_softmax_xent(logits, y, self.vocab, g),
+            tp_lib.sharded_top1_err(logits, y, self.vocab, g),
+            tp_lib.sharded_topk_err(logits, y, self.vocab, k=5, group=g),
         )
         return tuple(float(v) for v in stats)
 
@@ -452,20 +568,56 @@ class Llama(TMModel):
         return [(pos[id(t)], None) for t in ckpt.flatten(self.params).values()]
 
     def checkpoint_trees(self) -> dict:
-        trees = {"params": self.params,
-                 "opt_state": () if self._zero1 else _opt_tree(self.opt_state)}
+        """The checkpoint's trees in full arrays: at tp > 1 every rank of
+        the model group gathers the shards of each leaf (a collective:
+        every rank calls this)."""
+        opt = () if self._zero1 else _opt_tree(self.opt_state)
+        trees = {"params": self.params, "opt_state": opt}
+        if self.group is not None:
+            trees["params"] = _gather_tree(self.params, self.group)
+            if isinstance(opt, dict):
+                trees["opt_state"] = {
+                    "m": _gather_tree(opt["m"], self.group),
+                    "v": _gather_tree(opt["v"], self.group), "t": opt["t"]}
+            elif opt:
+                trees["opt_state"] = _gather_tree(opt, self.group)
         trees.update(self._exchange_trees())
         return trees
 
     def restore_trees(self, trees: dict) -> None:
+        shard = dict(rank=self.tp_rank, tp=self.tp)
         params = params_from_jax(trees["params"], self.config, self.device,
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, **shard)
         for t in _leaves(params):
             t.requires_grad_(True)
         self._params = params
         if "opt_state" in trees:
             self.opt_state = opt_state_from_jax(trees["opt_state"],
-                                                self.config, self.device)
+                                                self.config, self.device,
+                                                **shard)
+
+
+def _gather_tree(tree: dict, group) -> dict:
+    """A parameter-shaped tree of this rank's shards as full tensors:
+    each sharded leaf gathered over the model ``group`` along its
+    :data:`SHARD_AXIS`, the replicated ones as they are."""
+    def one(t, name):
+        ax = SHARD_AXIS[name]
+        t = t.detach()
+        if ax is None:
+            return t
+        out = torch.empty((group.size,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out.view(-1),
+                                    t.contiguous().view(-1),
+                                    group=group.device_group)
+        return torch.cat(out.unbind(0), dim=ax)
+
+    return {"embed": one(tree["embed"], "embed"),
+            "layers": [{k: one(lp[k], k) for k in LAYER_KEYS}
+                       for lp in tree["layers"]],
+            "final_norm": one(tree["final_norm"], "final_norm"),
+            "lm_head": one(tree["lm_head"], "lm_head")}
 
 
 def _leaves(params: dict):
@@ -528,11 +680,13 @@ def opt_state_to_jax(state):
     return params_to_jax(tree) if tree else ()
 
 
-def opt_state_from_jax(tree, config: dict, device=None):
+def opt_state_from_jax(tree, config: dict, device=None, *, rank: int = 0,
+                       tp: int = 1):
     """Inverse of :func:`opt_state_to_jax`: the port's optimizer state
     (f32 lists in ``_leaves`` order) from a JAX optimizer-state tree of
-    numpy arrays (a checkpoint's ``opt_state`` group)."""
-    f32 = dict(device=device, dtype=torch.float32)
+    numpy arrays (a checkpoint's ``opt_state`` group); at ``tp > 1``
+    rank ``rank``'s shards, as :func:`params_from_jax` slices them."""
+    f32 = dict(device=device, dtype=torch.float32, rank=rank, tp=tp)
     if isinstance(tree, dict) and "m" in tree:
         return {"m": list(_leaves(params_from_jax(tree["m"], config, **f32))),
                 "v": list(_leaves(params_from_jax(tree["v"], config, **f32))),

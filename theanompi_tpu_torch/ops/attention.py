@@ -6,6 +6,10 @@ Port of ``theanompi_tpu/ops/attention.py``.  Shapes follow
 
 - ``mha_reference`` — dense softmax attention with an f32 softmax: the
   numerical ground truth and the plain version of kernel K1.
+- ``block_attn_update`` / ``block_attn_init`` / ``block_attn_finish`` —
+  one step of the online-softmax recurrence over a KV block and its
+  carry (the JAX functions of the same names): ring attention's dense
+  route, and the plain version of its per-hop merge.
 - ``flash_attention_fwd`` — returns ``(o, lse)``: o [B, H, T, D] in the
   input dtype and the per-row logsumexp [B, H, T] in f32 (the residual
   the ring-attention merge and the backward kernels consume).
@@ -73,6 +77,42 @@ def mha_reference(q, k, v, *, causal=True, q_offset=0, k_offset=0,
     s = _scores(q, k, causal, q_offset, k_offset, sm_scale)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def block_attn_update(carry, q, k_blk, v_blk, *, q_pos, k_pos,
+                      sm_scale: float):
+    """Fold one KV block into the online-softmax carry ``(acc [B,H,Tq,D]
+    f32, m [B,H,Tq] f32 running max, l [B,H,Tq] f32 running sum)``.
+    ``q_pos``/``k_pos`` (global positions) mask causally; None for full
+    attention.  A fully masked block contributes exact zeros."""
+    acc, m, l = carry
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k_blk).float() * sm_scale
+    mask = None
+    if q_pos is not None:
+        mask = causal_mask(q_pos, k_pos)
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    alpha = torch.exp(m - m_new)
+    l_new = alpha * l + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bhqk,bhkd->bhqd", p.to(v_blk.dtype), v_blk).float()
+    return acc_new, m_new, l_new
+
+
+def block_attn_init(b, h, tq, d, device=None):
+    """A fresh online-softmax carry."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((b, h, tq, d), **f32),
+            torch.full((b, h, tq), NEG_INF, **f32),
+            torch.zeros((b, h, tq), **f32))
+
+
+def block_attn_finish(carry, dtype):
+    acc, _, l = carry
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(dtype)
 
 
 def mha_reference_fwd(q, k, v, *, causal=True, sm_scale=None):

@@ -32,30 +32,38 @@ def _leaves(tree):
 
 
 @torch.no_grad()
-def replica_buffer_spread(tree) -> float:
+def replica_buffer_spread(tree, group=None) -> float:
     """Worst |rank r − rank 0| over every tensor of ``tree`` (nested
-    dicts and lists of tensors) and every rank of the group; 0.0 without
-    a group of more than one rank."""
-    if not dist.is_initialized() or dist.get_world_size() < 2:
+    dicts and lists of tensors) and every rank of the group (the default
+    group, or a layout axis: an object with ``size``, ``ranks`` and
+    ``device_group``, whose first rank is the reference); 0.0 without a
+    group of more than one rank."""
+    if not dist.is_initialized():
         return 0.0
+    size = dist.get_world_size() if group is None else group.size
+    if size < 2:
+        return 0.0
+    pg = None if group is None else group.device_group
+    src = 0 if group is None else group.ranks[0]
     worst = None
     for t in _leaves(tree):
         if t.numel() == 0:
             continue
         ref = t.detach().clone()
-        dist.broadcast(ref, src=0)
+        dist.broadcast(ref, src=src, group=pg)
         d = (t.detach().float() - ref.float()).abs().max()
         worst = d if worst is None else torch.maximum(worst, d)
     if worst is None:
         return 0.0
-    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=pg)
     return float(worst)
 
 
 def check_replicas_synced(tree, *, strict: bool = True,
-                          label: str = "params") -> float:
-    """Assert (or report) that the ranks hold equal copies of ``tree``."""
-    spread = replica_buffer_spread(tree)
+                          label: str = "params", group=None) -> float:
+    """Assert (or report) that the ranks (of ``group``) hold equal
+    copies of ``tree``."""
+    spread = replica_buffer_spread(tree, group)
     if spread > 0.0 and strict:
         raise RuntimeError(
             f"replica desync in {label}: device copies differ by "

@@ -71,7 +71,11 @@ MAX_EXCHANGE_BUCKETS = 64
 
 
 def _reduce(w: torch.Tensor, n: int, two_phase: bool, group) -> None:
-    """Sum ``w`` (contiguous) over the group in place."""
+    """Sum ``w`` (contiguous) over the group in place; a one-rank group
+    (a layout's data axis of one replica) holds the sum already, so
+    no collective runs (gloo would stage ``w`` through the host)."""
+    if n == 1:
+        return
     if two_phase and w.dim() and w.shape[0] % n == 0:
         flat = w.reshape(-1)
         part = torch.empty(flat.numel() // n, dtype=w.dtype, device=w.device)

@@ -17,6 +17,14 @@ rank, a device group for the activations' collectives (NCCL, one card a
 rank; gloo only when the caller asks, e.g. for two ranks on one card)
 and a CPU gloo group for the small headers rank 0 sends its followers.
 
+Training at tp > 1 or sp > 1 lays the world out as a :class:`Layout`,
+the counterpart of the JAX ``make_mesh(data, model, seq)``: rank ``r``
+sits at coordinates ``(data, model, seq)`` in the JAX axis order
+``(pipe, expert, data, model, seq)`` with ``pipe = expert = 1``, so
+``seq`` varies fastest.  Its model axis is a :class:`ModelGroup`; the
+seq and data axes are :class:`AxisGroup` objects.  Every rank creates every
+group in one order (gloo hangs otherwise).
+
 The card is the default: the CPU is used only when a caller asks for
 it, and a missing card is an error rather than a quiet fall back to
 the CPU.
@@ -263,6 +271,158 @@ class ModelGroup:
                    dist.new_group(backend="gloo"))
 
 
+@dataclass
+class AxisGroup:
+    """One rank's view of a layout axis: its ``rank`` on the axis, the
+    axis ``size``, the global ``ranks`` of its group (axis order) and
+    ``device_group``, the process group the axis's collectives run
+    over."""
+
+    rank: int
+    size: int
+    ranks: tuple
+    device_group: object
+
+
+class Layout:
+    """The world of one training run laid out as JAX's mesh
+    ``(pipe, expert, data, model, seq)`` with ``pipe = expert = 1``:
+    rank ``r`` is ``(d·model + m)·seq + s``.  ``model`` is this rank's
+    :class:`ModelGroup` (tensor parallelism), ``seq`` and ``data``
+    :class:`AxisGroup` objects (sequence parallelism, the BSP exchange),
+    ``data_seq`` the ranks of this model coordinate (the JAX pmean over
+    ``("data", "seq")``).  ``dp_replicas`` is the JAX
+    ``dp_replicas(mesh)`` (``expert × data``, expert = 1).  Build it
+    with :meth:`build` once the default group exists; it becomes
+    :func:`current_layout` until :func:`destroy_group`."""
+
+    AXES = ("data", "model", "seq")
+    #: the axes a group is built for: the mesh's, then (data, seq)
+    GROUPS = AXES + ("data_seq",)
+
+    def __init__(self, rank: int, world: int, model: int = 1,
+                 seq: int = 1):
+        model, seq = int(model), int(seq)
+        check_layout(world, model, seq)
+        self.rank, self.world = int(rank), int(world)
+        self.sizes = {"data": world // (model * seq), "model": model,
+                      "seq": seq, "data_seq": world // model}
+        self.coords = layout_coords(rank, model, seq)
+        self.groups: dict = {}
+
+    @property
+    def dp_replicas(self) -> int:
+        return self.sizes["data"]
+
+    def axis_ranks(self, axis: str, rank: int | None = None) -> tuple:
+        """The global ranks of ``rank``'s (default: this rank's) group
+        on ``axis``, in axis order."""
+        d, m, s = layout_coords(self.rank if rank is None else rank,
+                                self.sizes["model"], self.sizes["seq"])
+        nm, ns = self.sizes["model"], self.sizes["seq"]
+        at = {"data": lambda i: (i * nm + m) * ns + s,
+              "model": lambda i: (d * nm + i) * ns + s,
+              "seq": lambda i: (d * nm + m) * ns + i,
+              "data_seq": lambda i: (i // ns * nm + m) * ns + i % ns}[axis]
+        return tuple(at(i) for i in range(self.sizes[axis]))
+
+    def all_groups(self, axis: str) -> list:
+        """Every group of ``axis`` in the world, by lowest member."""
+        return sorted({self.axis_ranks(axis, r) for r in range(self.world)})
+
+    @classmethod
+    def build(cls, model: int = 1, seq: int = 1) -> "Layout":
+        """The layout of the default group (which must exist): every
+        rank calls this with the same sizes.  Groups the size of the
+        world are the default group; the others come from
+        ``dist.new_group``, each set of ranks once (an axis of size 1
+        and ``data_seq`` at seq = 1 reuse what an earlier axis made),
+        every group of every axis created on every rank in one order
+        (the model axis's CPU header groups last, when the device groups
+        are not gloo)."""
+        lay = cls(dist.get_rank(), dist.get_world_size(), model, seq)
+        gloo = dist.get_backend() == "gloo"
+        made = {}
+        for axis in cls.GROUPS:
+            for ranks in lay.all_groups(axis):
+                if ranks not in made:
+                    made[ranks] = (dist.group.WORLD
+                                   if len(ranks) == lay.world
+                                   else dist.new_group(list(ranks)))
+        headers = {}
+        for ranks in lay.all_groups("model"):
+            headers[ranks] = (made[ranks] if gloo else
+                              dist.new_group(list(ranks), backend="gloo"))
+        for axis in cls.GROUPS:
+            ranks = lay.axis_ranks(axis)
+            rank = ranks.index(lay.rank)
+            if axis == "model":
+                lay.groups[axis] = ModelGroup(rank, len(ranks), made[ranks],
+                                              headers[ranks])
+            else:
+                lay.groups[axis] = AxisGroup(rank, len(ranks), ranks,
+                                             made[ranks])
+        global _LAYOUT
+        _LAYOUT = lay
+        return lay
+
+    @property
+    def model(self) -> "ModelGroup":
+        return self.groups["model"]
+
+    @property
+    def seq(self) -> AxisGroup:
+        return self.groups["seq"]
+
+    @property
+    def data(self) -> AxisGroup:
+        return self.groups["data"]
+
+    @property
+    def data_seq(self) -> AxisGroup:
+        return self.groups["data_seq"]
+
+    def __repr__(self) -> str:
+        return (f"Layout(rank {self.rank} of {self.world} at "
+                f"{dict(zip(self.AXES, self.coords))}, sizes {self.sizes})")
+
+
+def layout_coords(rank: int, model: int = 1, seq: int = 1) -> tuple:
+    """``(data, model, seq)`` coordinates of ``rank``: seq fastest."""
+    return rank // (model * seq), (rank // seq) % model, rank % seq
+
+
+def check_layout(world: int, model: int = 1, seq: int = 1) -> int:
+    """The data axis of ``world`` ranks after ``model × seq``; the JAX
+    worker's refusals when they do not fit or do not divide."""
+    prod = int(model) * int(seq)
+    if prod < 1:
+        raise ValueError(f"tp and sp must be >= 1, got tp={model}, "
+                         f"sp={seq}")
+    if world < prod:
+        raise ValueError(f"tp*sp={prod} needs at least {prod} devices, "
+                         f"got {world}")
+    if world % prod:
+        raise ValueError(
+            f"tp*sp={prod} must divide the {world} requested devices — a "
+            f"floor division would silently idle {world % prod} of them")
+    return world // prod
+
+
+_LAYOUT: Layout | None = None
+
+
+def current_layout() -> Layout | None:
+    """The :class:`Layout` last built over the live default group, or
+    None."""
+    if _LAYOUT is None or not dist.is_initialized() \
+            or _LAYOUT.world != dist.get_world_size():
+        return None
+    return _LAYOUT
+
+
 def destroy_group() -> None:
+    global _LAYOUT
+    _LAYOUT = None
     if dist.is_initialized():
         dist.destroy_process_group()

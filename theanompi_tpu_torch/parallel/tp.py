@@ -7,12 +7,19 @@ parallel.mesh.ModelGroup` passed as ``group``.  With ``group=None``
 (tp = 1) the collectives are identities and every function is the
 plain one-shard expression: the column- and row-parallel products are
 ``x @ w`` and the samplers act on the full vocab row.  With a group
-(serving at tp > 1; training keeps tp = 1):
+(serving and training at tp > 1):
 
+- :func:`copy_to_group` and :func:`reduce_from_group` are the two
+  conjugate autograd functions the JAX package gets from the psum/pvary
+  transposes under ``check_vma=True``: the first is the identity
+  forward and an all-reduce backward (the replicated input of a
+  column-parallel product: each rank's dx is a partial), the second an
+  all-reduce forward and the identity backward;
 - :func:`row_parallel` sums the ranks' partial products in the compute
-  dtype (``lax.psum(x @ w.astype(x.dtype))``);
+  dtype (``lax.psum(x @ w.astype(x.dtype))``), through
+  :func:`reduce_from_group`;
 - :func:`embed_lookup` reads the rank's rows of the vocab-sharded table
-  (misses give zeros) and sums them;
+  (misses give zeros) and sums them, the same way;
 - :func:`sharded_argmax` takes the MAX of the ranks' maxima, then the
   MIN of the global ids that reach it, so ties go to the lowest global
   id within and across shards: tp = 1 and tp = 2 pick the same token;
@@ -26,7 +33,15 @@ The argmax keeps the JAX package's tie-break (lowest id:
 The two fused LM heads (``chunked_unembed_xent``, ``dense_unembed_xent``)
 are ``torch.autograd.Function``s with the JAX custom VJPs' manual
 backwards: dlogits cast to the compute dtype before the dW and dx
-products, which accumulate and return in f32 (``_mm_f32``).
+products, which accumulate and return in f32 (``_mm_f32``).  With a
+group the lse and the target logit are reduced over the vocab shards
+and the backward sums dx over the group (the head's replicated input,
+as ``_reduce_ct_to_primal`` does in JAX).  The metrics
+(``sharded_softmax_xent``, ``sharded_top1_err``, ``sharded_topk_err``)
+take the group the same way.
+
+:func:`grad_sync` is the JAX spec-aware mean over the axes a leaf is
+replicated on, for hand-built per-shard gradients only.
 
 Sampling draws Gumbel noise for the full vocab from a
 ``torch.Generator`` seeded per row by the caller (request seed folded
@@ -48,6 +63,45 @@ def _all_reduce(t, group, op=dist.ReduceOp.SUM):
     return t
 
 
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the ranks' partial input
+    gradients over the group (the transpose of JAX's implicit pvary)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce (SUM) forward; identity backward (the transpose of
+    ``lax.psum``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x, group=None):
+    """``x`` unchanged; its gradient summed over ``group`` (a no-op
+    without one)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x, group=None):
+    """``x`` summed over ``group`` (in place on a fresh tensor); the
+    gradient passes through."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
 def vocab_shard_info(vocab: int, group=None) -> tuple[int, int]:
     """(local vocab size, first global id) of this rank's shard."""
     if group is None:
@@ -64,8 +118,7 @@ def col_parallel(x, w):
 def row_parallel(x, w, group=None):
     """[..., F/tp] x [F/tp, D] -> [..., D]: the partial product, summed
     over the model group in the compute dtype."""
-    y = x @ w.to(x.dtype)
-    return y if group is None else _all_reduce(y, group)
+    return reduce_from_group(x @ w.to(x.dtype), group)
 
 
 def embed_lookup(ids, table, vocab: int, group=None):
@@ -78,7 +131,7 @@ def embed_lookup(ids, table, vocab: int, group=None):
     hit = (local >= 0) & (local < v_loc)
     safe = local.clamp(0, v_loc - 1).long()
     vecs = table[safe] * hit[..., None].to(table.dtype)
-    return vecs if group is None else _all_reduce(vecs, group)
+    return reduce_from_group(vecs, group)
 
 
 def sharded_argmax(score, vocab: int, group=None):
@@ -133,32 +186,58 @@ def sharded_sample(logits, vocab: int, seeds, temperature, group=None):
 
 # -- losses and metrics over the vocab row -------------------------------------
 
-def sharded_softmax_xent(logits, labels, vocab: int):
-    """Mean softmax cross-entropy over tokens, f32: logsumexp with a
-    stop-gradient max shift, minus the target logit (labels outside
-    [0, vocab) contribute a zero target, as a sharded miss does)."""
+def sharded_softmax_xent(logits, labels, vocab: int, group=None):
+    """Mean softmax cross-entropy over tokens, f32, with the vocab row
+    sharded over ``group``: logsumexp with a stop-gradient max shift
+    (the max and the sum reduced over the group), minus the target
+    logit (labels outside this shard contribute a zero target, summed
+    over the group)."""
+    v_loc, off = vocab_shard_info(vocab, group)
     x = logits.float()
     m = x.max(dim=-1).values.detach()
-    lse = m + torch.log(torch.exp(x - m[..., None]).sum(dim=-1))
-    hit = (labels >= 0) & (labels < vocab)
-    safe = labels.clamp(0, vocab - 1).long()
+    if group is not None:
+        m = _all_reduce(m.contiguous(), group, dist.ReduceOp.MAX)
+    s = reduce_from_group(torch.exp(x - m[..., None]).sum(dim=-1), group)
+    lse = m + torch.log(s)
+    local = labels - off
+    hit = (local >= 0) & (local < v_loc)
+    safe = local.clamp(0, v_loc - 1).long()
     tgt = torch.gather(x, -1, safe[..., None])[..., 0]
-    tgt = torch.where(hit, tgt, 0.0)
+    tgt = reduce_from_group(torch.where(hit, tgt, 0.0), group)
     return (lse - tgt).mean()
 
 
-def sharded_top1_err(logits, labels, vocab: int):
-    """Top-1 error (lowest-id argmax)."""
-    pred = sharded_argmax(logits.detach().float(), vocab)
+def sharded_top1_err(logits, labels, vocab: int, group=None):
+    """Top-1 error (the global, lowest-id argmax)."""
+    pred = sharded_argmax(logits.detach().float(), vocab, group)
     return (pred != labels).float().mean()
 
 
-def sharded_topk_err(logits, labels, vocab: int, k: int = 5):
-    """Top-k error."""
+def sharded_topk_err(logits, labels, vocab: int, k: int = 5, group=None):
+    """Top-k error with the vocab row sharded: each shard's top
+    min(k, V/tp) candidates, gathered over the group, then the global
+    top-k among them (exact: every global top-k entry is in its own
+    shard's local top-k)."""
+    v_loc, off = vocab_shard_info(vocab, group)
     x = logits.detach().float()
-    top = torch.topk(x, min(k, x.shape[-1]), dim=-1).indices
+    vals, ids = torch.topk(x, min(k, v_loc), dim=-1)
+    ids = ids + off
+    if group is not None:
+        vals = _all_gather_last(vals, group)
+        ids = _all_gather_last(ids, group)
+    sel = torch.topk(vals, min(k, vals.shape[-1]), dim=-1).indices
+    top = torch.gather(ids, -1, sel)
     hit = (top == labels[..., None]).any(dim=-1)
     return (1.0 - hit.float()).mean()
+
+
+def _all_gather_last(t, group):
+    """The group's ``t`` concatenated along the last dim, rank order."""
+    out = torch.empty((group.size,) + tuple(t.shape), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out.view(-1), t.contiguous().view(-1),
+                                group=group.device_group)
+    return torch.cat(out.unbind(0), dim=-1)
 
 
 # -- fused unembed + cross-entropy ------------------------------------------------
@@ -202,9 +281,10 @@ class ChunkedUnembedXent(torch.autograd.Function):
     """See :func:`chunked_unembed_xent`."""
 
     @staticmethod
-    def forward(ctx, x2, w, labels, vocab, n_chunks):
+    def forward(ctx, x2, w, labels, vocab, n_chunks, group):
         n = x2.shape[0]
         vc = w.shape[1] // n_chunks
+        off = vocab_shard_info(vocab, group)[1]
         f32 = dict(dtype=torch.float32, device=x2.device)
         m = torch.full((n,), -torch.inf, **f32)
         s = torch.zeros((n,), **f32)
@@ -218,17 +298,27 @@ class ChunkedUnembedXent(torch.autograd.Function):
             s = s * torch.exp(m - m_new) + torch.exp(
                 lg - m_new[:, None]).sum(dim=-1)
             m = m_new
-            local = labels - c * vc
+            local = labels - (off + c * vc)
             hit = (local >= 0) & (local < vc)
             t = torch.gather(lg, 1, local.clamp(0, vc - 1)[:, None])[:, 0]
             tgt = tgt + torch.where(hit, t, 0.0)
             # running argmax: strict > keeps the EARLIEST max
             better = mc > bv
             bv = torch.where(better, mc, bv)
-            bi = torch.where(better, cb + c * vc, bi)
-        lse = m + torch.log(torch.clamp_min(s, 1e-30))
+            bi = torch.where(better, cb + off + c * vc, bi)
+        if group is not None:
+            gm = _all_reduce(m.clone(), group, dist.ReduceOp.MAX)
+            s = _all_reduce(s * torch.exp(m - gm), group)
+            lse = gm + torch.log(torch.clamp_min(s, 1e-30))
+            tgt = _all_reduce(tgt, group)
+            gbv = _all_reduce(bv.clone(), group, dist.ReduceOp.MAX)
+            bi = _all_reduce(torch.where(bv >= gbv, bi,
+                                         torch.full_like(bi, vocab)),
+                             group, dist.ReduceOp.MIN)
+        else:
+            lse = m + torch.log(torch.clamp_min(s, 1e-30))
         ctx.save_for_backward(x2, w, labels, lse)
-        ctx.n_chunks = n_chunks
+        ctx.n_chunks, ctx.off, ctx.group = n_chunks, off, group
         ctx.mark_non_differentiable(bi)
         return lse - tgt, bi
 
@@ -243,51 +333,113 @@ class ChunkedUnembedXent(torch.autograd.Function):
         for c in range(n_chunks):
             wc = w[:, c * vc:(c + 1) * vc].to(x2.dtype)
             lg = (x2 @ wc).float()
-            dlgc = _xent_grad(lg, lse, labels, gf, c * vc).to(x2.dtype)
+            dlgc = _xent_grad(lg, lse, labels, gf,
+                              ctx.off + c * vc).to(x2.dtype)
             dw[:, c * vc:(c + 1) * vc] = _mm_f32(x2.t(), dlgc)
             dx += _mm_f32(dlgc, wc.t())
-        return dx.to(x2.dtype), dw.to(w.dtype), None, None, None
+        if ctx.group is not None:
+            _all_reduce(dx, ctx.group)
+        return dx.to(x2.dtype), dw.to(w.dtype), None, None, None, None
 
 
-def chunked_unembed_xent(x2, w, labels, vocab: int, n_chunks: int):
+def chunked_unembed_xent(x2, w, labels, vocab: int, n_chunks: int,
+                         group=None):
     """Fused LM head + softmax cross-entropy that never materializes the
     [N, V] logits: vocab chunks stream through an online logsumexp
     carrying (max, sumexp, target logit, argmax); the backward
     recomputes each chunk's logits.  x2 [N, D] (compute dtype), w
-    [D, V] (f32 master), labels [N] int.  Returns (loss_vec [N] f32 =
+    [D, V/tp] (f32 master; this rank's vocab columns with ``group``,
+    over which the lse, the target and the argmax combine and dx is
+    summed), labels [N] global int ids.  Returns (loss_vec [N] f32 =
     lse - target, pred [N] int64)."""
-    return ChunkedUnembedXent.apply(x2, w, labels.long(), vocab, n_chunks)
+    return ChunkedUnembedXent.apply(x2, w, labels.long(), vocab, n_chunks,
+                                    group)
 
 
 class DenseUnembedXent(torch.autograd.Function):
     """See :func:`dense_unembed_xent`."""
 
     @staticmethod
-    def forward(ctx, x2, w, labels, vocab):
+    def forward(ctx, x2, w, labels, vocab, group):
+        v_loc, off = w.shape[1], vocab_shard_info(vocab, group)[1]
         lg = x2 @ w.to(x2.dtype)                       # [N, V] compute dtype
         lgf = lg.float()
         m, bi = lgf.max(dim=-1)
-        hit = (labels >= 0) & (labels < w.shape[1])
-        tgt = torch.gather(lgf, 1, labels.clamp(0, w.shape[1] - 1)[:, None])
+        bi = bi + off
+        local = labels - off
+        hit = (local >= 0) & (local < v_loc)
+        tgt = torch.gather(lgf, 1, local.clamp(0, v_loc - 1)[:, None])
         tgt = torch.where(hit, tgt[:, 0], 0.0)
-        s = torch.exp(lgf - m[:, None]).sum(dim=-1)
-        lse = m + torch.log(torch.clamp_min(s, 1e-30))
+        if group is not None:
+            gm = _all_reduce(m.clone(), group, dist.ReduceOp.MAX)
+            s = _all_reduce(torch.exp(lgf - gm[:, None]).sum(dim=-1), group)
+            lse = gm + torch.log(torch.clamp_min(s, 1e-30))
+            tgt = _all_reduce(tgt, group)
+            # gm doubles as the global best for the argmax tie-break
+            bi = _all_reduce(torch.where(m >= gm, bi,
+                                         torch.full_like(bi, vocab)),
+                             group, dist.ReduceOp.MIN)
+        else:
+            s = torch.exp(lgf - m[:, None]).sum(dim=-1)
+            lse = m + torch.log(torch.clamp_min(s, 1e-30))
         ctx.save_for_backward(x2, w, labels, lg, lse)
+        ctx.off, ctx.group = off, group
         ctx.mark_non_differentiable(bi)
         return lse - tgt, bi
 
     @staticmethod
     def backward(ctx, g, _dpred):
         x2, w, labels, lg, lse = ctx.saved_tensors
-        dlgc = _xent_grad(lg.float(), lse, labels, g.float(), 0).to(x2.dtype)
+        dlgc = _xent_grad(lg.float(), lse, labels, g.float(),
+                          ctx.off).to(x2.dtype)
         dw = _mm_f32(x2.t(), dlgc)
         dx = _mm_f32(dlgc, w.to(x2.dtype).t())
-        return dx.to(x2.dtype), dw.to(w.dtype), None, None
+        if ctx.group is not None:
+            _all_reduce(dx, ctx.group)
+        return dx.to(x2.dtype), dw.to(w.dtype), None, None, None
 
 
-def dense_unembed_xent(x2, w, labels, vocab: int):
+def dense_unembed_xent(x2, w, labels, vocab: int, group=None):
     """Fused LM head + softmax cross-entropy with the logits
     materialized once in the compute dtype and saved for the backward
     (no recompute).  Same arguments and returns as
     :func:`chunked_unembed_xent`."""
-    return DenseUnembedXent.apply(x2, w, labels.long(), vocab)
+    return DenseUnembedXent.apply(x2, w, labels.long(), vocab, group)
+
+
+# -- spec-aware gradient reduction ---------------------------------------------
+
+def grad_sync(grads: list, specs: list, layout,
+              mesh_axes=("data", "model", "seq")) -> list:
+    """Mean-reduce each gradient over every layout axis its parameter is
+    REPLICATED on (the axes of ``mesh_axes`` absent from its spec), in
+    f32, in place.  ``specs[i]`` is the JAX ``PartitionSpec`` of
+    ``grads[i]`` as a tuple of entries (an axis name, a tuple of names,
+    or None); ``layout`` a ``parallel.mesh.Layout``.
+
+    ONLY for explicitly constructed per-shard gradients (a manual
+    backward, or pure data-parallel forwards with no collectives) — the
+    generalized BSP exchanger of the JAX package.  Do NOT apply it to
+    the gradients of a model built from :func:`copy_to_group`,
+    :func:`reduce_from_group` and the grouped heads: their backwards
+    already deliver the exact gradient for every layout (as the
+    psum/pvary transposes do under JAX's ``check_vma=True``), and a
+    further reduction would double count (see models/llama.py)."""
+    for g, spec in zip(grads, specs):
+        used = set()
+        for entry in spec:
+            if entry is not None:
+                used.update(entry if isinstance(entry, (tuple, list))
+                            else (entry,))
+        over = [a for a in mesh_axes if a not in used]
+        n = 1
+        for a in over:
+            n *= layout.sizes[a]
+        if n == 1:
+            continue
+        g32 = g.float()
+        for a in over:
+            if layout.sizes[a] > 1:
+                dist.all_reduce(g32, group=layout.groups[a].device_group)
+        g.copy_((g32 / n).to(g.dtype))
+    return grads

@@ -30,6 +30,13 @@ world itself is fitted to the saved global batch by the launcher
 A resume validates its checkpoint once a life: rank 0 picks it and the
 ranks load that one (``models.base.resume_checkpoint``).
 
+Tensor and sequence parallelism (the Llama config's ``tp`` and ``sp``)
+lay the world out as data × tp × sp (``parallel.mesh.Layout``, seq
+fastest, as the JAX ``make_mesh``): the layout's groups are built
+before the model, the model shards over its model and seq axes, and
+the exchange, the batch rows and the checkpoint's ``world_size`` are
+the data axis's (``n_replicas = world // (tp·sp)``).
+
 A run in this process uses one device; ``launcher.launch(mode=
 "subprocess")`` starts one process per device and hands each its rank.
 Config knobs of features not ported yet raise ``NotImplementedError``
@@ -51,6 +58,8 @@ from theanompi_tpu_torch.models.base import (
 )
 from theanompi_tpu_torch.parallel.debug import check_replicas_synced
 from theanompi_tpu_torch.parallel.mesh import (
+    Layout,
+    check_layout,
     destroy_group,
     init_group,
     resolve_devices,
@@ -273,6 +282,13 @@ def run(
         )
     if n_epochs is not None:
         cfg["n_epochs"] = n_epochs
+    # the model's parallel layout: the data axis is what tp x sp leaves
+    tp, sp = int(cfg.get("tp", 1)), int(cfg.get("sp", 1))
+    n_replicas = check_layout(world, tp, sp)
+    if tp * sp > 1 and cfg.get("elastic"):
+        raise NotImplementedError(
+            f"elastic resume at tp*sp={tp * sp} > 1 is not ported yet "
+            f"(ROADMAP.md A12)")
     device = devs[rank]
     if device.type == "cpu" and world > 1:
         # ranks sharing the host's cores: split them rather than
@@ -281,6 +297,7 @@ def run(
     created = init_group(device, rank, world, init_method)
     model = None
     try:
+        layout = Layout.build(tp, sp) if tp * sp > 1 else None
         # the checkpoint this life resumes from, validated once: rank 0
         # picks it and every rank loads that one
         ckpt_path = (resume_checkpoint(
@@ -297,7 +314,7 @@ def run(
             if elastic and resume and checkpoint_dir else None
         )
         model = Model(cfg, device=device)
-        model.build_model(n_replicas=world)
+        model.build_model(n_replicas=n_replicas)
         model.compile_iter_fns(exch_strategy=strat.name)
         recorder = Recorder(rank=rank, size=world, print_freq=print_freq,
                             verbose=verbose)
@@ -370,7 +387,10 @@ def run(
             if os.environ.get("TM_DEBUG_SYNC") == "1":
                 # the ranks must hold equal params after an epoch of
                 # exchanges
-                spread = check_replicas_synced(model.params, strict=True)
+                spread = (check_replicas_synced(model.params, strict=True)
+                          if layout is None else max(
+                              check_replicas_synced(model.params, group=a)
+                              for a in (layout.data, layout.seq)))
                 if verbose:
                     print(f"debug-sync epoch {epoch}: spread={spread:g}",
                           flush=True)
