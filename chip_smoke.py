@@ -13,11 +13,13 @@ NVIDIA card.
     python3 chip_smoke.py --phases serving_tp  # tp = 2 serving, card 0
     python3 chip_smoke.py --phases exchange    # zero1, int8/fp8, .shards
     python3 chip_smoke.py --phases parallel_train  # tp = 2, sp = 2 training
+    python3 chip_smoke.py --phases stack_train # pp = 2, MoE at ep = 2
     python3 chip_smoke.py --phases resilience  # supervisor, drills, elastic
 
 Phases (``--phases`` takes a comma list of kernels, serving,
 serving_ext, serving_fleet, serving_tp, training, exchange,
-parallel_train, cnn, async, async_dist, resilience; the card-and-build
+parallel_train, stack_train, cnn, async, async_dist, resilience; the
+card-and-build
 phase always runs; each
 phase's seconds are printed at the end):
 
@@ -57,7 +59,7 @@ phase's seconds are printed at the end):
    prefilled ``prefill_only`` on one decoder and decoded from its KV
    handoff on another giving the unified ids, a traced engine giving
    one connected span tree per request.  Then phase 4's model (bf16,
-   ``--layers`` deep, 32 by default) and 16 requests (32 tokens each,
+   ``--layers`` deep, 16 by default) and 16 requests (32 tokens each,
    prefix caching off): one-token decode, then ``speculate_k`` = 4 off the same
    decoder, with decode tokens/s, the accept rate, tokens per step,
    the median verify and decode steps, K4's launches (layers x verify
@@ -83,7 +85,7 @@ phase's seconds are printed at the end):
 6. serving_fleet — the fleet.  First the kill-one-of-three drill on the
    small fp32 model, on the card and on the CPU (ids equal across the
    devices and to one replica's).  Then phase 4's model (bf16,
-   ``--layers`` deep, 4 by default) and 16 requests at 32 tokens, one
+   ``--layers`` deep, 2 by default) and 16 requests at 32 tokens, one
    ``PagedLlamaDecoder`` a replica over one set of weights, each
    replica an ``InProcessReplica`` thread behind a ``Router``: one
    replica (the reference ids); a profile of three replicas decoding
@@ -102,7 +104,7 @@ phase's seconds are printed at the end):
    per replica) and checks K4's launches (layers x decode calls) and
    the norm kernel's, summed over the replicas of this process;
 6b. serving_tp — tp = 2 serving at Llama-3-8B widths, ``--layers``
-   deep (4 by default), two ranks on card 0 over gloo (this process is
+   deep (2 by default), two ranks on card 0 over gloo (this process is
    rank 0 and starts ``chip_smoke.py --tp-rank 1``); 16 requests at 32
    tokens: fp32 v1, paged and a tp = 1 handoff with tp = 1's ids
    (asserted), bf16 first decode step's logits within
@@ -166,6 +168,30 @@ phase's seconds are printed at the end):
    ring's backward feeds them; K1, K2 and K3 timed at the ring's full
    (non-causal) hop shape [1, 32, 4096, 128] bf16 beside their bounds
    and SDPA;
+7d. stack_train — Llama training at pp > 1 and with MoE experts at
+   ep >= 1, the ranks on card 0 over gloo, through the parallel_train
+   phase's children: the one-rank runs in this process, then two
+   children that run in turn MoE at ep = 1 over two data replicas,
+   ep = 2, pp = 2 (MoE) and pp = 2 dense, then four that run pp = 2 x
+   ep = 2; each at the small width in fp32
+   (4 experts, top-2, capacity factor 2.0; SGD at lr 0.5; the SIMT
+   kernels), then ep = 2 and pp = 2 at Mixtral-8x7B's published widths
+   (``MIXTRAL_8X7B``), ``ST_LAYERS`` deep, seq ``ST_SEQ``, global batch
+   2, bf16, Adam, remat, capacity factor 4.0 = E/k (nothing drops, as
+   Mixtral routes), ``ST_STEPS`` steps (the tensor cores).  Each rank's
+   losses against the one-rank run's (``PT_RTOL``; a bf16 MoE arm's
+   after the first step within ``ST_MOE_RTOL``: routing is discrete, so
+   bf16 rounding moves a few tokens' picks), each leaf's first
+   exchanged gradient norm (router and expert leaves included; a
+   stage's layers by their global index, an expert leaf's shards over
+   the expert group) against the one-rank run's (``PT_GRAD_RTOL``),
+   K1/K2/K3 launches by formula (a stage runs its L/pp layers on each of
+   the M + pp - 1 ticks, the forward twice under remat), no plain
+   version and no SDPA; the step's ms and tokens/s, the token
+   all-to-alls', chain hops', pipe broadcasts', pipe sum's and
+   exchange's ms, the peak GiB a rank and each layer's expert load f
+   printed.  Then K1, K2 and K3 against their plain versions at the
+   path's shapes (``st_path_shapes``);
 8. cnn — the image-classifier path on synthetic ImageNet/CIFAR data
    (``TM_DATA_DIR`` points at an empty directory under ``build/``): a
    small fp32 WResNet trained 3 BSP steps on the card and on the CPU
@@ -243,7 +269,7 @@ phase's seconds are printed at the end):
    ``*.corrupt``, the 15 losses bitwise an unsupervised run's from the
    same init, each restart's time to recovery and the MTTR printed.
    Then graceful preemption at Llama-3-8B widths (bf16, ``RES_LAYERS``
-   deep, K1-K3 on the tensor cores): one supervised launch, a sigterm
+   deep, Adam, K1-K3 on the tensor cores): one supervised launch, a sigterm
    after step 2, the preemption checkpoint stamped ``next_iter`` 3 and
    the relaunch resumed there: 3 steps a life (none lost or repeated),
    losses bitwise an uninterrupted run's, K1/K2/K3 launches 13/6/6;
@@ -293,11 +319,17 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 REDUCED = {
     "max_seq": "2048 (LLAMA3_8B.seq_len 8192): the run's time limit",
     "n_layers (serving, v1 and paged)": "8 (32): the run's time limit",
-    "n_layers (serving_fleet)": "4 (32): the run's time limit (8 until "
-    "the exchange phase took its time); its asserts (the drill's and the "
+    "n_layers (serving_fleet)": "2 (32): the run's time limit (8 until "
+    "the exchange phase took its time, 4 until the stack_train phase "
+    "did); its asserts (the drill's and the "
     "policies' ids equal to one replica's, K4 and norm launches a layer) "
-    "do not need depth; serving_ext keeps the 32 layers, where "
+    "do not need depth; serving_ext keeps 16 layers, where "
     "speculative ids are held to one-token ids",
+    "n_layers (serving_ext)": "16 (32): the run's time limit (32 until "
+    "the resilience full-width arm went back to Adam); every layer runs "
+    "the same K4, norm and GEMM calls, so the speculative = one-token "
+    "ids, the launch counts and the rows' equality are asserted as at "
+    "32; the widths are Llama-3-8B's",
     "tracing (serving_ext)": "tokens/s traced and not, once each (off, "
     "on, on, off until the exchange phase took its time): the ids and "
     "the span trees are asserted on the traced run",
@@ -330,9 +362,10 @@ REDUCED = {
     "replicas (serving_fleet)": "up to 3 in-process replicas sharing one "
     "card and one model's weights (a deployment gives each its own "
     "card): the run has one card",
-    "n_layers (serving_tp)": "4 (32): the run's time limit (8 until the "
-    "exchange phase took its time; its fp32 ids and launch counts do not "
-    "need depth); the widths are Llama-3-8B's",
+    "n_layers (serving_tp)": "2 (32): the run's time limit (8 until the "
+    "exchange phase took its time, 4 until the stack_train phase did; "
+    "its fp32 ids and launch counts do not need depth); the widths are "
+    "Llama-3-8B's",
     "ranks (serving_tp)": "tp = 2 as two processes on card 0 over gloo, "
     "which stages every collective through the host (a deployment gives "
     "each rank a card and uses NCCL, which refuses two ranks on one "
@@ -354,9 +387,10 @@ REDUCED = {
     "each rank a card and NCCL, which refuses two ranks on one card): "
     "the run has one card",
     "n_layers (resilience, full width)": "1 (32): one supervised run "
-    "writes, validates and reads back a 15.2 GB fp32 checkpoint (masters "
-    "and Adam moments) at 1 layer (17.8 GB at 2, until the parallel_train "
-    "phase took its time), 96.4 GB at 32; the widths are Llama-3-8B's",
+    "writes, validates and reads back an fp32 checkpoint at 1 layer (with "
+    "Adam's moments 15.2 GB at 1 layer, 17.8 GB at 2 until the "
+    "parallel_train phase took its time, 96.4 GB at 32); the widths are "
+    "Llama-3-8B's",
     "steps (resilience, full width)": "6, one epoch (the sigterm drill after "
     "step 2, resumed at step 3): the run's time limit",
     "n_layers (parallel_train)": "2 (32): two ranks at sp = 2 "
@@ -367,12 +401,28 @@ REDUCED = {
     "and four processes on card 0 over gloo, which stages every collective "
     "through the host (a deployment gives each rank a card and NCCL, which "
     "refuses two ranks on one card): the run has one card",
-    "steps (parallel_train)": "3 a layout, batch 1, no val "
-    "pass: the run's time limit (the seq group's gradient mean "
-    "moves the fp32 gradients through gloo every step)",
+    "steps (parallel_train)": "2 a layout (3 until the stack_train "
+    "phase took its time), batch 1, no val pass: the run's time limit "
+    "(the seq group's gradient mean moves the fp32 gradients through "
+    "gloo every step)",
     "ranks (resilience, elastic)": "two processes on card 0 over gloo, "
     "shrunk to one (a deployment gives each rank a card and NCCL, which "
     "refuses two ranks on one card): the run has one card",
+    "n_layers (stack_train)": "2 (Mixtral-8x7B: 32): one rank holds "
+    "the fp32 masters, gradients and Adam moments of 3.16 B parameters "
+    "(50.6 GB) at 2 layers, and ep = 2 and pp = 2 put two ranks of "
+    "27-28 GB each on the one card; the widths (dim 4096, 32 heads, 8 kv "
+    "heads, ffn 14336, vocab 32000, 8 experts, top-2) are Mixtral's",
+    "seq_len (stack_train)": "4096 (Mixtral-8x7B: 32768): the card's "
+    "memory beside two ranks' state, and the run's time limit",
+    "rope_theta (stack_train)": "10000, the port's (Mixtral: 1e6): not a "
+    "width; the port has no theta knob",
+    "steps (stack_train)": "3 an arm, global batch 2, no val pass: the "
+    "run's time limit",
+    "ranks (stack_train)": "ep = 2, pp = 2 and pp = 2 x ep = 2 as two "
+    "and four processes on card 0 over gloo, which stages every "
+    "collective through the host (a deployment gives each rank a card "
+    "and NCCL): the run has one card",
     "dataset (cnn, native feed)": "8 x 128 train and 2 x 128 val "
     "synthetic 256 x 256 uint8 images written as .tmb files (ImageNet: "
     "1.28 M / 50 k): a cut of the dataset's size, not a width",
@@ -406,13 +456,13 @@ GOOGLENET_TRAJECTORY = {"first": 11.3753, "last": 11.0767, "val": 6.90323}
 # depth of the serving phases (v1 and paged; serving_fleet) unless
 # --layers says
 SERVING_LAYERS = 8
-FLEET_LAYERS = 4
-# depth of serving_ext unless --layers says: the model's own, where its
+FLEET_LAYERS = 2
+# depth of serving_ext unless --layers says (REDUCED), where its
 # speculative = one-token equality is asserted
-EXT_LAYERS = 32
+EXT_LAYERS = 16
 PHASES = ("kernels", "serving", "serving_ext", "serving_fleet",
-          "serving_tp", "training", "exchange", "parallel_train", "cnn",
-          "async", "async_dist", "resilience")
+          "serving_tp", "training", "exchange", "parallel_train",
+          "stack_train", "cnn", "async", "async_dist", "resilience")
 
 
 def log(*a):
@@ -2553,7 +2603,7 @@ def run_serving_fleet(dev, n_layers: int | None, records: dict,
 # -- serving_tp: tensor-parallel serving, two ranks on card 0 -----------------
 
 TP = 2
-TP_LAYERS = 4          # depth of the serving_tp models (REDUCED)
+TP_LAYERS = 2          # depth of the serving_tp models (REDUCED)
 TP_V1_KW = dict(max_slots=8, max_seq=2048)
 TP_TEMP = 0.8
 # the bf16 first decode step's logits at tp = 2 against tp = 1 of the
@@ -4850,7 +4900,7 @@ def run_resilience_phase(dev, records: dict) -> None:
 
 PT_LAYERS = 2            # depth of the full-width layouts (REDUCED)
 PT_SEQ = 8192            # LLAMA3_8B.seq_len: the ring's home
-PT_STEPS = 3
+PT_STEPS = 2
 # the layouts of the two-process arm, run in turn in the same processes
 PT_PAIR = {"tp2": dict(tp=2), "ring": dict(sp=2, sp_mode="ring"),
            "ulysses": dict(sp=2, sp_mode="ulysses")}
@@ -4901,17 +4951,15 @@ def grad_norm_probe(cls, box: dict):
     path's own); returns the original for restoring."""
     import torch
 
-    from theanompi_tpu_torch.models.llama import LAYER_KEYS
+    from theanompi_tpu_torch.models.llama import leaf_names
 
     orig = cls._exchange_update
 
     def probe(self, leaves, grads):
         orig(self, leaves, grads)
         if not box:
-            names = (["embed"] + [f"layers.{i}.{k}"
-                                  for i in range(len(self.params["layers"]))
-                                  for k in LAYER_KEYS]
-                     + ["final_norm", "lm_head"])
+            # a stage's layers by their global index
+            names = leaf_names(self.params, self.layer_offset)
             box.update((n, float(torch.linalg.vector_norm(g)) ** 2)
                        for n, g in zip(names, grads))
 
@@ -4919,21 +4967,44 @@ def grad_norm_probe(cls, box: dict):
     return orig
 
 
-def pt_grad_norms(ranks: list, name: str) -> dict:
-    """Each leaf's full gradient norm from the ranks of one layout: a
-    sharded leaf's sums of squares added over the model group of data
-    and seq coordinate 0, a replicated leaf's from model rank 0."""
-    from theanompi_tpu_torch.models.llama import SHARD_AXIS
+def expert_load_probe(cls, box: dict):
+    """Wrap ``cls._aux_from_moments`` so that the first call (the first
+    step's forward) leaves each layer's expert load ``f`` (the fraction
+    of the picks each expert took, over every token-sharding rank) in
+    ``box["f"]``; returns the original for restoring."""
+    orig = cls._aux_from_moments
 
-    heads = [rk["jobs"][name] for rk in ranks
-             if rk["jobs"][name]["coords"][0] == 0
-             and rk["jobs"][name]["coords"][2] == 0]
-    out = {}
-    for leaf in heads[0]["grad_sq"]:
-        parts = [h["grad_sq"][leaf] for h in heads]
-        sharded = SHARD_AXIS[leaf.rsplit(".", 1)[-1]] is not None
-        out[leaf] = math.sqrt(sum(parts) if sharded else parts[0])
-    return out
+    def probe(self, moms):
+        if "f" not in box:
+            box["f"] = moms[:, :self.n_experts].detach().float().tolist()
+        return orig(self, moms)
+
+    cls._aux_from_moments = probe
+    return orig
+
+
+def pt_grad_norms(ranks: list, name: str) -> dict:
+    """Each leaf's full gradient norm from the ranks of one layout, at
+    data and seq coordinate 0: a leaf split over the model group summed
+    over its model ranks (else model rank 0's), an expert leaf over its
+    expert ranks (else expert rank 0's), a stage's layers from their
+    stage, the leaves every stage holds from stage 0."""
+    from theanompi_tpu_torch.models.llama import EXPERT_LEAVES, MODEL_AXIS
+
+    sums: dict = {}
+    for rk in ranks:
+        job = rk["jobs"][name]
+        p, e, d, m, s = job["coords"]
+        if d or s:
+            continue
+        for leaf, sq in job["grad_sq"].items():
+            k = leaf.rsplit(".", 1)[-1]
+            if (m and MODEL_AXIS[k] is None) \
+                    or (e and k not in EXPERT_LEAVES) \
+                    or (p and not leaf.startswith("layers.")):
+                continue             # a copy of another rank's
+            sums[leaf] = sums.get(leaf, 0.0) + sq
+    return {k: math.sqrt(v) for k, v in sums.items()}
 
 
 def pt_launches_per_step(layout: dict, seq_rank: int) -> dict:
@@ -4949,13 +5020,17 @@ def pt_launches_per_step(layout: dict, seq_rank: int) -> dict:
 class _TimedDist:
     """``torch.distributed`` as one of the port's modules sees it, with
     the wall time of each of its all-to-alls and all-reduces (the device
-    synchronized around it) kept under the module's ``kind``: the ring's
-    hop, the Ulysses all-to-all, the tp all-reduces, the gradient
-    exchange's all-reduces (at sp = 2 and one data replica, the seq
-    group's f32 gradient mean)."""
+    synchronized around it) kept under the module's ``kind`` (its
+    all-reduces' under ``all_reduce`` when given): the ring's hop, the
+    Ulysses all-to-all, the tp all-reduces, the gradient exchange's
+    all-reduces (at sp = 2 and one data replica, the seq group's f32
+    gradient mean), the MoE token all-to-alls and aux means, the
+    pipeline's chain hops and broadcasts, the pipe sum."""
 
-    def __init__(self, real, kind: str, times: dict):
+    def __init__(self, real, kind: str, times: dict,
+                 all_reduce: str | None = None):
         self._real, self._kind, self._times = real, kind, times
+        self._ar_kind = all_reduce or kind
 
     def __getattr__(self, name):
         return getattr(self._real, name)
@@ -4976,7 +5051,7 @@ class _TimedDist:
                            **kw)
 
     def all_reduce(self, *a, **kw):
-        return self._timed(self._kind, self._real.all_reduce, *a, **kw)
+        return self._timed(self._ar_kind, self._real.all_reduce, *a, **kw)
 
 
 def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
@@ -4989,9 +5064,11 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
     import torch.distributed as tdist
     import torch.nn.functional as F
 
+    from theanompi_tpu_torch.models import base as base_mod
     from theanompi_tpu_torch.models import llama as llama_mod
     from theanompi_tpu_torch.ops import attention as attn
-    from theanompi_tpu_torch.parallel import exchange, ring_attention, ulysses
+    from theanompi_tpu_torch.parallel import collectives, exchange, ulysses
+    from theanompi_tpu_torch.parallel import moe, pp
     from theanompi_tpu_torch.parallel import tp as tp_lib
     from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
     from theanompi_tpu_torch.workers import bsp_worker
@@ -5012,10 +5089,12 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
     F.scaled_dot_product_attention = counting(
         "sdpa", F.scaled_dot_product_attention)
     times = {}
-    ring_attention.dist = _TimedDist(tdist, "ring_hop", times)
     ulysses.dist = _TimedDist(tdist, "ulysses_a2a", times)
     exchange.dist = _TimedDist(tdist, "grad_exchange", times)
     tp_lib.dist = _TimedDist(tdist, "tp_all_reduce", times)
+    moe.dist = _TimedDist(tdist, "moe_a2a", times, all_reduce="moe_aux_mean")
+    pp.dist = _TimedDist(tdist, "pipe_value", times)
+    base_mod.dist = _TimedDist(tdist, "pipe_sum", times)
     steps = []
     train_iter = llama_mod.Llama.train_iter
 
@@ -5029,6 +5108,8 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
     llama_mod.Llama.train_iter = timed
     grad_sq = {}
     exchange_update = grad_norm_probe(llama_mod.Llama, grad_sq)
+    load = {}
+    aux_from = expert_load_probe(llama_mod.Llama, load)
     out = {}
     try:
         for name, cfg in jobs:
@@ -5037,7 +5118,13 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
             times.clear()
             steps.clear()
             grad_sq.clear()
+            load.clear()
             torch.cuda.reset_peak_memory_stats()
+            # the ring's hop and the pipeline's chain hop are the one
+            # permutation collective; no arm runs both
+            collectives.dist = _TimedDist(
+                tdist, "chain_hop" if int(cfg.get("pp", 1)) > 1
+                else "ring_hop", times)
             res = bsp_worker.run(
                 devices=[dev] * world, rank=rank, world_size=world,
                 init_method=init, config=cfg, n_epochs=1, verbose=False,
@@ -5057,12 +5144,14 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
                 "params_b_rank": sum(t.numel() for t in model._leaves())
                 / 1e9,
                 "grad_sq": dict(grad_sq),
+                "expert_load": load.get("f"),
             }
             del res, model
             torch.cuda.empty_cache()
     finally:
         llama_mod.Llama.train_iter = train_iter
         llama_mod.Llama._exchange_update = exchange_update
+        llama_mod.Llama._aux_from_moments = aux_from
         destroy_group()
     print(json.dumps({"rank": rank, "jobs": out}), flush=True)
 
@@ -5089,14 +5178,15 @@ def pt_spawn(world: int, jobs: list) -> list[dict]:
                 p.wait()
     for r, (p, o) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"parallel_train: rank {r} of {world} "
-                                 f"exited {p.returncode}:\n{o[-6000:]}")
+            raise AssertionError(f"--pt-rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{o[-6000:]}")
     return [json.loads(o.strip().splitlines()[-1]) for o in outs]
 
 
-def pt_reference(dev, dtype: str) -> dict:
-    """The one-rank run of ``pt_config(dtype)`` in this process (a
-    one-rank NCCL group), each step timed; K1/K2/K3 counted."""
+def pt_reference(dev, cfg: dict) -> dict:
+    """The one-rank run of ``cfg`` in this process (a one-rank NCCL
+    group), each step timed; K1/K2/K3 counted; with MoE the first
+    step's expert load."""
     import torch
 
     from theanompi_tpu_torch.models import Llama
@@ -5123,24 +5213,30 @@ def pt_reference(dev, dtype: str) -> dict:
     Llama.train_iter = timed
     grad_sq = {}
     exchange_update = grad_norm_probe(Llama, grad_sq)
+    load = {}
+    aux_from = expert_load_probe(Llama, load)
     try:
-        out = bsp([dev.index], pt_config(dtype), verbose=False)
+        out = bsp([dev.index], cfg, verbose=False)
     finally:
         Llama.train_iter = train_iter
         Llama._exchange_update = exchange_update
+        Llama._aux_from_moments = aux_from
     res = {"losses": out["recorder"].train_losses, "step_s": steps,
            "grad_norms": {k: math.sqrt(v) for k, v in grad_sq.items()},
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": {k: fn.launches for k, fn in counters.items()},
            "tc_launches": {k: fn.tc_launches for k, fn in counters.items()},
-           "params_b": out["model"].n_params() / 1e9}
+           "params_b": out["model"].n_params() / 1e9,
+           "expert_load": load.get("f")}
     del out
     torch.cuda.empty_cache()
     return res
 
 
 def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
-             card: str) -> dict:
+             card: str, *, phase: str = "parallel_train", per_step=None,
+             tokens: int | None = None, steps: int = PT_STEPS,
+             later_rtol: float | None = None) -> dict:
     """Hold every rank of one layout's run to the one-rank run: the
     losses within ``PT_RTOL`` (and equal across the ranks), each leaf's
     first exchanged gradient norm within ``PT_GRAD_RTOL``, K1/K2/K3 at
@@ -5149,8 +5245,15 @@ def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
     peak, the worst gradient norm) logged, then every failure raised
     together."""
     rtol = PT_RTOL[dtype]
+    # the first step's loss (the forward alone) at rtol, the later ones
+    # at later_rtol when given
+    tols = [rtol] + [later_rtol or rtol] * (steps - 1)
     want_losses = ref["losses"]
-    tokens = PT_SEQ if dtype == "bfloat16" else SMALL["seq_len"]
+    if tokens is None:
+        tokens = PT_SEQ if dtype == "bfloat16" else SMALL["seq_len"]
+    if per_step is None:
+        def per_step(job):
+            return pt_launches_per_step(layout, job["seq_rank"])
     fails = []
     norms = pt_grad_norms(ranks, name)
     grad_rel = {k: abs(norms[k] - w) / w
@@ -5167,12 +5270,11 @@ def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
         job = rk["jobs"][name]
         losses = job["losses"]
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
-        if len(losses) != PT_STEPS or not all(map(math.isfinite, losses)) \
-                or max(rel) > rtol:
+        if len(losses) != steps or not all(map(math.isfinite, losses)) \
+                or any(e > t for e, t in zip(rel, tols)):
             fails.append(f"rank {r}: losses {losses} against one rank's "
-                         f"{want_losses}: relative {rel} (> {rtol})")
-        per = pt_launches_per_step(layout, job["seq_rank"])
-        want = {k: v * PT_STEPS for k, v in per.items()}
+                         f"{want_losses}: relative {rel} (> {tols})")
+        want = {k: v * steps for k, v in per_step(job).items()}
         if job["launches"] != want:
             fails.append(f"rank {r} (seq rank {job['seq_rank']}): "
                          f"launches {job['launches']}, want {want}")
@@ -5185,7 +5287,7 @@ def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
                          f"{job['plain_calls']}")
         med = statistics.median(job["step_s"][1:])
         coll = {k: {"calls": len(v), "median_ms": statistics.median(v),
-                    "total_ms_per_step": sum(v) / PT_STEPS}
+                    "total_ms_per_step": sum(v) / steps}
                 for k, v in job["collective_ms"].items()}
         per_rank.append({"rank": r, "coords": job["coords"],
                          "losses": losses, "max_rel_vs_one_rank": max(rel),
@@ -5193,16 +5295,16 @@ def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
                          med * 1e3, "tokens_per_s": tokens / med,
                          "peak_gib": job["peak_gib"],
                          "params_b_rank": job["params_b_rank"],
-                         "launches": job["launches"], "collectives": coll})
+                         "launches": job["launches"], "collectives": coll,
+                         "expert_load": job.get("expert_load")})
     res = {"layout": name, "dtype": dtype, "config": layout,
-           "one_rank_losses": want_losses, "rtol": rtol,
+           "one_rank_losses": want_losses, "rtol": tols,
            "grad_norm_worst": {"leaf": worst, "rel": grad_rel[worst],
                                "rtol": PT_GRAD_RTOL[dtype]},
            "ranks": per_rank}
-    log(f"[parallel_train {name} {dtype}] {json.dumps(res)} on {card}")
+    log(f"[{phase} {name} {dtype}] {json.dumps(res)} on {card}")
     if fails:
-        raise AssertionError(f"parallel_train {name} {dtype}: "
-                             + "; ".join(fails))
+        raise AssertionError(f"{phase} {name} {dtype}: " + "; ".join(fails))
     return res
 
 
@@ -5259,7 +5361,8 @@ def kernels_vs_plain(got: dict, q, k, v, do, lse, delta, causal: bool,
     return worst
 
 
-def pt_kernel_checks(dev, records: dict) -> dict:
+def pt_kernel_checks(dev, records: dict, *, shapes=None,
+                     phase: str = "parallel_train") -> dict:
     """K1, K2 and K3 against their plain versions at every shape of
     ``pt_path_shapes`` in bf16 (the tensor cores) and fp32 (SIMT), and
     K2/K3 against a GLOBAL (lse, delta): a ring rank's queries over two
@@ -5278,6 +5381,8 @@ def pt_kernel_checks(dev, records: dict) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(14)
     out, bad = {}, []
+    ring = shapes is None
+    shapes = shapes or pt_path_shapes
 
     def randn(shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -5295,7 +5400,7 @@ def pt_kernel_checks(dev, records: dict) -> dict:
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for (shape, causal), _ in pt_path_shapes(dtype):
+        for (shape, causal), _ in shapes(dtype):
             q, k, v, do = (randn(shape, dt) for _ in range(4))
             sm = shape[-1] ** -0.5
             o, lse = flash_fwd_cuda(q, k, v, causal, sm)
@@ -5304,6 +5409,8 @@ def pt_kernel_checks(dev, records: dict) -> dict:
             note(pt_shape_key(shape, causal), dtype, kernels_vs_plain(got, q, k, v, do, lse, delta,
                                               causal, dtype))
             del q, k, v, do, o, lse, delta, got
+        if not ring:
+            continue
         # the ring's backward: the global residuals of a two-block merge
         (shape, _), _ = next(x for x in pt_path_shapes(dtype)
                              if "ring" in x[1])
@@ -5324,20 +5431,20 @@ def pt_kernel_checks(dev, records: dict) -> dict:
                                   dtype))
         del q, k0, v0, k1, v1, do, o0, o1, o, lse, delta, got
         torch.cuda.empty_cache()
-    log(f"[parallel_train] K1/K2/K3 against their plain versions at the "
+    log(f"[{phase}] K1/K2/K3 against their plain versions at the "
         f"path's shapes (max abs error): {json.dumps(out)}")
     for key in ("K1", "K2", "K3"):
         for dtype, rk in (("bfloat16", key), ("float32", f"{key} fp32")):
             if rk in records:
-                records[rk]["parallel_train_shapes"] = {
+                records[rk][f"{phase}_shapes"] = {
                     s: max(e[n] for n in e if n in {
                         "K1": ("o", "lse"), "K2": ("dk", "dv"),
                         "K3": ("dq",)}[key])
                     for s, e in out[dtype].items()
                     if key != "K1" or "o" in e}
     if bad:
-        raise AssertionError("parallel_train: kernels disagree with their "
-                             "plain versions: " + "; ".join(bad))
+        raise AssertionError(f"{phase}: kernels disagree with their "
+                             f"plain versions: " + "; ".join(bad))
     return out
 
 
@@ -5419,7 +5526,7 @@ def run_parallel_train_phase(dev, records: dict, card: str) -> None:
     t0 = time.perf_counter()
     refs = {}
     for dtype in ("float32", "bfloat16"):
-        refs[dtype] = pt_reference(dev, dtype)
+        refs[dtype] = pt_reference(dev, pt_config(dtype))
         log(f"[parallel_train one rank {dtype}] {json.dumps(refs[dtype])} "
             f"on {card}")
     arms = {}
@@ -5452,6 +5559,150 @@ def run_parallel_train_phase(dev, records: dict, card: str) -> None:
     pt_hop_kernels(dev, records, errs["bfloat16"][pt_shape_key(
         (1, 32, PT_SEQ // 2, 128), False)])
     log(f"[parallel_train] {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase stack_train: pp > 1 and MoE experts at ep >= 1 ---------------------
+
+#: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1,
+#: params.json and config.json): SwiGLU experts, top-2 gates
+#: renormalised, the design of the port's (and the JAX package's) MoE
+MIXTRAL_8X7B = dict(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                    ffn_dim=14336, vocab=32000, seq_len=32768,
+                    n_experts=8, moe_top_k=2)
+ST_LAYERS = 2            # depth of the full-width arms (REDUCED)
+ST_SEQ = 4096            # REDUCED
+ST_STEPS = 3
+ST_BATCH = {"bfloat16": 2, "float32": 4}   # global batch by dtype
+# the two-process arms (run in turn in the same processes) and the
+# four-process one; the full width runs the arms of ST_WIDE; "data" is
+# the data axis (what the world leaves after pp x ep), which st_config
+# takes out of the model's config
+ST_PAIR = {"dp2": dict(data=2), "ep2": dict(ep=2), "pp2": dict(pp=2),
+           "pp2_dense": dict(pp=2, n_experts=0)}
+ST_QUAD = {"pp2_ep2": dict(pp=2, ep=2)}
+ST_WIDE = ("ep2", "pp2")
+# the bf16 MoE arms' losses after the first step against one rank's:
+# MoE routes discretely, so the bf16 rounding of a layout's other GEMM
+# shapes moves a few tokens' top-2 picks (layer 1's expert load f moved
+# by 1.6e-4: ~3 of 16384 picks, on an H100), and Adam (lr·m/sqrt(v)) turns
+# those tokens' gradient differences into whole updates: measured
+# 1.19e-4 (pp = 2) and 1.29e-4 (ep = 2) at step 3, 1.2e-5 to 3.0e-5 at
+# step 2 (1.5e-5 at step 1, held to PT_RTOL); the limit sits about 2x
+# over the worst reading, below the per-step loss drift (~1.6e-3):
+# planted, a skipped second update read 1.32e-3 and 1.33e-3 at step 3;
+# expert gradients left undivided by ep read 6.3e-5 on the losses (Adam
+# is scale-free) and 1.0 on the expert leaves' norms (PT_GRAD_RTOL)
+ST_MOE_RTOL = 3e-4
+
+
+def st_config(dtype: str, **layout) -> dict:
+    """A stack_train run: Mixtral-8x7B widths at ``ST_LAYERS`` and seq
+    ``ST_SEQ`` in bf16 (Adam, remat, capacity factor E/k = 4.0: nothing
+    drops, as Mixtral routes; the JAX default aux coefficient 0.01), or
+    the small model in fp32 with 4 experts, top-2, capacity factor 2.0
+    (SGD at lr 0.5, which a wrongly scaled gradient would move); the
+    global batch ``ST_BATCH[dtype]`` over the data replicas (expert x
+    data), ``ST_STEPS`` steps, no val pass."""
+    if dtype == "bfloat16":
+        cfg = dict(MIXTRAL_8X7B, n_layers=ST_LAYERS, seq_len=ST_SEQ,
+                   compute_dtype="bfloat16", optimizer="adam", lr=1e-4,
+                   remat=True, xent_chunks="auto", seed=0,
+                   capacity_factor=4.0, moe_aux_coef=0.01)
+    else:
+        cfg = dict(SMALL, optimizer="sgd", lr=0.5, remat=True,
+                   n_experts=4, moe_top_k=2, capacity_factor=2.0)
+    glob = ST_BATCH[dtype]
+    layout = dict(layout)
+    replicas = layout.get("ep", 1) * layout.pop("data", 1)
+    cfg.update(batch_size=glob // replicas,
+               n_train=ST_STEPS * glob, n_val=0, exch_strategy="ici32",
+               **layout)
+    return cfg
+
+
+def st_launches_per_step(cfg: dict) -> dict:
+    """K1/K2/K3 launches a rank makes a step: each stage runs its L/pp
+    layers on each of the M + pp - 1 ticks (fill and drain included,
+    as JAX's stages do), the forward twice under remat."""
+    from theanompi_tpu_torch.models import Llama
+
+    pp = cfg.get("pp", 1)
+    ticks = (Llama(cfg, device="cpu").pp_microbatches + pp - 1
+             if pp > 1 else 1)
+    n = cfg["n_layers"] // pp * ticks
+    return {"K1": 2 * n, "K2": n, "K3": n}
+
+
+def st_path_shapes(dtype: str) -> list:
+    """((B, H, T, D), causal) of every K1-K3 launch shape on the
+    stack_train path in ``dtype``: a rank's batch [B/ep, H, T, D], or at
+    pp > 1 a microbatch's [B/ep/M, H, T, D], all causal."""
+    from theanompi_tpu_torch.models import Llama
+
+    at: dict = {}
+    arms = [("one rank", {})] + list(ST_PAIR.items()) + list(ST_QUAD.items())
+    for name, lay in arms:
+        if dtype == "bfloat16" and name not in ST_WIDE + ("one rank",):
+            continue
+        cfg = st_config(dtype, **lay)
+        b = cfg["batch_size"]
+        if cfg.get("pp", 1) > 1:
+            b //= Llama(cfg, device="cpu").pp_microbatches
+        shape = (b, cfg["n_heads"], cfg["seq_len"],
+                 cfg["dim"] // cfg["n_heads"])
+        at.setdefault((shape, True), []).append(name)
+    return list(at.items())
+
+
+def run_stack_train_phase(dev, records: dict, card: str) -> None:
+    """Phase stack_train: Llama training with MoE at ep = 2, at pp = 2
+    (MoE and dense) and at pp = 2 x ep = 2, ranks on card 0 over gloo,
+    against the one-rank runs from the same init and batches; each arm
+    in fp32 at the small width, ep = 2 and pp = 2 also in bf16 at
+    Mixtral-8x7B widths; then K1/K2/K3 at the path's shapes."""
+    t0 = time.perf_counter()
+    refs = {}
+    for dtype, moe in (("float32", True), ("float32", False),
+                       ("bfloat16", True)):
+        cfg = st_config(dtype, **({} if moe else {"n_experts": 0}))
+        refs[(dtype, moe)] = pt_reference(dev, cfg)
+        log(f"[stack_train one rank {dtype}{'' if moe else ' dense'}] "
+            f"{json.dumps(refs[(dtype, moe)])} on {card}")
+    arms = {}
+    for world, layouts in ((2, ST_PAIR), (4, ST_QUAD)):
+        jobs = [(f"{name}_{dtype}", st_config(dtype, **layout))
+                for dtype in ("float32", "bfloat16")
+                for name, layout in layouts.items()
+                if dtype == "float32" or name in ST_WIDE]
+        ta = time.perf_counter()
+        ranks = pt_spawn(world, jobs)
+        log(f"[stack_train] {world} ranks on card 0: "
+            f"{time.perf_counter() - ta:.1f} s")
+        for job, cfg in jobs:
+            dtype = cfg["compute_dtype"]
+            arms[job] = pt_check(
+                job, dtype, layouts[job.rsplit("_", 1)[0]], ranks,
+                refs[(dtype, bool(cfg["n_experts"]))], card,
+                phase="stack_train", steps=ST_STEPS,
+                per_step=lambda _, cfg=cfg: st_launches_per_step(cfg),
+                tokens=cfg["seq_len"] * ST_BATCH[dtype],
+                later_rtol=(ST_MOE_RTOL if dtype == "bfloat16"
+                            and cfg["n_experts"] else None))
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    fp32 = {"K1 fp32": 0, "K2 fp32": 0, "K3 fp32": 0}
+    for res in arms.values():
+        for rk in res["ranks"]:
+            for k, n in rk["launches"].items():
+                if res["dtype"] == "bfloat16":
+                    launches[k] += n
+                else:
+                    fp32[f"{k} fp32"] += n
+    for k, n in list(launches.items()) + list(fp32.items()):
+        if k in records:
+            add_launches(records[k], stack_train=n)
+    pt_kernel_checks(dev, records, shapes=st_path_shapes,
+                     phase="stack_train")
+    log(f"[stack_train] {time.perf_counter() - t0:.1f} s")
 
 
 def ptxas_kernels(report: str) -> list[dict]:
@@ -5527,7 +5778,7 @@ def parse_args(argv=None):
                     help=f"comma list of {PHASES} (default: all)")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the full-width models (default: 8; "
-                    "32 serving_ext, 4 serving_fleet and serving_tp)")
+                    "16 serving_ext, 2 serving_fleet and serving_tp)")
     # rank 1 of the serving_tp phase, started by rank 0
     ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
@@ -5791,6 +6042,11 @@ def main(argv=None) -> int:
         phase_start("parallel_train", t_start)
         # tp = 2, sp = 2 ring and Ulysses, tp = 2 x sp = 2 on card 0
         run_parallel_train_phase(dev, records, card)
+
+    if "stack_train" in ns.phases:
+        phase_start("stack_train", t_start)
+        # pp = 2, MoE at ep = 2, pp = 2 x ep = 2 on card 0
+        run_stack_train_phase(dev, records, card)
 
     if "cnn" in ns.phases:
         phase_start("cnn", t_start)

@@ -94,6 +94,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             # training at tp > 1 and sp > 1: the ring and Ulysses
             "theanompi_tpu_torch.parallel.ring_attention",
             "theanompi_tpu_torch.parallel.ulysses",
+            "theanompi_tpu_torch.parallel.pp",
+            "theanompi_tpu_torch.parallel.moe",
+            "theanompi_tpu_torch.parallel.collectives",
             "theanompi_tpu_torch.ops.attention"} <= set(MODULES)
 
 
@@ -238,8 +241,11 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     (dict(config=dict(TRAIN, elastic=True, elastic_batch_policy="all")),
      ValueError, "elastic_batch_policy"),
     (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
-    (dict(config=dict(TRAIN, pp=2)), NotImplementedError, "A12"),
-    (dict(config=dict(TRAIN, n_experts=4)), NotImplementedError, "A12"),
+    (dict(config=dict(TRAIN, pp=2, elastic=True), devices=["cpu"] * 2,
+          world_size=2, init_method="tcp://127.0.0.1:1"),
+     NotImplementedError, "A12"),
+    (dict(config=dict(TRAIN, n_experts=4, exch_strategy="zero1")),
+     NotImplementedError, "MoE expert sharding"),
     (dict(config=dict(TRAIN, tp=2)), ValueError, "needs at least 2"),
     (dict(config=dict(TRAIN, sp=2, sp_mode="ulysses")), ValueError,
      "needs at least 2"),

@@ -118,11 +118,23 @@ def test_config_checks():
         port_llama.Llama(dict(CFG, n_kv_heads=3), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         port_llama.Llama(dict(CFG, compute_dtype="float16"), device="cpu")
-    # pp and MoE stay refused (A12); sp is a layout knob with the JAX
-    # asserts on it
-    for knob in (dict(pp=2), dict(n_experts=4), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match="A12"):
+    # pp, the MoE knobs and sp are layout knobs with the JAX asserts on
+    # them
+    for knob, match in (
+            (dict(pp=3), "n_layers must divide by pp"),
+            (dict(n_experts=4, ep=3), "must divide by ep"),
+            (dict(n_experts=4, moe_top_k=5), "moe_top_k"),
+            (dict(n_experts=4, moe_top_k=0), "moe_top_k"),
+            (dict(ep=2), "ep > 1 requires n_experts > 0"),
+            (dict(pp=2, batch_size=3), "microbatches")):
+        with pytest.raises(ValueError, match=match):
             port_llama.Llama(dict(CFG, **knob), device="cpu")
+    m = port_llama.Llama(dict(CFG, pp=2, batch_size=6), device="cpu")
+    assert m.pp_microbatches == 2          # 2*pp does not divide 6
+    m = port_llama.Llama(dict(CFG, pp=2, batch_size=8), device="cpu")
+    assert m.pp_microbatches == 4
+    assert port_llama.Llama(dict(CFG, n_experts=4, ep=2),
+                            device="cpu").ep == 2
     with pytest.raises(ValueError, match="sp_mode"):
         port_llama.Llama(dict(CFG, sp=2, sp_mode="tree"), device="cpu")
     with pytest.raises(ValueError, match="seq_len"):

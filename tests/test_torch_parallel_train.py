@@ -356,8 +356,9 @@ def test_layout_map_and_groups_match_jax_mesh(tp, sp):
     lays = [Layout(r, 8, tp, sp) for r in range(8)]
     assert lays[0].dp_replicas == 8 // (tp * sp)
     for r, lay in enumerate(lays):
-        d, m, s = layout_coords(r, tp, sp)
-        assert lay.coords == (d, m, s)
+        p, e, d, m, s = layout_coords(r, 8, tp, sp)
+        assert (p, e) == (0, 0)
+        assert lay.coords == (p, e, d, m, s)
         assert grid[d, m, s] == r
         for axis, line in (("data", grid[:, m, s]), ("model", grid[d, :, s]),
                            ("seq", grid[d, m, :]),

@@ -64,6 +64,7 @@ CHILD = """
 import pickle, sys
 import torch
 sys.path.insert(0, {root!r})
+from theanompi_tpu_torch.parallel import collectives
 from theanompi_tpu_torch.parallel import ring_attention as ra
 from theanompi_tpu_torch.parallel.mesh import Layout, destroy_group, init_group
 
@@ -89,14 +90,14 @@ for key, (q, k, v, w) in cases.items():
         a[:, :, rank * t_loc:(rank + 1) * t_loc].copy())
     tq, tk, tv = (part(a).requires_grad_() for a in (q, k, v))
     fwd_calls[0] = 0
-    hops = ra.ring_shift.calls
+    hops = collectives.ppermute.calls
     o = ra.ring_attention(tq, tk, tv, lay.seq, causal=causal, kv_rep=rep,
                           impl=impl)
     (o * part(w)).sum().backward()
     out[key] = dict(o=o.detach().numpy(), dq=tq.grad.numpy(),
                     dk=tk.grad.numpy(), dv=tv.grad.numpy(),
                     fwd_calls=fwd_calls[0],
-                    hops=ra.ring_shift.calls - hops)
+                    hops=collectives.ppermute.calls - hops)
 pickle.dump(out, open({out!r} + str(rank), "wb"))
 destroy_group()
 """

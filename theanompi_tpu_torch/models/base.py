@@ -50,6 +50,7 @@ under JAX keystr keys, so they load in either package.
 
 from __future__ import annotations
 
+import math
 import warnings
 from pathlib import Path
 from typing import Any
@@ -149,6 +150,41 @@ def refuse_unported(cfg: dict) -> None:
         )
 
 
+def refuse_layout_exchange(cfg: dict, zero1: bool,
+                           compression: str | None) -> None:
+    """The exchange states a Llama layout cannot carry, refused before
+    anything is built: zero1 and the compressed wire with MoE experts
+    (the JAX package's own ``NotImplementedError``s: expert and dense
+    leaves exchange over different groups), and zero1, the compressed
+    wire and elastic resume at tp·sp·pp > 1 (not ported: ROADMAP.md
+    A12)."""
+    if int(cfg.get("n_experts", 0)):
+        if zero1:
+            raise NotImplementedError(
+                "exch_strategy='zero1' does not yet compose with MoE "
+                "expert sharding (n_experts > 0): expert leaves exchange "
+                "over data alone while dense leaves exchange over "
+                "(expert, data) — two separate shard groups")
+        if compression:
+            raise NotImplementedError(
+                "exch_compression does not yet compose with MoE expert "
+                "sharding (n_experts > 0): expert and dense leaves "
+                "exchange over different shard groups, so there is no "
+                "single flat buffer to quantize (same split that keeps "
+                "MoE+zero1 NotImplementedError)")
+    prod = math.prod(int(cfg.get(k, 1)) for k in ("tp", "sp", "pp"))
+    if prod == 1:
+        return
+    for knob, on in (("exch_strategy=zero1", zero1),
+                     ("exch_compression", bool(compression)),
+                     ("elastic", bool(cfg.get("elastic")))):
+        if on:
+            raise NotImplementedError(
+                f"{knob} at tp*sp*pp={prod} > 1 is not ported yet "
+                f"(ROADMAP.md A12: the flat exchange state and its "
+                f".shards layout per model shard and stage)")
+
+
 class TMModel:
     """Abstract contract; subclass or duck-type it."""
 
@@ -174,6 +210,16 @@ class TMModel:
     #: the seq axis's group on a 16-bit wire at sp > 1: the gradients'
     #: f32 mean over it comes before the data exchange
     _seq_group = None
+    #: at pp > 1: (the pipe group, the indices of the leaves the stages
+    #: all hold): their gradients are summed over it in f32 first
+    _pipe_sum: tuple | None = None
+    #: with MoE: the indices of the expert leaves, exchanged over
+    #: ``_expert_dp_group`` (data, or data × seq on an f32 wire; None:
+    #: the default group) and divided by ``_ep``; the exchange then runs
+    #: per leaf, unbucketed, as JAX's does
+    _expert_leaves: frozenset = frozenset()
+    _expert_dp_group = None
+    _ep: int = 1
     #: whether ``checkpoint_trees`` is a collective (it gathers shards)
     _save_collective: bool = False
     _zero1: bool = False
@@ -324,7 +370,10 @@ class TMModel:
     def _exchange_update(self, leaves: list, grads: list) -> None:
         """The step's exchange and optimizer update: allreduce-mean by
         the strategy (or the compressed wire) then the update, or the
-        zero1 reduce-scatter / shard update / all-gather."""
+        zero1 reduce-scatter / shard update / all-gather.  A layout
+        first sums the stage-invariant leaves over pipe and means every
+        leaf over seq (16-bit wire); with MoE the expert leaves mean over
+        their own group and divide by ``ep``."""
         lr = self.current_lr
         if self._zero1:
             def update(p, g, state):
@@ -343,11 +392,24 @@ class TMModel:
                 r1=self.ef_state.get("r1"), r2=self.ef_state.get("r2"),
                 bucket_elems=self._bucket_elems)
         else:
+            if self._pipe_sum is not None:
+                group, idx = self._pipe_sum
+                for i in idx:
+                    dist.all_reduce(grads[i], group=group)
             if self._seq_group is not None:
                 allreduce_mean(grads, group=self._seq_group,
                                bucket_elems=self._bucket_elems)
-            self._strategy(grads, group=self._dp_group,
-                           bucket_elems=self._bucket_elems)
+            if self._expert_leaves:
+                for i, g in enumerate(grads):
+                    if i in self._expert_leaves:
+                        self._strategy([g], group=self._expert_dp_group)
+                        if self._ep > 1:
+                            g.div_(self._ep)
+                    else:
+                        self._strategy([g], group=self._dp_group)
+            else:
+                self._strategy(grads, group=self._dp_group,
+                               bucket_elems=self._bucket_elems)
         self.opt_state = self.optimizer.update(leaves, grads, self.opt_state,
                                                lr)
 

@@ -8,6 +8,7 @@ from theanompi_tpu_torch.parallel.exchange import (
     gossip_deliver,
     gossip_matrix_round,
     gossip_merge,
+    gossip_push,
     gossip_send,
 )
 from theanompi_tpu_torch.parallel.mesh import (
@@ -17,5 +18,5 @@ from theanompi_tpu_torch.parallel.mesh import (
 
 __all__ = ["elastic_center_merge", "elastic_center_merge_masked",
            "elastic_pair_update", "gossip_deliver", "gossip_matrix_round",
-           "gossip_merge", "gossip_send", "resolve_device",
+           "gossip_merge", "gossip_push", "gossip_send", "resolve_device",
            "resolve_replica_devices"]

@@ -55,8 +55,10 @@ for GoSGD) are the JAX functions of the same names: plain tensor ops
 over a leading worker axis ``W`` of stacked replicas, in one process,
 on trees (dicts, lists, tuples) of tensors.  Like the JAX ones they
 return new trees; integer leaves (a step counter) keep their local
-value through a gossip merge.  ``gossip_push`` (a ``ppermute`` between
-processes) belongs to the multi-process rules (ROADMAP.md A10).
+value through a gossip merge.  ``gossip_push`` is the JAX one-round
+push between processes: a ``ppermute`` over a permutation of the ranks
+of a group (``collectives.permute_all``: one ``all_to_all_single`` a
+dtype), then the score-weighted merge.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from theanompi_tpu_torch.parallel.collectives import permute_all
 
 MAX_EXCHANGE_BUCKETS = 64
 
@@ -582,3 +586,34 @@ def gossip_merge(params_a, score_a, params_b, score_b):
         lambda a, b: ((score_a * a + score_b * b) / total).to(a.dtype),
         params_a, params_b)
     return merged, total
+
+
+def gossip_push(params, score: torch.Tensor, *, group, perm, pushing):
+    """One GoSGD round between the ranks of ``group`` (an object with
+    ``rank``, ``size`` and ``device_group``, e.g. a layout axis):
+    ``perm`` is a (src, dst) permutation sampled on the host, the same
+    on every rank; ``pushing`` a ``[size]`` {0, 1} mask (1 = the rank
+    pushes this round).  A pushing rank halves its score and its
+    (params, score/2) travel to its ``perm`` destination, which merges
+    them weighted by the scores; a rank that does not push sends score
+    0, so its payload vanishes in the merge, and one permutation (one
+    collective a dtype) carries the sparse push.  ``params`` is a tree
+    of tensors; returns ``(merged, new score)`` as the JAX
+    ``gossip_push``."""
+    my_push = pushing[group.rank].to(score.dtype)
+    sent_score = my_push * score * 0.5          # what travels
+    new_score = score - sent_score              # halved iff pushing
+    leaves = []
+    tree_map(leaves.append, params)
+    got = iter(permute_all([sent_score.reshape(1)] + leaves, group, perm))
+    recv_score = next(got).reshape(score.shape)
+    total = new_score + recv_score
+
+    def merge(mine):
+        theirs = next(got)
+        # (new·mine + recv·theirs) / total, the first product fused into
+        # the add as XLA contracts it (one rounding): bitwise JAX's
+        w = torch.addcmul(recv_score * theirs, new_score, mine) / total
+        return w.to(mine.dtype)
+
+    return tree_map(merge, params), total

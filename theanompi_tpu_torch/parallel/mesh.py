@@ -17,13 +17,14 @@ rank, a device group for the activations' collectives (NCCL, one card a
 rank; gloo only when the caller asks, e.g. for two ranks on one card)
 and a CPU gloo group for the small headers rank 0 sends its followers.
 
-Training at tp > 1 or sp > 1 lays the world out as a :class:`Layout`,
-the counterpart of the JAX ``make_mesh(data, model, seq)``: rank ``r``
-sits at coordinates ``(data, model, seq)`` in the JAX axis order
-``(pipe, expert, data, model, seq)`` with ``pipe = expert = 1``, so
-``seq`` varies fastest.  Its model axis is a :class:`ModelGroup`; the
-seq and data axes are :class:`AxisGroup` objects.  Every rank creates every
-group in one order (gloo hangs otherwise).
+Training at tp, sp, pp or ep > 1 lays the world out as a
+:class:`Layout`, the counterpart of the JAX ``make_mesh(data, model,
+seq, pipe, expert)``: rank ``r`` sits at coordinates ``(pipe, expert,
+data, model, seq)`` in the JAX axis order, so ``seq`` varies fastest
+and ``pipe`` slowest.  Its model axis is a :class:`ModelGroup`; the
+other axes and the unions the exchange and the MoE means need are
+:class:`AxisGroup` objects.  Every rank creates every group in one order
+(gloo hangs otherwise).
 
 The card is the default: the CPU is used only when a caller asks for
 it, and a missing card is an error rather than a quiet fall back to
@@ -33,6 +34,8 @@ the CPU.
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 from dataclasses import dataclass
 from urllib.parse import urlparse
 
@@ -286,61 +289,86 @@ class AxisGroup:
 
 class Layout:
     """The world of one training run laid out as JAX's mesh
-    ``(pipe, expert, data, model, seq)`` with ``pipe = expert = 1``:
-    rank ``r`` is ``(d·model + m)·seq + s``.  ``model`` is this rank's
-    :class:`ModelGroup` (tensor parallelism), ``seq`` and ``data``
-    :class:`AxisGroup` objects (sequence parallelism, the BSP exchange),
-    ``data_seq`` the ranks of this model coordinate (the JAX pmean over
-    ``("data", "seq")``).  ``dp_replicas`` is the JAX
-    ``dp_replicas(mesh)`` (``expert × data``, expert = 1).  Build it
-    with :meth:`build` once the default group exists; it becomes
-    :func:`current_layout` until :func:`destroy_group`."""
+    ``(pipe, expert, data, model, seq)``: rank
+    ``r = (((p·E + e)·D + d)·M + m)·S + s``, pipe outermost and seq
+    fastest.  ``model`` is this rank's :class:`ModelGroup` (tensor
+    parallelism); ``seq``, ``data``, ``pipe`` and ``expert`` are
+    :class:`AxisGroup` objects (sequence parallelism, the BSP exchange,
+    the pipeline's chain, the MoE token all-to-all), and the unions
+    ``data_seq``, ``expert_data`` and ``expert_data_seq`` are the ranks
+    of this rank's other coordinates that vary along those axes: the
+    expert leaves' exchange and debug check over (data, seq), the dense
+    leaves' exchange over (expert, data), the metrics, the MoE aux
+    moments' means and the dense leaves' check over (expert, data, seq)
+    (the JAX pmean over ``batch_axes``).  ``dp_replicas`` is the JAX
+    ``dp_replicas(mesh)``: ``expert × data`` (expert ranks are data
+    replicas that also shard the experts).  Build it with :meth:`build`
+    once the default group exists; it becomes :func:`current_layout`
+    until :func:`destroy_group`."""
 
-    AXES = ("data", "model", "seq")
-    #: the axes a group is built for: the mesh's, then (data, seq)
-    GROUPS = AXES + ("data_seq",)
+    AXES = ("pipe", "expert", "data", "model", "seq")
+    #: the axes each group spans, in the order the groups are built:
+    #: tp·sp's four first (a tp·sp layout builds what it built before
+    #: the stack axes existed), then pipe, expert and the unions
+    SPANS = {"data": ("data",), "model": ("model",), "seq": ("seq",),
+             "data_seq": ("data", "seq"), "pipe": ("pipe",),
+             "expert": ("expert",), "expert_data": ("expert", "data"),
+             "expert_data_seq": ("expert", "data", "seq")}
+    GROUPS = tuple(SPANS)
 
     def __init__(self, rank: int, world: int, model: int = 1,
-                 seq: int = 1):
-        model, seq = int(model), int(seq)
-        check_layout(world, model, seq)
+                 seq: int = 1, pipe: int = 1, expert: int = 1):
+        data = check_layout(world, model, seq, pipe, expert)
         self.rank, self.world = int(rank), int(world)
-        self.sizes = {"data": world // (model * seq), "model": model,
-                      "seq": seq, "data_seq": world // model}
-        self.coords = layout_coords(rank, model, seq)
+        self.dims = {"pipe": int(pipe), "expert": int(expert),
+                     "data": data, "model": int(model), "seq": int(seq)}
+        self.sizes = {g: math.prod(self.dims[a] for a in span)
+                      for g, span in self.SPANS.items()}
+        self.coords = layout_coords(rank, world, model, seq, pipe, expert)
         self.groups: dict = {}
 
     @property
     def dp_replicas(self) -> int:
-        return self.sizes["data"]
+        return self.sizes["expert_data"]
 
     def axis_ranks(self, axis: str, rank: int | None = None) -> tuple:
         """The global ranks of ``rank``'s (default: this rank's) group
-        on ``axis``, in axis order."""
-        d, m, s = layout_coords(self.rank if rank is None else rank,
-                                self.sizes["model"], self.sizes["seq"])
-        nm, ns = self.sizes["model"], self.sizes["seq"]
-        at = {"data": lambda i: (i * nm + m) * ns + s,
-              "model": lambda i: (d * nm + i) * ns + s,
-              "seq": lambda i: (d * nm + m) * ns + i,
-              "data_seq": lambda i: (i // ns * nm + m) * ns + i % ns}[axis]
-        return tuple(at(i) for i in range(self.sizes[axis]))
+        ``axis``, in rank order (the spanned axes' coordinates vary,
+        outer axis first)."""
+        at = dict(zip(self.AXES, layout_coords(
+            self.rank if rank is None else rank, self.world,
+            *(self.dims[a] for a in ("model", "seq", "pipe", "expert")))))
+        span = self.SPANS[axis]
+        out = []
+        for combo in itertools.product(*(range(self.dims[a])
+                                         for a in span)):
+            c = dict(at, **dict(zip(span, combo)))
+            r = 0
+            for a in self.AXES:
+                r = r * self.dims[a] + c[a]
+            out.append(r)
+        return tuple(out)
 
     def all_groups(self, axis: str) -> list:
         """Every group of ``axis`` in the world, by lowest member."""
         return sorted({self.axis_ranks(axis, r) for r in range(self.world)})
 
     @classmethod
-    def build(cls, model: int = 1, seq: int = 1) -> "Layout":
+    def build(cls, model: int = 1, seq: int = 1, pipe: int = 1,
+              expert: int = 1) -> "Layout":
         """The layout of the default group (which must exist): every
         rank calls this with the same sizes.  Groups the size of the
         world are the default group; the others come from
         ``dist.new_group``, each set of ranks once (an axis of size 1
-        and ``data_seq`` at seq = 1 reuse what an earlier axis made),
-        every group of every axis created on every rank in one order
-        (the model axis's CPU header groups last, when the device groups
-        are not gloo)."""
-        lay = cls(dist.get_rank(), dist.get_world_size(), model, seq)
+        and a union equal to one of its axes reuse what an earlier group
+        made), every group of every axis created on every rank in one
+        order, :attr:`GROUPS`' (the model axis's CPU header groups last,
+        when the device groups are not gloo).  So a tp·sp layout makes
+        the groups it made before pipe and expert existed, and adds the
+        pipe and expert singletons only when none of its own axes has
+        size 1."""
+        lay = cls(dist.get_rank(), dist.get_world_size(), model, seq, pipe,
+                  expert)
         gloo = dist.get_backend() == "gloo"
         made = {}
         for axis in cls.GROUPS:
@@ -379,33 +407,59 @@ class Layout:
         return self.groups["data"]
 
     @property
+    def pipe(self) -> AxisGroup:
+        return self.groups["pipe"]
+
+    @property
+    def expert(self) -> AxisGroup:
+        return self.groups["expert"]
+
+    @property
     def data_seq(self) -> AxisGroup:
         return self.groups["data_seq"]
 
+    @property
+    def expert_data(self) -> AxisGroup:
+        return self.groups["expert_data"]
+
+    @property
+    def expert_data_seq(self) -> AxisGroup:
+        return self.groups["expert_data_seq"]
+
     def __repr__(self) -> str:
         return (f"Layout(rank {self.rank} of {self.world} at "
-                f"{dict(zip(self.AXES, self.coords))}, sizes {self.sizes})")
+                f"{dict(zip(self.AXES, self.coords))}, sizes {self.dims})")
 
 
-def layout_coords(rank: int, model: int = 1, seq: int = 1) -> tuple:
-    """``(data, model, seq)`` coordinates of ``rank``: seq fastest."""
-    return rank // (model * seq), (rank // seq) % model, rank % seq
+def layout_coords(rank: int, world: int, model: int = 1, seq: int = 1,
+                  pipe: int = 1, expert: int = 1) -> tuple:
+    """``(pipe, expert, data, model, seq)`` coordinates of ``rank`` of
+    ``world``: seq fastest, pipe outermost."""
+    data = world // (model * seq * pipe * expert)
+    out = []
+    for n in (seq, model, data, expert, pipe):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
 
 
-def check_layout(world: int, model: int = 1, seq: int = 1) -> int:
-    """The data axis of ``world`` ranks after ``model × seq``; the JAX
-    worker's refusals when they do not fit or do not divide."""
-    prod = int(model) * int(seq)
-    if prod < 1:
-        raise ValueError(f"tp and sp must be >= 1, got tp={model}, "
-                         f"sp={seq}")
+def check_layout(world: int, model: int = 1, seq: int = 1, pipe: int = 1,
+                 expert: int = 1) -> int:
+    """The data axis of ``world`` ranks after ``pipe × expert × model ×
+    seq``; the JAX worker's refusals when they do not fit or do not
+    divide."""
+    sizes = dict(tp=int(model), sp=int(seq), pp=int(pipe), ep=int(expert))
+    if min(sizes.values()) < 1:
+        raise ValueError(f"tp, sp, pp and ep must be >= 1, got {sizes}")
+    prod = math.prod(sizes.values())
     if world < prod:
-        raise ValueError(f"tp*sp={prod} needs at least {prod} devices, "
-                         f"got {world}")
+        raise ValueError(f"tp*sp*pp*ep={prod} needs at least {prod} "
+                         f"devices, got {world}")
     if world % prod:
         raise ValueError(
-            f"tp*sp={prod} must divide the {world} requested devices — a "
-            f"floor division would silently idle {world % prod} of them")
+            f"tp*sp*pp*ep={prod} must divide the {world} requested "
+            f"devices — a floor division would silently idle "
+            f"{world % prod} of them")
     return world // prod
 
 

@@ -29,15 +29,15 @@ exact zeros; here a rank skips that hop's kernel launches, with the
 same result, but still runs the hop's collective, so every rank of
 the seq group runs the same collectives in the same order.
 
-The hop is an ``all_to_all_single`` whose splits are non-zero only
-toward ``(r + 1) % sp``: one code path for NCCL and for gloo (which
-takes CUDA tensors for it, e.g. for ranks sharing one card).
+The hop is ``collectives.ppermute`` over the ring ``r -> (r + 1) %
+sp``: one ``all_to_all_single`` whose splits are non-zero only toward
+that rank, one code path for NCCL and for gloo (which takes CUDA
+tensors for it, e.g. for ranks sharing one card).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from theanompi_tpu_torch.ops.attention import (
     block_attn_finish,
@@ -46,44 +46,25 @@ from theanompi_tpu_torch.ops.attention import (
     flash_attention_fwd,
     flash_bwd,
 )
+from theanompi_tpu_torch.parallel.collectives import (
+    permute_all,
+    ppermute,
+    ring,
+)
 
 
 def ring_shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
     """``x`` of rank ``(r - step) % sp`` of the seq ``group`` (rank r
     sends its own to ``(r + step) % sp``); ``x`` itself at sp = 1."""
-    s, r = group.size, group.rank
-    if s == 1:
+    if group.size == 1:
         return x
-    flat = x.contiguous().view(-1)
-    out = torch.empty_like(flat)
-    send = [0] * s
-    recv = [0] * s
-    send[(r + step) % s] = flat.numel()
-    recv[(r - step) % s] = flat.numel()
-    dist.all_to_all_single(out, flat, recv, send, group=group.device_group)
-    ring_shift.calls += 1
-    return out.view(x.shape)
-
-
-ring_shift.calls = 0
+    return ppermute(x, group, ring(group.size, step))
 
 
 def _shift_all(ts: list, group) -> list:
     """Every tensor of ``ts`` one hop around the ring, one collective for
     the tensors of each dtype (packed flat)."""
-    out = list(ts)
-    by_dtype: dict = {}
-    for i, t in enumerate(ts):
-        by_dtype.setdefault(t.dtype, []).append(i)
-    for idx in by_dtype.values():
-        flat = torch.cat([ts[i].reshape(-1) for i in idx])
-        got = ring_shift(flat, group)
-        at = 0
-        for i in idx:
-            n = ts[i].numel()
-            out[i] = got[at:at + n].view(ts[i].shape)
-            at += n
-    return out
+    return permute_all(ts, group, ring(group.size))
 
 
 class _RingShift(torch.autograd.Function):

@@ -170,6 +170,11 @@ class LlamaDecoder:
     def _init_common(self, model: Llama, max_slots, max_seq) -> None:
         if model.params is None:
             raise ValueError("LlamaDecoder needs a Llama with parameters")
+        if model.pp > 1 or model.sp > 1 or model.n_experts:
+            raise NotImplementedError(
+                "serving composes with tensor parallelism only — "
+                f"pp={model.pp}, sp={model.sp}, "
+                f"n_experts={model.n_experts} are not yet servable")
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)

@@ -30,12 +30,16 @@ world itself is fitted to the saved global batch by the launcher
 A resume validates its checkpoint once a life: rank 0 picks it and the
 ranks load that one (``models.base.resume_checkpoint``).
 
-Tensor and sequence parallelism (the Llama config's ``tp`` and ``sp``)
-lay the world out as data × tp × sp (``parallel.mesh.Layout``, seq
-fastest, as the JAX ``make_mesh``): the layout's groups are built
-before the model, the model shards over its model and seq axes, and
-the exchange, the batch rows and the checkpoint's ``world_size`` are
-the data axis's (``n_replicas = world // (tp·sp)``).
+The Llama config's parallel knobs (``tp``, ``sp``, ``pp``, ``ep``) lay
+the world out as pipe × expert × data × tp × sp (``parallel.mesh.
+Layout``, seq fastest, as the JAX ``make_mesh``): the layout's groups
+are built before the model (at tp·sp·pp·ep > 1, and for MoE at any
+world > 1: its aux moments mean over the data ranks too, as JAX's over
+``batch_axes``), the model shards over its axes, and the
+exchange, the batch rows and the checkpoint's ``world_size`` are the
+data replicas' (``n_replicas = world // (tp·sp·pp)``, the JAX ``expert
+× data``).  ``TM_DEBUG_SYNC`` checks each leaf over the ranks that must
+hold it equal (``model.replica_groups()``).
 
 A run in this process uses one device; ``launcher.launch(mode=
 "subprocess")`` starts one process per device and hands each its rank.
@@ -53,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from theanompi_tpu_torch.models.base import (
+    refuse_layout_exchange,
     refuse_unported,
     resume_checkpoint,
 )
@@ -282,13 +287,11 @@ def run(
         )
     if n_epochs is not None:
         cfg["n_epochs"] = n_epochs
-    # the model's parallel layout: the data axis is what tp x sp leaves
-    tp, sp = int(cfg.get("tp", 1)), int(cfg.get("sp", 1))
-    n_replicas = check_layout(world, tp, sp)
-    if tp * sp > 1 and cfg.get("elastic"):
-        raise NotImplementedError(
-            f"elastic resume at tp*sp={tp * sp} > 1 is not ported yet "
-            f"(ROADMAP.md A12)")
+    # the model's parallel layout: the data axis is what tp x sp x pp x
+    # ep leaves; the replicas are expert x data
+    tp, sp, pp, ep = (int(cfg.get(k, 1)) for k in ("tp", "sp", "pp", "ep"))
+    n_replicas = ep * check_layout(world, tp, sp, pp, ep)
+    refuse_layout_exchange(cfg, strat.zero1, comp)
     device = devs[rank]
     if device.type == "cpu" and world > 1:
         # ranks sharing the host's cores: split them rather than
@@ -297,7 +300,11 @@ def run(
     created = init_group(device, rank, world, init_method)
     model = None
     try:
-        layout = Layout.build(tp, sp) if tp * sp > 1 else None
+        # MoE's aux moments mean over the token-sharding ranks, which
+        # the layout names: it is built for experts at any world > 1
+        moe = int(cfg.get("n_experts", 0)) > 0
+        layout = (Layout.build(tp, sp, pp, ep)
+                  if tp * sp * pp * ep > 1 or (moe and world > 1) else None)
         # the checkpoint this life resumes from, validated once: rank 0
         # picks it and every rank loads that one
         ckpt_path = (resume_checkpoint(
@@ -389,8 +396,8 @@ def run(
                 # exchanges
                 spread = (check_replicas_synced(model.params, strict=True)
                           if layout is None else max(
-                              check_replicas_synced(model.params, group=a)
-                              for a in (layout.data, layout.seq)))
+                              check_replicas_synced(tree, group=g)
+                              for tree, g in model.replica_groups()))
                 if verbose:
                     print(f"debug-sync epoch {epoch}: spread={spread:g}",
                           flush=True)
