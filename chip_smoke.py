@@ -59,7 +59,7 @@ phase's seconds are printed at the end):
    prefilled ``prefill_only`` on one decoder and decoded from its KV
    handoff on another giving the unified ids, a traced engine giving
    one connected span tree per request.  Then phase 4's model (bf16,
-   ``--layers`` deep, 16 by default) and 16 requests (32 tokens each,
+   ``--layers`` deep, 8 by default) and 16 requests (32 tokens each,
    prefix caching off): one-token decode, then ``speculate_k`` = 4 off the same
    decoder, with decode tokens/s, the accept rate, tokens per step,
    the median verify and decode steps, K4's launches (layers x verify
@@ -105,7 +105,7 @@ phase's seconds are printed at the end):
    the norm kernel's, summed over the replicas of this process;
 6b. serving_tp — tp = 2 serving at Llama-3-8B widths, ``--layers``
    deep (2 by default), two ranks on card 0 over gloo (this process is
-   rank 0 and starts ``chip_smoke.py --tp-rank 1``); 16 requests at 32
+   rank 0 and starts ``chip_smoke.py --tp-rank 1``); 8 requests at 32
    tokens: fp32 v1, paged and a tp = 1 handoff with tp = 1's ids
    (asserted), bf16 first decode step's logits within
    ``TP_LOGITS_RTOL`` of tp = 1's (asserted), greedy and sampled
@@ -141,7 +141,21 @@ phase's seconds are printed at the end):
    same parameters in memory; K4's launches); then one ResNet-50
    exchange alone over the TCP center on the fp32, int8 and fp8 wires
    (bytes each way, the D2H / exchange / H2D split) and the codec's
-   identity (the center decodes what the sender decodes);
+   identity (the center decodes what the sender decodes); then the
+   layout arm (``exchange_layout_arm``), four ranks on card 0 over gloo
+   through the parallel_train phase's children: tp = 2 x data = 2 at
+   Llama-3-8B widths (``PT_LAYERS`` deep, seq ``PT_SEQ``, bf16, Adam)
+   under ``ici32`` and zero1 for ``XL_STEPS`` steps (losses asserted
+   bitwise, K1/K2/K3 2L/L/L a step on the tensor cores, each rank's
+   peak GiB, step ms and reduce-scatter, all-gather and all-reduce
+   ms); the small fp32 model under zero1 against ``ici32`` at tp = 2,
+   pp = 2 and sp = 2 (ring), each x data = 2 (``XL_RTOL``), the int8
+   wire with error feedback at tp = 2 x data = 2 (``EXCH_INT8_RTOL``),
+   a zero1 + int8 ``.shards`` checkpoint resumed bitwise an
+   uninterrupted run, an ``ici32`` checkpoint resumed elastically at
+   tp = 2 x data = 1 on two ranks against the same resume on the CPU
+   (``TRAIN_REF_RTOL``), and the zero1 + int8 checkpoint resumed at
+   tp = 1 x data = 2, refused with the JAX reshard's words;
 7c. parallel_train — Llama training at tp > 1 and sp > 1 through
    ``bsp_worker.run``, ranks on card 0 over gloo: the one-rank run in
    this process (a one-rank NCCL group), then two children
@@ -213,7 +227,14 @@ phase's seconds are printed at the end):
    ``GOOGLENET_TRAJECTORY``; ResNet-50 again from 8 x 128 ``.tmb``
    files the run writes, through the C++ loader and through the
    prefetch thread (``feed`` asserted, batches bitwise equal), each
-   beside the device-resident feed.  No TPU kernel lies on this path:
+   beside the device-resident feed; then the ``torch.nn`` zoo
+   (``models/torch_zoo``, flax_zoo's counterpart): ``TorchResNet18`` at
+   width 64 on synthetic CIFAR-10, batch 128, at the JAX defaults'
+   precision, 8 steps from a seeded init (its first loss within
+   ``CNN_REF_RTOL`` of the CPU's, the median step and images/s), and
+   ``TorchCNN`` under EASGD with two replicas on the card for one
+   epoch (exchanges made; its val numbers on one set of parameters
+   held to the CPU's first).  No TPU kernel lies on this path:
    convolutions and matmuls are cuDNN's and cuBLAS's, BN, pooling and
    LRN plain PyTorch, the staging copies;
 9. async — the asynchronous rules in one process, ``ASYNC_W`` = 4
@@ -281,7 +302,10 @@ phase's seconds are printed at the end):
    ``"global"`` policy's batch 4, the zero1 state resharded, the losses
    within ``RES_ELASTIC_RTOL`` of a one-rank resume of the same
    checkpoint, and the preemption agreement's one-element allreduce
-   timed at each world;
+   timed at each world.  The full-width run's card sits idle through
+   most of its checkpoint I/O, so the drill matrix and the elastic
+   shrink run while it goes on: the three arms' seconds are taken side
+   by side (``REDUCED``);
 12. the kernels line — one JSON object with every kernel's numbers.
 
 The last line of standard output is ``{"ok": true, "device": ...}``.
@@ -323,10 +347,12 @@ REDUCED = {
     "the exchange phase took its time, 4 until the stack_train phase "
     "did); its asserts (the drill's and the "
     "policies' ids equal to one replica's, K4 and norm launches a layer) "
-    "do not need depth; serving_ext keeps 16 layers, where "
+    "do not need depth; serving_ext keeps 8 layers, where "
     "speculative ids are held to one-token ids",
-    "n_layers (serving_ext)": "16 (32): the run's time limit (32 until "
-    "the resilience full-width arm went back to Adam); every layer runs "
+    "n_layers (serving_ext)": "8 (32): the run's time limit (32 until "
+    "the resilience full-width arm went back to Adam, 16 until the "
+    "exchange phase's layout arm and the cnn phase's torch.nn zoo took "
+    "their time); every layer runs "
     "the same K4, norm and GEMM calls, so the speculative = one-token "
     "ids, the launch counts and the rows' equality are asserted as at "
     "32; the widths are Llama-3-8B's",
@@ -393,6 +419,12 @@ REDUCED = {
     "Llama-3-8B's",
     "steps (resilience, full width)": "6, one epoch (the sigterm drill after "
     "step 2, resumed at step 3): the run's time limit",
+    "timing (resilience)": "the drill matrix and the elastic shrink run "
+    "while the full-width supervised run writes, validates and reads its "
+    "checkpoint (one after the other until the exchange phase's layout "
+    "arm and the cnn phase's torch.nn zoo took their time): every "
+    "assertion is kept, but the arms' recovery, save and resume seconds "
+    "are taken sharing the host's disk and cores",
     "n_layers (parallel_train)": "2 (32): two ranks at sp = 2 "
     "hold the whole fp32 model and its Adam state each (23.8 GB at 2 "
     "layers, 352 GB at 32), two or four of them on one card; the widths "
@@ -423,6 +455,21 @@ REDUCED = {
     "and four processes on card 0 over gloo, which stages every "
     "collective through the host (a deployment gives each rank a card "
     "and NCCL): the run has one card",
+    "steps (exchange, layout arm, full width)": "2 an exchange, batch 1 "
+    "a replica, no val pass: the run's time limit (the data pair's f32 "
+    "gradient exchange moves 3 GB a rank through gloo every step)",
+    "n_layers (exchange, layout arm)": "2 (32), parallel_train's: four "
+    "ranks of tp = 2 hold 0.74 B parameters each with their fp32 "
+    "gradients and Adam moments on one card; the widths and seq_len "
+    "8192 are Llama-3-8B's",
+    "ranks (exchange, layout arm)": "tp = 2 x data = 2 (and pp = 2, sp = "
+    "2 x data = 2 small) as four processes on card 0 over gloo, the "
+    "elastic resume as two (a deployment gives each rank a card and "
+    "NCCL): the run has one card",
+    "dataset (cnn, torch_zoo)": "synthetic CIFAR-10, 8 x 128 train and "
+    "2 x 128 val images for ResNet-18, 8 x 256 and 1 x 256 for the "
+    "EASGD CNN (CIFAR-10: 50 k / 10 k): no CIFAR files in the "
+    "repository; a cut of the dataset's size, not a width",
     "dataset (cnn, native feed)": "8 x 128 train and 2 x 128 val "
     "synthetic 256 x 256 uint8 images written as .tmb files (ImageNet: "
     "1.28 M / 50 k): a cut of the dataset's size, not a width",
@@ -459,7 +506,7 @@ SERVING_LAYERS = 8
 FLEET_LAYERS = 2
 # depth of serving_ext unless --layers says (REDUCED), where its
 # speculative = one-token equality is asserted
-EXT_LAYERS = 16
+EXT_LAYERS = 8
 PHASES = ("kernels", "serving", "serving_ext", "serving_fleet",
           "serving_tp", "training", "exchange", "parallel_train",
           "stack_train", "cnn", "async", "async_dist", "resilience")
@@ -3204,6 +3251,23 @@ GOOGLENET_CFG = dict(VGG16_CFG, weight_decay=2e-4)
 # on the card gathered there
 FEEDS = {"synchronous": {}, "pipelined": {"loader_pipeline": 2},
          "device_cache": {"device_data_cache": True}}
+# the torch.nn zoo (flax_zoo's counterpart): ResNet-18 at flax_zoo's
+# width 64 on synthetic CIFAR-10 (32 x 32), batch 128, at the JAX
+# defaults' precision (the batch cast to bf16, linen's promotion runs
+# the fp32 parameters' products in fp32), lr 0.1; the CNN (width 32)
+# under EASGD with two replicas on the card, tau 2, one epoch of
+# ZOO_EASGD_STEPS iterations
+ZOO_R18 = dict(modelfile="theanompi_tpu_torch.models.torch_zoo",
+               modelclass="TorchResNet18")
+ZOO_CNN = dict(ZOO_R18, modelclass="TorchCNN")
+ZOO_R18_CFG = dict(width=64, batch_size=CNN_BATCH,
+                   n_train=CNN_STEPS * CNN_BATCH,
+                   n_val=CNN_VAL_BATCHES * CNN_BATCH, lr=0.1, seed=0,
+                   exch_strategy="ici32")
+ZOO_EASGD_STEPS = 8
+ZOO_CNN_CFG = dict(width=32, batch_size=CNN_BATCH,
+                   n_train=ZOO_EASGD_STEPS * 2 * CNN_BATCH,
+                   n_val=2 * CNN_BATCH, lr=0.05, seed=0)
 
 
 def card_vs_cpu_val(dev, cls, cfg, train_loss: bool = False) -> None:
@@ -3299,9 +3363,11 @@ def bits_checksum(x) -> int:
     return int((ints * w).sum())
 
 
-def run_cnn(dev, name: str, model: dict, cfg: dict) -> tuple[dict, object]:
+def run_cnn(dev, name: str, model: dict, cfg: dict,
+            **kw) -> tuple[dict, object]:
     """One epoch of ``model`` at ``cfg`` through ``BSP().init`` on the
-    card: each step timed with the device synchronized around it (its
+    card (``kw``: more of its arguments, e.g. a checkpoint to resume):
+    each step timed with the device synchronized around it (its
     Recorder wait and calc segments read around it too, and a checksum
     of the batch the net took, in the compute dtype, taken after it),
     then the val batches; losses finite and val numbers in range.
@@ -3332,7 +3398,7 @@ def run_cnn(dev, name: str, model: dict, cfg: dict) -> tuple[dict, object]:
     torch.cuda.reset_peak_memory_stats()
     ClassifierModel.train_iter, ClassifierModel.prep_input = timed, stash
     try:
-        out = bsp([dev.index], cfg, model=model, print_freq=1)
+        out = bsp([dev.index], cfg, model=model, print_freq=1, **kw)
     finally:
         ClassifierModel.train_iter = train_iter
         ClassifierModel.prep_input = prep
@@ -3479,6 +3545,99 @@ def run_tmb_feeds(dev, cached: dict) -> None:
         f"bitwise the prefetch thread's")
 
 
+def zoo_first_loss_on_cpu(cfg: dict) -> float:
+    """``TorchResNet18``'s first training loss on the CPU: the forward
+    of train batch 0 of epoch 0 (train mode) on the seeded init that
+    ``save_init_checkpoint`` writes (the same CPU draws)."""
+    import torch
+
+    from theanompi_tpu_torch.models.torch_zoo import TorchResNet18
+
+    model = TorchResNet18(cfg, device="cpu")
+    model.build_model()
+    model._init_input_mean()
+    model.data.shuffle(0)
+    x, y = model.data.train_batch(0)
+    with torch.no_grad():
+        out = model.net(model.prep_input(torch.as_tensor(x)), train=True,
+                        gen=torch.Generator())
+        return float(model.compute_loss(out, torch.as_tensor(y).long()))
+
+
+def zoo_card_vs_cpu_val(dev) -> None:
+    """``TorchCNN`` (fp32) built on the CPU, its parameters copied to a
+    second copy on the card: the val numbers of batch 0 within
+    ``CNN_REF_RTOL`` (its train loss takes a dropout mask, which the
+    card's generator draws otherwise than the CPU's)."""
+    import numpy as np
+
+    from theanompi_tpu_torch.models.torch_zoo import TorchCNN
+    from theanompi_tpu_torch.parallel.mesh import destroy_group
+
+    cfg = dict(ZOO_CNN_CFG, compute_dtype="float32", n_val=CNN_BATCH)
+    vals, trees = [], None
+    for device in ("cpu", dev):
+        model = TorchCNN(cfg, device=device)
+        model.build_model()
+        if trees is None:
+            trees = model.checkpoint_trees()
+        else:
+            model.restore_trees(trees)
+        model.compile_iter_fns()
+        vals.append(list(model.val_iter(0, None)))
+        destroy_group()
+    ok = np.allclose(vals[1], vals[0], rtol=CNN_REF_RTOL, atol=1e-6)
+    log(f"reference [cnn torch_zoo] TorchCNN fp32 val (loss, err, err5), "
+        f"card {vals[1]} vs CPU {vals[0]} (rtol {CNN_REF_RTOL}): "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError("cnn: TorchCNN card and CPU differ")
+
+
+def run_zoo_arm(dev) -> None:
+    """The ``torch.nn`` zoo on the card: ``TorchResNet18`` under BSP at
+    ``ZOO_R18_CFG`` from the seeded init (its first loss within
+    ``CNN_REF_RTOL`` of the CPU's on that init), then ``TorchCNN``
+    under EASGD with two replicas for one epoch (exchanges made; its
+    val numbers held to the CPU's first)."""
+    import torch
+
+    from theanompi_tpu_torch.models.torch_zoo import TorchResNet18
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        init = Path(tmp) / "init"
+        TorchResNet18.save_init_checkpoint(ZOO_R18_CFG, init)
+        res, model = run_cnn(dev, "torch_zoo resnet18", ZOO_R18,
+                             ZOO_R18_CFG, checkpoint_dir=str(init),
+                             resume=True)
+    del model
+    torch.cuda.empty_cache()
+    ref = zoo_first_loss_on_cpu(ZOO_R18_CFG)
+    rel = abs(res["losses"][0] - ref) / abs(ref)
+    log(f"[cnn torch_zoo resnet18] first loss card {res['losses'][0]} vs "
+        f"CPU {ref} (relative {rel:.3e}, rtol {CNN_REF_RTOL}); median step "
+        f"{res['median_step_s'] * 1e3:.2f} ms, {res['images_per_s']:.1f} "
+        f"images/s, peak {res['peak_gib']:.2f} GiB, arm "
+        f"{time.perf_counter() - t0:.1f} s on {card_line()}")
+    if rel > CNN_REF_RTOL:
+        raise AssertionError("cnn torch_zoo: ResNet-18 left the CPU's loss")
+    t0 = time.perf_counter()
+    zoo_card_vs_cpu_val(dev)
+    out = async_run("easgd", [dev.index] * 2, ZOO_CNN_CFG, ZOO_CNN, tau=2,
+                    verbose=False)
+    wall = time.perf_counter() - t0
+    losses, val = out["recorder"].train_losses, out["final_val"]
+    line = {"losses": losses, "val": val, "exchanges": out["exchanges"],
+            "iterations": out["iterations"], "epoch_s": out["epoch_times"],
+            "arm_s": wall}
+    log(f"[cnn torch_zoo cnn easgd] {json.dumps(line)} on {card_line()}")
+    if not out["exchanges"] or out["iterations"] != ZOO_EASGD_STEPS \
+            or not all(math.isfinite(x) for x in losses) \
+            or not 0.0 <= val["err"] <= 1.0:
+        raise AssertionError(f"cnn torch_zoo: EASGD x TorchCNN {out}")
+
+
 def run_cnn_phase(dev) -> None:
     """The cnn phase (module docstring, item 6)."""
     import torch
@@ -3541,6 +3700,7 @@ def run_cnn_phase(dev) -> None:
         torch.cuda.empty_cache()
     destroy_group()
     torch.cuda.empty_cache()
+    run_zoo_arm(dev)
 
 
 # -- the asynchronous rules (BASELINE.json configs 3 and 4) -------------------
@@ -4346,6 +4506,212 @@ def exchange_tcp_arm(dev) -> dict:
     return res
 
 
+# the layout arms: zero1, the compressed wire, .shards and the elastic
+# resume at tp·sp·pp > 1, as four (and two) ranks on card 0 over gloo,
+# through the parallel_train phase's children
+XL_STEPS = 2             # full-width steps an exchange (REDUCED)
+#: the full-width layout: tp = 2 x data = 2 at four ranks
+XL_WIDE = dict(tp=2)
+#: the small fp32 layouts, each over two data replicas at four ranks
+XL_SMALL = {"tp2x2": dict(tp=2), "pp2x2": dict(pp=2),
+            "ring2x2": dict(sp=2, sp_mode="ring")}
+XL_ZERO1 = dict(exch_strategy="zero1")
+XL_INT8 = dict(exch_compression="int8")
+#: the small fp32 arms' zero1 against ici32: the sums are the same, but
+#: at sp = 2 x data = 2 ici32 means over data x seq in one sum of four
+#: and zero1 over seq, then over data, and Adam on a flat shard may take
+#: another vector/tail split (fused multiply-adds) than on each tensor
+#: (the host's kernels do: 7.6e-8 at tp = 2 x data = 2 on the CPU);
+#: whether each arm came out bitwise is printed
+XL_RTOL = 1e-5
+#: the JAX reshard's refusal of a tp/pp-spanning flat state
+XL_SPANNING = "spanning model/pipe axes (tp/pp-sharded zero1 packs)"
+
+
+def xl_small(**kw) -> dict:
+    """A layout arm's small fp32 model: Adam (zero1 shards its moments),
+    batch 2 a replica, 4 steps an epoch over two replicas, no val."""
+    return dict(dict(SMALL, optimizer="adam", lr=1e-2, remat=True,
+                     batch_size=2, n_train=16, n_val=0,
+                     exch_strategy="ici32"), **kw)
+
+
+def xl_wide(**kw) -> dict:
+    """The full-width layout arm: parallel_train's Llama-3-8B widths
+    (``PT_LAYERS`` deep, seq ``PT_SEQ``, bf16, Adam, remat) at tp = 2 x
+    data = 2, batch 1 a replica, ``XL_STEPS`` steps."""
+    return dict(pt_config("bfloat16", **XL_WIDE), n_train=2 * XL_STEPS,
+                **kw)
+
+
+def exchange_layout_arm(dev, records: dict) -> dict:
+    """zero1, the int8 wire with error feedback, their ``.shards``
+    checkpoint and the elastic resume at layouts (four ranks on card 0
+    over gloo, then two), through ``bsp_worker.run``:
+
+    - full width, tp = 2 x data = 2 under ``ici32`` and zero1: losses
+      bitwise on every rank, K1/K2/K3 at 2L/L/L a step on the tensor
+      cores and no plain version; each rank's peak GiB, step ms and the
+      exchange's reduce-scatter, all-gather and all-reduce ms;
+    - small fp32: zero1 against ``ici32`` at tp = 2, pp = 2 and sp = 2
+      (ring), each x data = 2, within ``XL_RTOL`` (bitwise printed); the
+      int8 wire with error feedback at tp = 2 x data = 2 within
+      ``EXCH_INT8_RTOL``; zero1 + int8 saved as ``.shards`` after epoch
+      0 and resumed for epoch 1, bitwise a two-epoch run; an ``ici32``
+      checkpoint (SGD at lr 0.5, which a wrongly sized batch moves)
+      resumed elastically at tp = 2 x data = 1 (two ranks, the "global"
+      policy) on the card and, from the same checkpoint, on the CPU,
+      within ``TRAIN_REF_RTOL``; the zero1 + int8 checkpoint
+      resumed at tp = 1 x data = 2, refused with the JAX reshard's
+      words."""
+    from theanompi_tpu_torch.models.llama import save_init_checkpoint
+
+    root = ROOT / "build" / "exchange_layout"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ck = {k: str(root / k) for k in ("z1i8", "z1i8_2ep", "el", "el_cpu")}
+    tp = XL_SMALL["tp2x2"]
+    sgd = xl_small(**tp, optimizer="sgd", lr=0.5)
+    save_init_checkpoint(sgd, ck["el"])
+    z1i8 = xl_small(**tp, **XL_ZERO1, **XL_INT8)
+    quad = []
+    for lay, layout in XL_SMALL.items():
+        quad += [(f"{lay}_ici32", xl_small(**layout)),
+                 (f"{lay}_zero1", xl_small(**layout, **XL_ZERO1))]
+    quad += [("tp2x2_el", sgd, {"checkpoint_dir": ck["el"]}),
+             ("tp2x2_int8", xl_small(**tp, **XL_INT8)),
+             ("tp2x2_z1i8", z1i8, {"checkpoint_dir": ck["z1i8"]}),
+             ("tp2x2_z1i8_resume", z1i8,
+              {"checkpoint_dir": ck["z1i8"], "n_epochs": 2}),
+             ("tp2x2_z1i8_2ep", z1i8,
+              {"checkpoint_dir": ck["z1i8_2ep"], "n_epochs": 2}),
+             ("wide_ici32", xl_wide()), ("wide_zero1", xl_wide(**XL_ZERO1))]
+    elastic = dict(sgd, elastic=True)
+    go = root / "quad_done"
+    pair = [("elastic", elastic, {"checkpoint_dir": ck["el"],
+                                  "n_epochs": 2, "wait_for": str(go)}),
+            ("elastic_cpu", elastic, {"checkpoint_dir": ck["el_cpu"],
+                                      "n_epochs": 2, "device": "cpu"}),
+            ("refuse_tp1", dict(z1i8, tp=1, elastic=True),
+             {"checkpoint_dir": ck["z1i8"], "n_epochs": 3,
+              "expect": XL_SPANNING})]
+    # the two ranks start under the four (their start-up overlaps the
+    # four's runs) and wait for the checkpoints those write
+    pair_procs = pt_start(2, pair)
+    try:
+        t0 = time.perf_counter()
+        quads = pt_spawn(4, quad)
+        t_quad = time.perf_counter() - t0
+        # the CPU resumes the card's checkpoint: the two runs of the
+        # elastic epoch start from the same state
+        shutil.copytree(ck["el"], ck["el_cpu"])
+        go.touch()
+    except BaseException:
+        for p in pair_procs:
+            p.kill()
+            p.wait()
+        raise
+    t0 = time.perf_counter()
+    pairs = pt_wait(pair_procs)
+    t_pair = time.perf_counter() - t0
+
+    shutil.rmtree(root, ignore_errors=True)
+
+    def jobs(ranks, name):
+        return [rk["jobs"][name] for rk in ranks]
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    fails, res = [], {"quad_s": t_quad, "pair_s": t_pair}
+    small = {}
+    for lay in XL_SMALL:
+        a, b = jobs(quads, f"{lay}_ici32"), jobs(quads, f"{lay}_zero1")
+        bitwise = all(x["losses"] == y["losses"] for x, y in zip(a, b))
+        worst = max(rel(y["losses"], x["losses"]) for x, y in zip(a, b))
+        small[lay] = {"ici32": a[0]["losses"], "zero1": b[0]["losses"],
+                      "bitwise": bitwise, "max_rel": worst}
+        if worst > XL_RTOL or len(a[0]["losses"]) != 4:
+            fails.append(f"{lay}: zero1 against ici32 {small[lay]}")
+    i8 = max(rel(x["losses"], y["losses"]) for x, y in zip(
+        jobs(quads, "tp2x2_int8"), jobs(quads, "tp2x2_ici32")))
+    small["tp2x2_int8_max_rel"] = i8
+    if i8 > EXCH_INT8_RTOL:
+        fails.append(f"tp2x2 int8: {i8} from ici32 (> {EXCH_INT8_RTOL})")
+    resumed = jobs(quads, "tp2x2_z1i8_resume")
+    whole = jobs(quads, "tp2x2_z1i8_2ep")
+    small["shards_resume_bitwise"] = all(
+        x["losses"] == y["losses"] and len(y["losses"]) == 8
+        for x, y in zip(resumed, whole))
+    if not small["shards_resume_bitwise"]:
+        fails.append(f".shards resume {resumed[0]['losses']} against "
+                     f"{whole[0]['losses']}")
+    card, cpu = jobs(pairs, "elastic"), jobs(pairs, "elastic_cpu")
+    small["elastic"] = {"card": card[0]["losses"], "cpu": cpu[0]["losses"],
+                        "batch_size": card[0]["batch_size"], "max_rel": max(
+                            rel(x["losses"], y["losses"])
+                            for x, y in zip(card, cpu))}
+    # the "global" policy keeps the saved global batch 4 in the one data
+    # replica's rows (the process count, 2, would halve it)
+    if small["elastic"]["max_rel"] > TRAIN_REF_RTOL \
+            or len(card[0]["losses"]) != 8 \
+            or {j["batch_size"] for j in card + cpu} != {4}:
+        fails.append(f"elastic resume: {small['elastic']}")
+    refusals = [j.get("error", "") for j in jobs(pairs, "refuse_tp1")]
+    small["refusal"] = refusals[0]
+    if not all(XL_SPANNING in e for e in refusals):
+        fails.append(f"tp = 1 resume of a tp = 2 zero1 state: {refusals}")
+    res["small"] = small
+
+    per_step = pt_launches_per_step(XL_WIDE, 0)
+    want = {k: v * XL_STEPS for k, v in per_step.items()}
+    wide = {}
+    for arm in ("ici32", "zero1"):
+        ranks = []
+        for r, job in enumerate(jobs(quads, f"wide_{arm}")):
+            if job["launches"] != want or job["tc_launches"] != want \
+                    or job["plain_calls"]:
+                fails.append(f"wide {arm} rank {r}: launches "
+                             f"{job['launches']}, tensor cores "
+                             f"{job['tc_launches']} (want {want}), plain "
+                             f"{job['plain_calls']}")
+            ranks.append({
+                "coords": job["coords"], "losses": job["losses"],
+                "step_s": job["step_s"],
+                "median_step_ms": statistics.median(job["step_s"]) * 1e3,
+                "peak_gib": job["peak_gib"],
+                "params_b_rank": job["params_b_rank"],
+                "launches": job["launches"],
+                "collectives_ms_per_step": {
+                    k: sum(v) / XL_STEPS
+                    for k, v in job["collective_ms"].items()}})
+        wide[arm] = ranks
+    bitwise = all(a["losses"] == b["losses"]
+                  for a, b in zip(wide["ici32"], wide["zero1"]))
+    wide["bitwise"] = bitwise
+    wide["peak_gib_saved"] = [a["peak_gib"] - b["peak_gib"] for a, b in
+                              zip(wide["ici32"], wide["zero1"])]
+    if not bitwise:
+        fails.append("wide: zero1 losses differ from ici32's")
+    res["wide"] = wide
+    log(f"[exchange layout] {json.dumps(res)} on {card_line()}")
+    for k in ("K1", "K2", "K3"):
+        n = sum(j["launches"][k] for arm in ("ici32", "zero1")
+                for j in jobs(quads, f"wide_{arm}"))
+        n32 = sum(j["launches"][k] for name, _, *o in quad
+                  if not name.startswith("wide") and not (
+                      o and o[0].get("device") == "cpu")
+                  for j in jobs(quads, name))
+        n32 += sum(j["launches"][k] for j in jobs(pairs, "elastic"))
+        if k in records:
+            add_launches(records[k], exchange_layout=n)
+        if f"{k} fp32" in records:
+            add_launches(records[f"{k} fp32"], exchange_layout=n32)
+    if fails:
+        raise AssertionError("exchange layout: " + "; ".join(fails))
+    return res
+
+
 def run_exchange_phase(dev, n_layers: int, records: dict) -> None:
     """The exchange phase (module docstring): zero1 and the int8 wire
     at one rank and Llama-3-8B widths through ``BSP().init``, the
@@ -4427,6 +4793,9 @@ def run_exchange_phase(dev, n_layers: int, records: dict) -> None:
     t0 = time.perf_counter()
     exchange_tcp_arm(dev)
     log(f"[exchange tcp] arm {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    exchange_layout_arm(dev, records)
+    log(f"[exchange layout] arm {time.perf_counter() - t0:.1f} s")
 
 
 # the resilience phase: the supervisor, the drills, checkpoint validation
@@ -4662,11 +5031,16 @@ def wide_config() -> dict:
                 exch_strategy="ici32", seed=0)
 
 
-def resilience_preemption(dev, root: Path, records: dict) -> dict:
+def resilience_preemption(dev, root: Path, records: dict,
+                          meanwhile=None) -> dict:
     """Arm 2: graceful preemption at Llama-3-8B widths (bf16, K1-K3 on
     the tensor cores), ``RES_LAYERS`` deep: one supervised launch, a
     sigterm drill after step 2, the preemption checkpoint, the relaunch
-    resumed inside the epoch; against an uninterrupted run."""
+    resumed inside the epoch; against an uninterrupted run.  The
+    supervised run spends most of its time writing, hashing and reading
+    its checkpoint with the card idle, so ``meanwhile()`` (the other
+    arms) runs in this thread while a second one waits on the
+    supervisor; the launch took its environment before they start."""
     import torch
 
     from theanompi_tpu_torch import BSP
@@ -4684,10 +5058,27 @@ def resilience_preemption(dev, root: Path, records: dict) -> dict:
                   supervise=dict(RES_SUPERVISE,
                                  stall_timeout_s=RES_WIDE_STALL_S,
                                  startup_grace_s=RES_WIDE_STALL_S), **LLAMA)
-        rep = rule.wait()
     finally:
         supervised_env(TM_FAULT_AT=None, CHIP_SMOKE_JOURNAL=None)
-    wall = time.perf_counter() - t0
+    box = {}
+
+    def supervise() -> None:
+        try:
+            box["rep"] = rule.wait()
+        except BaseException as e:      # re-raised in this thread
+            box["error"] = e
+        box["wall"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=supervise, daemon=True)
+    waiter.start()
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    finally:
+        waiter.join()
+    if "error" in box:
+        raise box["error"]
+    rep, wall = box["rep"], box["wall"]
     nxt = int(RES_SIGTERM.split(":")[1]) + 1
     check_restarts("resilience preemption", rep, [("sigterm", 0, [0, nxt])])
     got = final_losses(d)
@@ -4877,13 +5268,19 @@ def run_resilience_phase(dev, records: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     arms = {}
-    try:
+
+    def beside() -> None:
         for name, arm in (("drills", resilience_drills),
-                          ("preemption", resilience_preemption),
                           ("elastic", resilience_elastic)):
             t0 = time.perf_counter()
             arms[name] = arm(dev, root, records)
             arms[name]["arm_s"] = time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        arms["preemption"] = resilience_preemption(dev, root, records,
+                                                   meanwhile=beside)
+        arms["preemption"]["arm_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log("[resilience] " + json.dumps({
@@ -5053,13 +5450,28 @@ class _TimedDist:
     def all_reduce(self, *a, **kw):
         return self._timed(self._ar_kind, self._real.all_reduce, *a, **kw)
 
+    def reduce_scatter_tensor(self, *a, **kw):
+        return self._timed(f"{self._kind}_reduce_scatter",
+                           self._real.reduce_scatter_tensor, *a, **kw)
+
+    def all_gather_into_tensor(self, *a, **kw):
+        return self._timed(f"{self._kind}_all_gather",
+                           self._real.all_gather_into_tensor, *a, **kw)
+
 
 def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
     """One rank of a parallel_train arm (``--pt-rank``): a gloo group on
-    card 0, then each job (name, config) through ``bsp_worker.run`` in
-    turn, with each step timed, K1/K2/K3 counted, the plain versions and
-    SDPA counted (none may run), the layout's collectives timed and the
-    peak memory; its numbers as the last line of standard output."""
+    card 0, then each job (name, config[, options]) through
+    ``bsp_worker.run`` in turn, with each step timed, K1/K2/K3 counted,
+    the plain versions and SDPA counted (none may run), the layout's
+    collectives timed and the peak memory; its numbers as the last line
+    of standard output.  The options (the exchange phase's layout arms):
+    ``checkpoint_dir`` (saved each epoch, resumed from), ``n_epochs``,
+    ``device`` ("cpu": the job's reference run on the host, in the same
+    group), ``expect`` (the job must raise a ``ValueError`` holding
+    these words; its message is the job's result) and ``wait_for`` (a
+    path the job waits to exist first: ranks started ahead of the runs
+    whose checkpoints they resume)."""
     import torch
     import torch.distributed as tdist
     import torch.nn.functional as F
@@ -5112,7 +5524,14 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
     aux_from = expert_load_probe(llama_mod.Llama, load)
     out = {}
     try:
-        for name, cfg in jobs:
+        for name, cfg, *opts in jobs:
+            opts = opts[0] if opts else {}
+            t_wait = time.perf_counter()
+            while "wait_for" in opts and not Path(opts["wait_for"]).exists():
+                if time.perf_counter() - t_wait > DIST_CHILD_TIMEOUT_S:
+                    raise TimeoutError(f"{name}: {opts['wait_for']}")
+                time.sleep(0.1)
+            run_dev = torch.device(opts.get("device", dev))
             reset_counts(*counters.values())
             plain_calls.clear()
             times.clear()
@@ -5125,10 +5544,19 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
             collectives.dist = _TimedDist(
                 tdist, "chain_hop" if int(cfg.get("pp", 1)) > 1
                 else "ring_hop", times)
-            res = bsp_worker.run(
-                devices=[dev] * world, rank=rank, world_size=world,
-                init_method=init, config=cfg, n_epochs=1, verbose=False,
-                **LLAMA)
+            try:
+                res = bsp_worker.run(
+                    devices=[run_dev] * world, rank=rank, world_size=world,
+                    init_method=init, config=cfg,
+                    n_epochs=opts.get("n_epochs", 1),
+                    checkpoint_dir=opts.get("checkpoint_dir"),
+                    resume="checkpoint_dir" in opts, verbose=False,
+                    **LLAMA)
+            except ValueError as e:
+                if not opts.get("expect") or opts["expect"] not in str(e):
+                    raise
+                out[name] = {"error": str(e)}
+                continue
             model = res["model"]
             out[name] = {
                 "losses": res["recorder"].train_losses,
@@ -5143,6 +5571,7 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
                 "coords": list(model.layout.coords),
                 "params_b_rank": sum(t.numel() for t in model._leaves())
                 / 1e9,
+                "batch_size": model.data.batch_size,
                 "grad_sq": dict(grad_sq),
                 "expert_load": load.get("f"),
             }
@@ -5156,16 +5585,28 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
     print(json.dumps({"rank": rank, "jobs": out}), flush=True)
 
 
-def pt_spawn(world: int, jobs: list) -> list[dict]:
+def pt_start(world: int, jobs: list) -> list:
     """Start ``world`` ranks on card 0 (``chip_smoke.py --pt-rank r``)
-    over one gloo group; their numbers, rank order."""
+    over one gloo group; ``pt_wait`` collects them."""
     init = f"tcp://127.0.0.1:{free_port()}"
     spec = json.dumps(jobs)
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--pt-rank", str(r),
          "--pt-world", str(world), "--pt-init", init, "--pt-jobs", spec],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+
+
+def pt_spawn(world: int, jobs: list) -> list[dict]:
+    """Run ``world`` ranks on card 0 (``pt_start``); their numbers, rank
+    order."""
+    return pt_wait(pt_start(world, jobs))
+
+
+def pt_wait(procs: list) -> list[dict]:
+    """The numbers of ranks ``pt_start`` started, rank order (every rank
+    killed if one does not end)."""
+    world = len(procs)
     outs = []
     try:
         for p in procs:
@@ -5778,7 +6219,7 @@ def parse_args(argv=None):
                     help=f"comma list of {PHASES} (default: all)")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the full-width models (default: 8; "
-                    "16 serving_ext, 2 serving_fleet and serving_tp)")
+                    "8 serving_ext, 2 serving_fleet and serving_tp)")
     # rank 1 of the serving_tp phase, started by rank 0
     ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)

@@ -36,8 +36,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'flax.'))\n"
         "             or m == 'theanompi_tpu'\n"
         "             or m.startswith('theanompi_tpu.'))\n"
         "print(len(sys.modules))\n"
@@ -97,7 +97,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "theanompi_tpu_torch.parallel.pp",
             "theanompi_tpu_torch.parallel.moe",
             "theanompi_tpu_torch.parallel.collectives",
-            "theanompi_tpu_torch.ops.attention"} <= set(MODULES)
+            "theanompi_tpu_torch.ops.attention",
+            # the nn.Module adapter, flax_zoo's counterpart
+            "theanompi_tpu_torch.models.torch_zoo",
+            "theanompi_tpu_torch.models.torch_zoo.adapter",
+            "theanompi_tpu_torch.models.torch_zoo.cnn"} <= set(MODULES)
 
 
 def test_native_loader_source_is_the_ports_own_copy():
@@ -127,7 +131,8 @@ def imported_names(path: Path) -> set:
 def test_no_file_imports_jax_or_the_jax_package(path):
     for name in imported_names(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "theanompi_tpu"), (path, name)
+        assert root not in ("jax", "jaxlib", "flax", "theanompi_tpu"), \
+            (path, name)
 
 
 @pytest.fixture
@@ -241,9 +246,11 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     (dict(config=dict(TRAIN, elastic=True, elastic_batch_policy="all")),
      ValueError, "elastic_batch_policy"),
     (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
+    # elastic at pp = 2 is no longer refused: the worker goes on to join
+    # the group its resume runs over
     (dict(config=dict(TRAIN, pp=2, elastic=True), devices=["cpu"] * 2,
           world_size=2, init_method="tcp://127.0.0.1:1"),
-     NotImplementedError, "A12"),
+     AssertionError, "the group was joined"),
     (dict(config=dict(TRAIN, n_experts=4, exch_strategy="zero1")),
      NotImplementedError, "MoE expert sharding"),
     (dict(config=dict(TRAIN, tp=2)), ValueError, "needs at least 2"),
@@ -261,11 +268,17 @@ def test_bad_values_fail_before_the_model_is_built(monkeypatch, kwargs,
     def built(*a, **k):
         raise AssertionError("the model was built")
 
+    def joined(*a, **k):
+        raise AssertionError("the group was joined")
+
     monkeypatch.setattr(Llama, "build_model", built)
+    monkeypatch.setattr(bsp_worker, "init_group", joined)
     kw = dict(devices=["cpu"], config=TRAIN, verbose=False, **LLAMA)
     kw.update(kwargs)
+    threads = torch.get_num_threads()
     with pytest.raises(error, match=match):
         bsp_worker.run(**kw)
+    torch.set_num_threads(threads)
 
 
 def test_fault_drills_fail_before_the_model_is_built(monkeypatch):

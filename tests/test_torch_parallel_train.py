@@ -18,9 +18,10 @@ checkpoints (rank 0 writes the gathered full arrays) load back at
 tp = 1 in the port and in the JAX ``Llama``.  Four gloo processes
 launched by ``BSP().init`` train data = 2 x sp = 2 against the JAX
 4-device mesh.  At sp = 2 on the bf16 wire (``ici16``) the gloo ranks
-are held against the JAX worker too.  The layout's rank map and the
-groups ``Layout.build`` makes are checked at 8 ranks, without
-processes.
+are held against the JAX worker too.  zero1, the compressed wire and
+elastic resume at sp = 2 train on the same two ranks (their flat state
+of JAX's global shapes).  The layout's rank map and the groups
+``Layout.build`` makes are checked at 8 ranks, without processes.
 
 Tolerances, fp32 throughout: the packages and the layouts sum in other
 orders (the ring merges per hop, the row-parallel sums add two partial
@@ -114,6 +115,7 @@ import pickle, sys
 import torch
 sys.path.insert(0, {root!r})
 from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
+from theanompi_tpu_torch.utils.checkpoint import flatten
 from theanompi_tpu_torch.workers import bsp_worker
 
 rank = int(sys.argv[1])
@@ -131,6 +133,9 @@ for name, cfg, d in pickle.load(open({jobs!r}, "rb")):
     out[name] = dict(
         losses=res["recorder"].train_losses, val=res["final_val"],
         resumed_from=res["resumed_from"],
+        exchange={{f"{{g}}:{{k}}": tuple(v.shape) for g, t in
+                   res["model"]._exchange_trees().items()
+                   for k, v in flatten(t).items()}},
         norms=[{{k: lp[k].detach().numpy().copy() for k in {norms!r}}}
                for lp in p["layers"]]
         + [{{"final_norm": p["final_norm"].detach().numpy().copy()}}])
@@ -160,6 +165,15 @@ def inits(tmp_path_factory):
     return out
 
 
+#: the exchange states once refused at a layout, each at sp = 2 (ring)
+EXCHANGE_KNOBS = [dict(exch_strategy="zero1"), dict(exch_compression="int8"),
+                  dict(elastic=True)]
+
+
+def exchange_cfg(knob):
+    return dict(CFG, **OPTS["adam"], **LAYOUTS["ring"], **knob)
+
+
 def job_cfg(layout, opt):
     return dict(CFG, **OPTS[opt], **LAYOUTS[layout])
 
@@ -181,6 +195,13 @@ def port_runs(inits, tmp_path_factory):
     d = root / "_".join(WIRE16)
     shutil.copytree(inits["sgd"], d)
     jobs.append((WIRE16, wire16_cfg(), str(d)))
+    for i, knob in enumerate(EXCHANGE_KNOBS):
+        # a zero1 state cannot resume the init's full Adam tree: those
+        # start from the port's own draw
+        d = root / f"exchange_{i}"
+        if "elastic" in knob:
+            shutil.copytree(inits["adam"], d)
+        jobs.append((("exchange", i), exchange_cfg(knob), str(d)))
     pickle.dump(jobs, open(root / "jobs.pkl", "wb"))
     src = CHILD.format(root=str(ROOT), init=f"tcp://127.0.0.1:{free_port()}",
                        jobs=str(root / "jobs.pkl"), out=str(root / "out"),
@@ -429,22 +450,32 @@ def test_layout_refuses_what_does_not_divide():
         Layout(0, 6, 4, 1)
 
 
-@pytest.mark.parametrize("knob", [dict(exch_strategy="zero1"),
-                                  dict(exch_compression="int8"),
-                                  dict(elastic=True)])
-def test_unported_exchange_state_refused_at_tp_sp(knob):
-    """zero1, the compressed wire and elastic resume keep flat exchange
-    state whose layout per model shard is not ported: refused at
-    tp·sp > 1 with an A12 message (a layout of two seq ranks, no
-    collective reached)."""
-    model = Llama(dict(CFG, sp=2, **knob), device="cpu")
-    model.build_model()
-    model.layout = Layout(0, 2, 1, 2)
-    try:
-        with pytest.raises(NotImplementedError, match="A12"):
-            model.compile_iter_fns()
-    finally:
-        port_worker.destroy_group()
+@pytest.mark.parametrize("knob", EXCHANGE_KNOBS)
+def test_exchange_states_train_at_sp2(port_runs, knob):
+    """zero1, the compressed wire and elastic resume at sp = 2 (ring, two
+    seq ranks, Adam) train through ``bsp_worker.run`` where they were
+    once refused: the zero1 state and the EF residuals have the global
+    shapes of the compiled JAX model's on the same 2-device layout
+    (seq-replicated: one data replica's ``padded``), and the elastic run
+    resumes the init checkpoint and trains bitwise the plain ring
+    run."""
+    from test_torch_layout_exchange import jax_flat_shapes
+
+    cfg = exchange_cfg(knob)
+    i = EXCHANGE_KNOBS.index(knob)
+    for r in range(2):
+        got = port_runs["ranks"][r][("exchange", i)]
+        assert len(got["losses"]) == 8
+        assert np.isfinite(got["losses"]).all()
+        if "elastic" in knob:
+            assert got["resumed_from"] == [-1, None]
+            assert got["losses"] == \
+                port_runs["ranks"][r][("ring", "adam")]["losses"]
+            assert got["exchange"] == {}
+    want = jax_flat_shapes(cfg, 2)
+    assert bool(want) != ("elastic" in knob)
+    got = port_runs["ranks"][0][("exchange", i)]["exchange"]
+    assert {k: got[k] for k in want} == want
 
 
 def test_grad_sync_matches_jax(port_runs):

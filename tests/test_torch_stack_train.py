@@ -26,8 +26,10 @@ MoE pipeline also with Adam.  The runs' checkpoints (full arrays, rank
 0 writing) load in the JAX ``Llama`` of the same layout, and the ep = 2
 one restores at ep = 1 in the port (the JAX
 ``test_sharded_checkpoint_cross_ep_restore``).  The layout's rank map is
-held against JAX ``make_mesh`` at 16 ranks with all five axes, and the
-refusals that remain are checked.
+held against JAX ``make_mesh`` at 16 ranks with all five axes, the
+refusals that remain (MoE with zero1 or the compressed wire) are
+checked, and zero1, the compressed wire and elastic resume at pp = 2
+train on the two gloo ranks (their flat state of JAX's global shapes).
 
 Tolerances, fp32 throughout: per-step losses and val metrics rtol 2e-6
 (the tp and sp training tests'; measured at most 5e-7).  Final
@@ -105,6 +107,17 @@ def free_port():
         return s.getsockname()[1]
 
 
+#: the exchange states once refused at pp > 1, each at pp = 2 (zero1
+#: and the compressed wire with Adam, elastic with SGD)
+PP_EXCHANGE = [dict(exch_strategy="zero1"), dict(exch_compression="int8"),
+               dict(elastic=True)]
+
+
+def pp_exchange_cfg(knob):
+    opt = "sgd" if "elastic" in knob else "adam"
+    return dict(job_cfg("pp2", opt), **knob)
+
+
 def job_cfg(layout, opt):
     return dict(CFG, **OPTS[opt], **LAYOUTS[layout])
 
@@ -160,6 +173,7 @@ import pickle, sys
 import torch
 sys.path.insert(0, {root!r})
 from theanompi_tpu_torch.parallel.mesh import destroy_group, init_group
+from theanompi_tpu_torch.utils.checkpoint import flatten
 from theanompi_tpu_torch.workers import bsp_worker
 
 rank = int(sys.argv[1])
@@ -175,7 +189,10 @@ for name, cfg, d in pickle.load(open({jobs!r}, "rb")):
         verbose=False)
     out[name] = dict(losses=res["recorder"].train_losses,
                      val=res["final_val"], resumed_from=res["resumed_from"],
-                     coords=list(res["model"].layout.coords))
+                     coords=list(res["model"].layout.coords),
+                     exchange={{f"{{g}}:{{k}}": tuple(v.shape) for g, t in
+                               res["model"]._exchange_trees().items()
+                               for k, v in flatten(t).items()}})
 pickle.dump(out, open({out!r} + str(rank), "wb"))
 destroy_group()
 """
@@ -192,6 +209,13 @@ def port_started(inits, tmp_path_factory):
         d = root / "_".join(job)
         shutil.copytree(inits[job], d)
         jobs.append((job, job_cfg(*job), str(d)))
+    for i, knob in enumerate(PP_EXCHANGE):
+        # a zero1 state cannot resume the init's full Adam tree: those
+        # start from the port's own draw
+        d = root / f"exchange_{i}"
+        if "elastic" in knob:
+            shutil.copytree(inits[("pp2", "sgd")], d)
+        jobs.append((("exchange", i), pp_exchange_cfg(knob), str(d)))
     pickle.dump(jobs, open(root / "jobs.pkl", "wb"))
     src = CHILD.format(root=str(ROOT), init=f"tcp://127.0.0.1:{free_port()}",
                        jobs=str(root / "jobs.pkl"), out=str(root / "out"))
@@ -432,15 +456,11 @@ def test_layout_map_matches_jax_make_mesh_16(sizes):
 @pytest.mark.parametrize("knob,match", [
     (dict(MOE, exch_strategy="zero1"), "zero1"),
     (dict(MOE, exch_compression="int8"), "exch_compression"),
-    (dict(pp=2, exch_strategy="zero1"), "A12"),
-    (dict(pp=2, exch_compression="int8"), "A12"),
-    (dict(pp=2, elastic=True), "A12"),
 ])
 def test_refusals_that_remain(knob, match):
     """MoE with zero1 or the compressed wire (the JAX package's own
-    refusals) and zero1, the compressed wire and elastic at pp > 1
-    (ROADMAP A12), before any collective: in the model's compile and in
-    the worker."""
+    refusals), before any collective: in the model's compile and in the
+    worker."""
     cfg = dict(CFG, **knob)
     model = Llama(cfg, device="cpu")
     model.build_model()
@@ -452,6 +472,31 @@ def test_refusals_that_remain(knob, match):
                         init_method="tcp://127.0.0.1:1", config=cfg,
                         modelfile="theanompi_tpu_torch.models.llama",
                         modelclass="Llama", verbose=False)
+
+
+@pytest.mark.parametrize("knob", PP_EXCHANGE)
+def test_pp2_exchange_states_train(port_runs, knob):
+    """zero1, the compressed wire and elastic at pp = 2, once refused,
+    train through ``bsp_worker.run`` on the two gloo ranks: the zero1
+    state and the EF residuals have the global shapes of the compiled
+    JAX model's on the same 2-device layout (one flat pack a stage),
+    and the elastic run resumes the init checkpoint and trains bitwise
+    the plain pp = 2 run."""
+    from test_torch_layout_exchange import jax_flat_shapes
+
+    i = PP_EXCHANGE.index(knob)
+    for r in range(2):
+        got = port_runs["ranks"][r][("exchange", i)]
+        assert len(got["losses"]) == 8
+        assert np.isfinite(got["losses"]).all()
+        if "elastic" in knob:
+            assert got["resumed_from"] == [-1, None]
+            assert got["losses"] == \
+                port_runs["ranks"][r][("pp2", "sgd")]["losses"]
+    want = jax_flat_shapes(pp_exchange_cfg(knob), 2)
+    assert bool(want) != ("elastic" in knob)
+    got = port_runs["ranks"][0][("exchange", i)]["exchange"]
+    assert {k: got[k] for k in want} == want
 
 
 def test_ep_needs_experts_and_pp_divides():

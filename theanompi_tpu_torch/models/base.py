@@ -50,7 +50,6 @@ under JAX keystr keys, so they load in either package.
 
 from __future__ import annotations
 
-import math
 import warnings
 from pathlib import Path
 from typing import Any
@@ -88,7 +87,9 @@ from theanompi_tpu_torch.utils import checkpoint as ckpt
 from theanompi_tpu_torch.utils import reshard as reshard_lib
 from theanompi_tpu_torch.utils.sharded_checkpoint import (
     ShardedLeaf,
+    is_sharded_checkpoint,
     save_sharded_checkpoint,
+    saved_shapes,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -155,9 +156,7 @@ def refuse_layout_exchange(cfg: dict, zero1: bool,
     """The exchange states a Llama layout cannot carry, refused before
     anything is built: zero1 and the compressed wire with MoE experts
     (the JAX package's own ``NotImplementedError``s: expert and dense
-    leaves exchange over different groups), and zero1, the compressed
-    wire and elastic resume at tp·sp·pp > 1 (not ported: ROADMAP.md
-    A12)."""
+    leaves exchange over different groups)."""
     if int(cfg.get("n_experts", 0)):
         if zero1:
             raise NotImplementedError(
@@ -172,17 +171,6 @@ def refuse_layout_exchange(cfg: dict, zero1: bool,
                 "exchange over different shard groups, so there is no "
                 "single flat buffer to quantize (same split that keeps "
                 "MoE+zero1 NotImplementedError)")
-    prod = math.prod(int(cfg.get(k, 1)) for k in ("tp", "sp", "pp"))
-    if prod == 1:
-        return
-    for knob, on in (("exch_strategy=zero1", zero1),
-                     ("exch_compression", bool(compression)),
-                     ("elastic", bool(cfg.get("elastic")))):
-        if on:
-            raise NotImplementedError(
-                f"{knob} at tp*sp*pp={prod} > 1 is not ported yet "
-                f"(ROADMAP.md A12: the flat exchange state and its "
-                f".shards layout per model shard and stage)")
 
 
 class TMModel:
@@ -207,8 +195,9 @@ class TMModel:
     #: data axis, or (data × seq) on an f32 wire at sp > 1; None: the
     #: default group, every rank a data replica
     _dp_group = None
-    #: the seq axis's group on a 16-bit wire at sp > 1: the gradients'
-    #: f32 mean over it comes before the data exchange
+    #: the seq axis's group at sp > 1 on a 16-bit wire, under zero1 or
+    #: with a compression: the gradients' f32 mean over it comes before
+    #: the data exchange
     _seq_group = None
     #: at pp > 1: (the pipe group, the indices of the leaves the stages
     #: all hold): their gradients are summed over it in f32 first
@@ -220,11 +209,24 @@ class TMModel:
     _expert_leaves: frozenset = frozenset()
     _expert_dp_group = None
     _ep: int = 1
+    #: under the compressed wire at a layout: ``(src, group, indices)``
+    #: of the leaves several model ranks or stages hold whole, brought
+    #: back to the group's first rank's values (``src``, a global rank)
+    #: after each update
+    _replicated: tuple = ()
     #: whether ``checkpoint_trees`` is a collective (it gathers shards)
     _save_collective: bool = False
     _zero1: bool = False
     _compression: str | None = None
     _fspec = None
+    #: the flat state's blocks: this rank's coordinate ``((p·E + e)·D +
+    #: d)·M + m`` among the ``P·E·D·M`` of the JAX ``P((pipe, expert,
+    #: data, model))`` sharding (the data rank without a layout), and
+    #: whether it writes its block (seq rank 0: the seq ranks hold equal
+    #: shards)
+    _flat_at: int = 0
+    _n_flat: int = 1
+    _flat_writer: bool = True
     _zero1_layout: tuple | None = None
     _ef_layout: tuple | None = None
     ef_state: dict = {}
@@ -335,10 +337,11 @@ class TMModel:
     def _compile_exchange(self, exch_strategy: str | None) -> None:
         """Resolve the exchange of this compile (the group exists): the
         strategy, the bucket size, the compression; with zero1 or a
-        compression, the flat layout over the JAX-ordered tensors, a
-        zero1 optimizer state shaped for this rank's shard, and zero
-        EF residuals (``r1`` ``[padded]``, ``r2`` ``[shard_len]`` when
-        not zero1)."""
+        compression, the flat layout over this rank's JAX-ordered
+        tensors (its local shards at a layout) sharded over the data
+        replicas, a zero1 optimizer state shaped for this rank's shard,
+        and zero EF residuals (``r1`` ``[padded]``, ``r2``
+        ``[shard_len]`` when not zero1)."""
         cfg = getattr(self, "config", {})
         self._strategy = get_strategy(
             exch_strategy or cfg.get("exch_strategy", "ici32"))
@@ -353,6 +356,17 @@ class TMModel:
             spec = flat_spec(self._jax_views(self._leaves()), self._world,
                              bucket_elems=self._bucket_elems)
         self._fspec = spec
+        lay = getattr(self, "layout", None)
+        if lay is None:
+            self._flat_at, self._n_flat = self._rank, self._world
+            self._flat_writer = True
+        else:
+            p, e, d, m, s = lay.coords
+            n = lay.dims
+            self._flat_at = ((p * n["expert"] + e) * n["data"] + d) \
+                * n["model"] + m
+            self._n_flat = lay.world // n["seq"]
+            self._flat_writer = s == 0
         self._zero1_layout = ((spec.padded, spec.bucket_len)
                               if self._zero1 else None)
         if self._zero1:
@@ -372,9 +386,19 @@ class TMModel:
         the strategy (or the compressed wire) then the update, or the
         zero1 reduce-scatter / shard update / all-gather.  A layout
         first sums the stage-invariant leaves over pipe and means every
-        leaf over seq (16-bit wire); with MoE the expert leaves mean over
-        their own group and divide by ``ep``."""
+        leaf over seq in f32 (``_seq_group``: a 16-bit wire, zero1 or a
+        compression), as JAX's autodiff does before its exchange; the
+        exchange then runs over the data replicas (``_dp_group``).  With
+        MoE the expert leaves mean over their own group and divide by
+        ``ep``."""
         lr = self.current_lr
+        if self._pipe_sum is not None:
+            group, idx = self._pipe_sum
+            for i in idx:
+                dist.all_reduce(grads[i], group=group)
+        if self._seq_group is not None:
+            allreduce_mean(grads, group=self._seq_group,
+                           bucket_elems=self._bucket_elems)
         if self._zero1:
             def update(p, g, state):
                 return self.optimizer.update([p], [g], state, lr)
@@ -384,55 +408,65 @@ class TMModel:
                 spec=self._fspec, opt_state=self.opt_state,
                 wire_dtype=self._strategy.wire_dtype,
                 compression=self._compression,
-                r1=self.ef_state.get("r1"))
+                r1=self.ef_state.get("r1"), group=self._dp_group)
+            self._resync_replicated(leaves)
             return
         if self._compression:
             compressed_allreduce_mean(
                 self._jax_views(grads), compression=self._compression,
                 r1=self.ef_state.get("r1"), r2=self.ef_state.get("r2"),
-                bucket_elems=self._bucket_elems)
+                bucket_elems=self._bucket_elems, group=self._dp_group)
+        elif self._expert_leaves:
+            for i, g in enumerate(grads):
+                if i in self._expert_leaves:
+                    self._strategy([g], group=self._expert_dp_group)
+                    if self._ep > 1:
+                        g.div_(self._ep)
+                else:
+                    self._strategy([g], group=self._dp_group)
         else:
-            if self._pipe_sum is not None:
-                group, idx = self._pipe_sum
-                for i in idx:
-                    dist.all_reduce(grads[i], group=group)
-            if self._seq_group is not None:
-                allreduce_mean(grads, group=self._seq_group,
-                               bucket_elems=self._bucket_elems)
-            if self._expert_leaves:
-                for i, g in enumerate(grads):
-                    if i in self._expert_leaves:
-                        self._strategy([g], group=self._expert_dp_group)
-                        if self._ep > 1:
-                            g.div_(self._ep)
-                    else:
-                        self._strategy([g], group=self._dp_group)
-            else:
-                self._strategy(grads, group=self._dp_group,
-                               bucket_elems=self._bucket_elems)
+            self._strategy(grads, group=self._dp_group,
+                           bucket_elems=self._bucket_elems)
         self.opt_state = self.optimizer.update(leaves, grads, self.opt_state,
                                                lr)
+        self._resync_replicated(leaves)
 
-    def _split_leaf(self, t, global_len: int, start: int):
-        """A flat tensor this rank holds of a global buffer: itself at
-        one rank, else a ``ShardedLeaf`` of the ``[global_len]``."""
-        if self._world == 1:
+    @torch.no_grad()
+    def _resync_replicated(self, leaves: list) -> None:
+        """The compressed wire quantizes each rank's own flat pack, whose
+        chunk scales differ between model ranks and between stages, so
+        a leaf they all hold whole (a norm at tp > 1; embed, final_norm
+        and lm_head at pp > 1) comes out of the update with different
+        rounding on each: it takes its group's first rank's values, as
+        the one copy the checkpoint keeps."""
+        for src, group, idx in self._replicated:
+            for i in idx:
+                dist.broadcast(leaves[i], src=src, group=group)
+
+    def _split_leaf(self, t, block: int):
+        """This rank's ``[block]`` of a global flat buffer of the
+        ``_n_flat`` blocks in ``P((pipe, expert, data, model))`` order:
+        itself when there is one block, else a ``ShardedLeaf`` of the
+        ``[block · _n_flat]`` at its flat coordinate."""
+        if self._n_flat == 1:
             return t
-        return ShardedLeaf(t, (global_len,), start)
+        return ShardedLeaf(t, (block * self._n_flat,),
+                           block * self._flat_at, write=self._flat_writer)
 
     def _exchange_trees(self) -> dict:
         """The checkpoint groups of the exchange: a zero1 optimizer
         state (``opt_state``, the JAX shard-state tree: Adam ``{m, t,
         v}``, the velocity, SGD's ``()``) and the EF residuals
-        (``ef_state``), each flat leaf this rank's slice of the global
-        buffer (``[padded]``; ``r1`` ``[world·padded]``)."""
+        (``ef_state``), each flat leaf this rank's block of the global
+        buffer the JAX package shards ``P((pipe, expert, data, model))``
+        (the zero1 state and ``r2`` ``[shard_len · P·E·D·M]``, ``r1``
+        ``[padded · P·E·D·M]``; without a layout ``P·E·D·M`` is the
+        world)."""
         trees = {}
         spec = self._fspec
         if self._zero1:
-            at = self._rank * spec.shard_len
-
             def leaf(t):
-                return self._split_leaf(t, spec.padded, at)
+                return self._split_leaf(t, spec.shard_len)
 
             st = self.opt_state
             if isinstance(st, dict):
@@ -442,13 +476,10 @@ class TMModel:
             else:
                 trees["opt_state"] = leaf(st[0]) if st else ()
         if self.ef_state:
-            ef = {"r1": self._split_leaf(
-                self.ef_state["r1"], self._world * spec.padded,
-                self._rank * spec.padded)}
+            ef = {"r1": self._split_leaf(self.ef_state["r1"], spec.padded)}
             if "r2" in self.ef_state:
-                ef["r2"] = self._split_leaf(
-                    self.ef_state["r2"], spec.padded,
-                    self._rank * spec.shard_len)
+                ef["r2"] = self._split_leaf(self.ef_state["r2"],
+                                            spec.shard_len)
             trees["ef_state"] = ef
         return trees
 
@@ -474,10 +505,10 @@ class TMModel:
     # -- checkpoint / resume ------------------------------------------------
 
     def _split_state(self) -> bool:
-        """Whether this rank holds only its shard of some state (zero1 or
-        the EF residuals at world > 1): then every rank writes its own
-        shards, as a ``.shards`` checkpoint."""
-        return self._world > 1 and (self._zero1 or bool(self.ef_state))
+        """Whether this rank holds only its block of some state (zero1 or
+        the EF residuals over more than one flat block): then every rank
+        writes its own shards, as a ``.shards`` checkpoint."""
+        return self._n_flat > 1 and (self._zero1 or bool(self.ef_state))
 
     def save(self, directory: str, recorder=None,
              extra_meta: dict | None = None) -> None:
@@ -537,18 +568,49 @@ class TMModel:
         return (meta.get("world_size") is not None
                 and int(meta["world_size"]) != self._world)
 
-    def _check_layouts(self, meta: dict, like: dict) -> None:
-        """Refuse a checkpoint whose zero1 or EF flat layout differs from
+    def _check_layouts(self, path, meta: dict, like: dict,
+                       plan: dict | None) -> None:
+        """Refuse a checkpoint whose zero1 or EF flat state does not fit
         the compiled one (the JAX package's guards): loading it would
-        pair optimizer or residual rows with the wrong parameters."""
+        pair optimizer or residual rows with the wrong parameters.  A
+        state whose packs span the model or pipe axes (its flat buffers
+        are not the stamped ``[padded]``, or this run's would not be)
+        resumes only at the data width and global shapes it was written
+        at, elastic or not (the JAX reshard's refusal); any other layout
+        change refuses unless ``plan`` re-lays it."""
         changed = self._world_changed(meta)
+        z, ef = meta.get("zero1_layout"), meta.get("ef_layout")
+        saved = saved_shapes(path) if is_sharded_checkpoint(path) else {}
+        want = {f"{g}:{k}": _global_shape(v)
+                for g in ("opt_state", "ef_state") if g in like
+                and (self.ef_state if g == "ef_state" else self._zero1)
+                for k, v in ckpt.flatten(like[g]).items()}
+        # the JAX reshard's test: a flat zero1 buffer or r2 over the data
+        # axis alone is [padded] (r1, a block a rank, goes beside one of
+        # them)
+        stamped = {k: (int(z[0]),) for k, s in want.items()
+                   if z and k.startswith("opt_state:") and len(s) == 1}
+        if ef:
+            stamped["ef_state:['r2']"] = (int(ef[1]),)
+        spans = self._n_flat != self._world or any(
+            saved.get(k, s) != s for k, s in stamped.items())
+        if want and spans and (changed or any(
+                saved.get(k, s) != s for k, s in want.items())):
+            raise ValueError(
+                f"{path}: its flat exchange state was written over "
+                f"{meta.get('world_size')} data replicas (zero1_layout "
+                f"{z}, ef_layout {ef}), this run lays it over "
+                f"{self._world} ({self._zero1_layout}, {self._ef_layout}): "
+                f"{reshard_lib.SPANNING_REFUSAL}; resume at the tp, pp and "
+                f"data width it was written at")
+        if plan is not None:
+            return
         cur = self._zero1_layout
         if cur is not None and "opt_state" in like:
-            saved = meta.get("zero1_layout")
-            saved = tuple(saved) if saved is not None else (cur[0], 0)
-            if saved != tuple(cur) or (cur[1] and changed):
+            got = tuple(z) if z is not None else (cur[0], 0)
+            if got != tuple(cur) or (cur[1] and changed):
                 raise ValueError(
-                    f"zero1 optimizer checkpoint layout {saved} (padded, "
+                    f"zero1 optimizer checkpoint layout {got} (padded, "
                     f"bucket_len) does not match the compiled exchange "
                     f"layout {tuple(cur)} — the flat shard order is "
                     f"bucket-dependent, so resuming would silently pair "
@@ -558,12 +620,11 @@ class TMModel:
                     f"gather the shards to master order and re-scatter "
                     f"them onto this layout")
         cur_ef = self._ef_layout
-        saved_ef = meta.get("ef_layout")
         if cur_ef is not None and "ef_state" in like \
-                and saved_ef is not None \
-                and (tuple(saved_ef) != tuple(cur_ef) or changed):
+                and ef is not None \
+                and (tuple(ef) != tuple(cur_ef) or changed):
             raise ValueError(
-                f"checkpoint EF-residual layout {tuple(saved_ef)} "
+                f"checkpoint EF-residual layout {tuple(ef)} "
                 f"(compression, padded, bucket_len) does not match the "
                 f"compiled exchange layout {tuple(cur_ef)} — set "
                 f"exch_compression/exchange_bucket_mb to the values the "
@@ -647,7 +708,9 @@ class TMModel:
         already chose that way.  A zero1 or EF state saved under another
         layout refuses, unless ``reshard=True`` (or ``config["elastic"]``
         when ``reshard`` is None): then it is gathered to pack order and
-        re-scattered onto the compiled layout (the elastic resume)."""
+        re-scattered onto the compiled layout (the elastic resume).  A
+        state whose packs span the model or pipe axes refuses any layout
+        change (:meth:`_check_layouts`)."""
         cfg = getattr(self, "config", {})
         if reshard is None:
             reshard = bool(cfg.get("elastic"))
@@ -660,8 +723,7 @@ class TMModel:
         like = self.checkpoint_trees()
         meta = ckpt.checkpoint_meta(path)
         plan = self._reshard_plan(meta, like) if reshard else None
-        if plan is None:
-            self._check_layouts(meta, like)
+        self._check_layouts(path, meta, like, plan)
         trees = (self._load_resharded(path, like, plan) if plan
                  else self._load_trees(path, like))
         ex = {g: trees.pop(g) for g in ("opt_state", "ef_state")

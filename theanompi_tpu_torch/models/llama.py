@@ -78,10 +78,17 @@ layer holds ``router`` [D, E] and ``we_gate``/``we_up`` [E, D, F],
 - Checkpoints hold full arrays in the JAX tree of the layout: every
   rank gathers its shards over the model, expert and pipe groups (a
   collective), rank 0 writes; at pp > 1 the layers are stacked.
+- zero1 and the compressed wire at a layout, as JAX's: the flat layout
+  packs this rank's local shards in the JAX leaf order of its local
+  tree (a stage's layers stacked at pp > 1) and shards over the data
+  replicas (expert × data) alone, after the pipe sum and the f32 seq
+  mean; the flat state and the EF residuals are this rank's block of
+  the JAX ``P((pipe, expert, data, model))`` buffer in a ``.shards``
+  checkpoint (seq ranks hold equal blocks; seq rank 0 writes), and
+  resume only at the layout they were written under.
 
-Selective remat (``remat_save``) is not ported yet (ROADMAP.md); zero1,
-the compressed wire and elastic resume are refused at tp·sp·pp > 1
-(A12), zero1 and the compressed wire with MoE (as in JAX).
+Selective remat (``remat_save``) is not ported yet (ROADMAP.md); zero1
+and the compressed wire with MoE are refused (as in JAX).
 """
 
 from __future__ import annotations
@@ -735,8 +742,10 @@ class Llama(TMModel):
         if self.sp > 1:
             # the seq ranks' gradients mean in f32, as JAX's autodiff psum
             # of the seq pmean's cotangents: an f32 wire means them with
-            # the replicas' in one pass, a 16-bit wire over seq first
-            if f32_wire:
+            # the replicas' in one pass; a 16-bit wire, zero1 and the
+            # compressed wire over seq first, their flat state then
+            # sharded over the data replicas alone (JAX's padded / n_dp)
+            if f32_wire and not (self._zero1 or self._compression):
                 self._dp_group = lay.expert_data_seq.device_group
             else:
                 self._seq_group = lay.seq.device_group
@@ -756,6 +765,16 @@ class Llama(TMModel):
             self._pipe_sum = (lay.pipe.device_group,
                               [i for i, n in enumerate(names)
                                if n in TOP_KEYS])
+        replicated = []
+        if self._compression and self.tp > 1:
+            replicated.append((
+                lay.axis_ranks("model")[0], lay.model.device_group,
+                [i for i, n in enumerate(names)
+                 if MODEL_AXIS[n.rsplit(".", 1)[-1]] is None]))
+        if self._compression and self.pp > 1:
+            replicated.append((lay.axis_ranks("pipe")[0],
+                               lay.pipe.device_group, self._pipe_sum[1]))
+        self._replicated = tuple(replicated)
         if not self._zero1:          # zero1 holds the state of its shard
             self.opt_state = self.optimizer.init(list(_leaves(params)))
         # this rank's rows of each global (inputs, targets) batch, as
@@ -834,8 +853,15 @@ class Llama(TMModel):
         return list(_leaves(self.params))
 
     def _exchange_order(self) -> list:
+        """The JAX leaf order of this rank's local tree: at pp > 1 JAX
+        stacks a stage's layers ``{name: [L/pp, ...]}``, so each stacked
+        leaf comes whole (its layers in order), name by name."""
         pos = {id(t): i for i, t in enumerate(_leaves(self.params))}
-        return [(pos[id(t)], None) for t in ckpt.flatten(self.params).values()]
+        tree = self.params
+        if self.pp > 1:
+            tree = dict(tree, layers={k: [lp[k] for lp in tree["layers"]]
+                                      for k in self.keys})
+        return [(pos[id(t)], None) for t in ckpt.flatten(tree).values()]
 
     def checkpoint_trees(self) -> dict:
         """The checkpoint's trees in full arrays in the JAX layout of

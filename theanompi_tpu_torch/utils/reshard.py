@@ -57,6 +57,11 @@ from __future__ import annotations
 
 import numpy as np
 
+#: why a flat buffer longer than its stamped ``padded`` (one pack a model
+#: shard or stage) refuses to reshard, in the JAX reshard's words
+SPANNING_REFUSAL = ("flat buffers spanning model/pipe axes (tp/pp-sharded "
+                    "zero1 packs) cannot reshard over the data axis alone")
+
 
 def _check_layout(n_shards: int | None, padded: int, bucket_len: int,
                   *, what: str) -> None:
@@ -140,9 +145,7 @@ def reshard_flat(
     if buf.shape != (p_o,):
         raise ValueError(
             f"reshard_flat: buffer shape {buf.shape} does not match "
-            f"the stamped layout (padded={p_o}) — flat buffers "
-            f"spanning model/pipe axes (tp/pp-sharded zero1 packs) "
-            f"cannot reshard over the data axis alone"
+            f"the stamped layout (padded={p_o}) — {SPANNING_REFUSAL}"
         )
     if not 0 < size <= min(p_o, p_n):
         raise ValueError(

@@ -7,7 +7,7 @@ into the other.  Where the JAX package reads a leaf's shards from a
 rank: a leaf is either a whole array (replicated: rank 0 writes it) or
 a :class:`ShardedLeaf`, this rank's slice of a global array along axis
 0 (the zero1 optimizer shard, the EF residuals), which every rank
-writes for itself.
+writes for itself (of ranks that hold the same slice, one writes it).
 
 - **Save**: rank r writes its shards into the hidden
   ``.ckpt_<step>.shards.p<r>.tmp`` (rank 0's files as
@@ -49,11 +49,13 @@ _MARKER = "COMMITTED"
 @dataclasses.dataclass
 class ShardedLeaf:
     """This rank's slice ``[start, start + len(local))`` along axis 0 of
-    a global array of shape ``shape``."""
+    a global array of shape ``shape``; ``write``: whether this rank
+    saves it (False where another rank holds the same slice)."""
 
     local: Any                   # tensor or numpy array
     shape: tuple
     start: int
+    write: bool = True
 
     @property
     def index(self) -> tuple:
@@ -127,7 +129,7 @@ def save_sharded_checkpoint(directory: str | Path, step: int, trees: dict,
                 shape = tuple(leaf.shape if sharded else np.shape(arr))
                 entry = {"shape": list(shape), "dtype": _dtype_name(arr),
                          "shards": []}
-                if sharded or rank == 0:
+                if (leaf.write if sharded else rank == 0):
                     fname = _fname(group, key, 0)
                     if rank:
                         fname = f"p{rank}." + fname
@@ -315,6 +317,13 @@ def load_sharded_group(path: str | Path, group: str) -> dict[str, Any]:
     if not got:
         raise KeyError(f"checkpoint {path} has no group {group!r}")
     return {k[len(prefix):]: a for k, a in got.items()}
+
+
+def saved_shapes(path: str | Path) -> dict[str, tuple]:
+    """``{"group:key": global shape}`` of a ``.shards`` checkpoint, read
+    from its index alone."""
+    return {k: tuple(e["shape"]) for k, e in
+            _merged_index(Path(path)).items()}
 
 
 def verify_sharded_checkpoint(path: str | Path) -> bool:

@@ -23,9 +23,10 @@ Under a supervisor at more than one rank the ranks agree on the
 preemption flag at every boundary (a one-element max allreduce), so no
 rank checkpoints and leaves while another enters the next exchange.
 ``config["elastic"]`` resumes across a world change:
-``_apply_elastic_policy`` rescales the batch (or the lr) before the
-model is built and ``load`` reshards the flat exchange state; the
-world itself is fitted to the saved global batch by the launcher
+``_apply_elastic_policy`` rescales the batch (or the lr) over the data
+replicas before the model is built and ``load`` reshards the flat
+exchange state; the world itself is fitted to the saved global batch
+by the launcher
 (``_elastic_trim_devices``), since here it is the number of processes.
 A resume validates its checkpoint once a life: rank 0 picks it and the
 ranks load that one (``models.base.resume_checkpoint``).
@@ -316,14 +317,14 @@ def run(
         elastic = bool(cfg.get("elastic"))
         elastic_note = (
             _apply_elastic_policy(
-                cfg, world, checkpoint_dir, verbose,
+                cfg, n_replicas, checkpoint_dir, verbose,
                 meta=checkpoint_meta(ckpt_path) if ckpt_path else {})
             if elastic and resume and checkpoint_dir else None
         )
         model = Model(cfg, device=device)
         model.build_model(n_replicas=n_replicas)
         model.compile_iter_fns(exch_strategy=strat.name)
-        recorder = Recorder(rank=rank, size=world, print_freq=print_freq,
+        recorder = Recorder(rank=rank, size=n_replicas, print_freq=print_freq,
                             verbose=verbose)
         # graceful preemption: SIGTERM → checkpoint at the next
         # iteration boundary (meta stamps next_iter) and exit 0
