@@ -120,7 +120,18 @@ phase's seconds are printed at the end):
    of 8 steps and 2 val batches, with each step's loss, the step time,
    tokens/s, peak memory and K1/K2/K3 launches (checked against
    2L/L/L per step, every launch on the tensor-core route), the losses
-   held to ``TRAIN_TRAJECTORY``; then a 2-step profile;
+   held to ``TRAIN_TRAJECTORY``; the run takes ``step_profile`` and
+   ``trace`` (``trace_export`` under ``build/``): after the 8 steps
+   the worker profiles one step (``obs.step_profile``; the warm step,
+   the FLOP count's forward and backward and the profiled step add 3
+   steps' launches), and the script asserts the legs (``compute``, an
+   ``exchange_b{i}``, ``optimizer``, ``host_gap``), coverage in
+   [0.95, 1.05], the MFU equal to ``step_flops / (step_s * peak)`` with
+   the H100's peak and in (0, 1], ``trace_spans`` = the iterations'
+   spans, the export's iteration spans and counter tracks and the
+   ``tm_train_*`` families of ``metrics_txt``; then a 2-step profile,
+   whose device time a step the profile's busy time must be within
+   ``PROFILE_BUSY_RTOL`` of;
 7b. exchange — the exchange extensions.  The training phase's run
    again through ``BSP().init`` with ``exch_strategy="zero1"`` (losses
    asserted bitwise the ``ici32`` run's, or held to
@@ -129,7 +140,9 @@ phase's seconds are printed at the end):
    ``EXCH_INT8_RTOL`` of ``ici32``'s), each with its step time,
    tokens/s, peak memory, K1/K2/K3 launches (2L/L/L a step, tensor
    cores) and a 2-step profile's elementwise/memcpy/GEMM split beside
-   ``ici32``'s; then two ranks on card 0 over gloo (two children,
+   ``ici32``'s; the int8 arm also takes ``step_profile``: a ``quantize``
+   leg above 0 and one ``exchange_b{i}`` leg a bucket of the flat spec,
+   asserted; then two ranks on card 0 over gloo (two children,
    ``chip_smoke.py --exchange-rank r``), full width, ``EXCH_LAYERS``
    deep: zero1 on the fp8 wire (no residual) for ``EXCH_STEPS`` steps,
    saved as a
@@ -484,6 +497,18 @@ TRAIN_REF_RTOL = 1e-4
 # bf16 before their products, must stay within TRAIN_TRAJECTORY_RTOL
 TRAIN_TRAJECTORY = {"first": 11.7917, "last": 11.7502, "val": 11.7429}
 TRAIN_TRAJECTORY_RTOL = 1e-3
+# the training profile's extra steps on the counted path: the worker's
+# warm step, train_step_flops's forward and backward, the profiled step
+PROFILE_STEPS = 3
+# the step profile's device busy time a step against profile_training's
+# device time a step (an independent reading of the same model)
+PROFILE_BUSY_RTOL = 0.10
+# the step profile's coverage (the legs' sum over the step), the JAX
+# package's own bar
+PROFILE_COVERAGE = (0.95, 1.05)
+# decode tokens/s with the serving ranges' profiler check against none
+# at all: the ranges must cost nothing while nobody profiles
+RANGE_COST_RTOL = 0.05
 # the CNN phase's card-vs-CPU checks: fp32, per-step losses and the
 # AlexNet val numbers differ by summation order only (cuDNN against the
 # CPU's convolutions), amplified over 3 momentum steps
@@ -561,6 +586,20 @@ def time_ms(fn, *, reps: int = 20, warmup: int = 3, flush=None) -> float:
 
 # -- phase 2: kernels against their plain versions -------------------------
 
+#: operations per live (q, k) pair and unit of head dim: K1 does 2
+#: products (S, O), K2 4 (S, dP, dV, dK), K3 3 (S, dP, dQ)
+FLASH_OPS_PER_PAIR = {"fwd": 4, "dkv": 8, "dq": 6}
+
+
+def flash_ops(kernel: str, shape, causal: bool = True) -> float:
+    """Operations of one K1 (``"fwd"``), K2 (``"dkv"``) or K3 (``"dq"``)
+    launch on q of ``shape`` [B, H, T, D] against keys of the same
+    length: causal, query i sees keys 0..i."""
+    b, h, t, d = shape
+    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
+    return FLASH_OPS_PER_PAIR[kernel] * d * pairs
+
+
 def bound(ops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): ``ops`` at the
     peak rate of ``dtype_name`` against ``nbytes`` at the HBM rate."""
@@ -631,7 +670,7 @@ def check_flash(dev, flush) -> dict:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), flush=flush)
             b_ms, b_by = bound(
-                4 * hd * h * t * (t + 1) / 2,
+                flash_ops("fwd", q.shape),
                 4 * q.numel() * q.element_size() + lse.numel() * 4, name)
             tc = name == "bfloat16"
             records["K1" if tc else "K1 fp32"] = {
@@ -679,7 +718,7 @@ def check_flash(dev, flush) -> dict:
     ms = time_ms(lambda: run(q, k, v, "bfloat16"), flush=flush)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), flush=flush)
-    b_ms, _ = bound(4 * hd * 2 * h * 2048 * 2049 / 2,
+    b_ms, _ = bound(flash_ops("fwd", q.shape),
                     4 * q.numel() * q.element_size() + lse.numel() * 4,
                     "bfloat16")
     log(f"K1 flash_fwd bfloat16 (tensor cores) [2,{h},2048,{hd}] causal "
@@ -697,13 +736,11 @@ def check_flash(dev, flush) -> dict:
 
 
 def bwd_bound(name, q, dtype_name, causal=True):
-    """(bound ms, what bounds it) of K2 or K3 on q-shaped inputs: 8·D
-    (K2: 4 products) or 6·D (K3: 3) operations per live (q, k) pair,
-    against q, k, v, dO, lse, delta read once and the outputs written
-    once."""
-    b, h, t, d = q.shape
-    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
-    ops = (8 if name == "dkv" else 6) * d * pairs
+    """(bound ms, what bounds it) of K2 or K3 on q-shaped inputs: their
+    ``flash_ops`` against q, k, v, dO, lse, delta read once and the
+    outputs written once."""
+    b, h, t, _ = q.shape
+    ops = flash_ops(name, q.shape, causal)
     n_out = 2 if name == "dkv" else 1
     nbytes = (4 + n_out) * q.numel() * q.element_size() + 2 * b * h * t * 4
     return bound(ops, nbytes, dtype_name)
@@ -1236,6 +1273,24 @@ def run_serving(name, dec, prompts, alone_idx, counter) -> dict:
             "stats": stats, "wall_s": wall}
 
 
+def device_kernels(prof) -> list:
+    """(name, device ms) of each kernel of a ``torch.profiler`` run,
+    largest first.  The port's registered ranges (``obs.scope``) also
+    carry the device time of the kernels under them (kineto's
+    ``gpu_user_annotation``): they are not kernels, and are left out
+    so that no kernel counts twice."""
+    import torch
+
+    from theanompi_tpu_torch.obs import profile_scope_sets
+
+    return sorted(
+        ((e.key, e.self_device_time_total / 1e3)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0
+         and not profile_scope_sets([e.key])), key=lambda kv: -kv[1])
+
+
 def trace_steps(step, steps: int, top: int) -> tuple[dict, list]:
     """Run ``step(i)`` for ``steps`` steps twice: once timed on the wall
     clock alone (the profiler's own cost excluded), once under
@@ -1258,13 +1313,7 @@ def trace_steps(step, steps: int, top: int) -> tuple[dict, list]:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed_steps()
-    kernels = [
-        (e.key, e.self_device_time_total / 1e3 / steps)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    ]
-    kernels.sort(key=lambda kv: -kv[1])
+    kernels = [(k, ms / steps) for k, ms in device_kernels(prof)]
     dev_ms = sum(ms for _, ms in kernels)
     return {
         "steps": steps, "wall_ms_per_step": wall_ms,
@@ -1298,6 +1347,77 @@ def profile_decode(name, dec, prompts, steps: int = 8, **ekw) -> dict:
         out["k4_ms_per_step"] = k4
         out["k4_share_of_device"] = k4 / out["device_ms_per_step"]
     log(f"[{name}] decode profile {json.dumps(out)} on {card_line()}")
+    return out
+
+
+def decode_rate(eng, steps: int) -> float:
+    """Decode tokens/s of ``steps`` engine steps over full slots."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    return steps * eng.decoder.max_slots / (time.perf_counter() - t0)
+
+
+def profile_decode_scopes(dec, prompts, steps: int = 8, reps: int = 3
+                          ) -> dict:
+    """The paged decode's legs through the port's ``comm_report``: the
+    shares of the device time under ``serving_sample``, ``paged_attend``
+    and ``kv_write`` over ``steps`` traced decode steps (all three
+    asserted above 0); then decode tokens/s with the ranges as they
+    ship (one profiler check each) against none at all, in turns, ``reps``
+    times each: the ranges' cost while nobody profiles, the medians'
+    difference, held to ``RANGE_COST_RTOL`` or the no-range arm's own
+    spread, whichever is larger (the decode is host-bound)."""
+    import contextlib
+
+    from theanompi_tpu_torch.obs import profile_scope_sets
+    from theanompi_tpu_torch.serving import Engine
+    from theanompi_tpu_torch.serving import decoder as decoder_mod
+    from theanompi_tpu_torch.utils import trace_comm
+
+    eng = Engine(dec, prefix_caching=False)
+    for i, p in enumerate(prompts[:dec.max_slots]):
+        eng.submit(p[:1024], max_tokens=dec.max_seq, seed=i)
+    eng.step()
+    while eng.n_prefilling():
+        eng.step()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+        trace_comm.capture_trace(lambda: [eng.step() for _ in range(steps)],
+                                 td)
+        scopes = profile_scope_sets(trace_comm.range_labels(td))
+        rep = trace_comm.comm_report(td, scopes=scopes)
+    busy = rep["device_busy_s"]
+    shares = {leg: rep["scope_s"].get(leg, 0.0) / busy
+              for leg in ("sample", "attend", "kv_write")}
+    rates = {"ranges": [], "none": []}
+    shipped = decoder_mod.scope
+    try:
+        for _ in range(reps):
+            for arm in ("ranges", "none"):
+                decoder_mod.scope = (shipped if arm == "ranges" else
+                                     lambda label: contextlib.nullcontext())
+                rates[arm].append(decode_rate(eng, 2 * steps))
+    finally:
+        decoder_mod.scope = shipped
+    eng.abandon_all()
+    out = {"steps": steps, "device_ms_per_step": busy * 1e3 / steps,
+           "shares_of_device": shares,
+           "legs_ms_per_step": {leg: rep["scope_s"].get(leg, 0.0) * 1e3 / steps
+                                for leg in ("sample", "attend", "kv_write")},
+           "tokens_per_s": rates}
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    out["range_cost"] = med["none"] / med["ranges"] - 1
+    out["noise"] = (max(rates["none"]) - min(rates["none"])) / med["none"]
+    log(f"[paged] decode scopes {json.dumps(out)} on {card_line()}")
+    if not all(v > 0 for v in shares.values()):
+        raise AssertionError(f"paged: serving legs {shares}")
+    if out["range_cost"] > max(RANGE_COST_RTOL, out["noise"]):
+        raise AssertionError(f"paged: the ranges cost {out['range_cost']:.2%} "
+                             f"of decode tokens/s with no profiler")
     return out
 
 
@@ -2215,11 +2335,7 @@ def profile_fleet(decoders, prompts, steps: int = 4) -> dict:
         for r in reps:
             r.stop()
             r.engine.abandon_all()
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    kernels = device_kernels(prof)
     dev_ms = sum(ms for _, ms in kernels)
     by_kind = {}
     for k, ms in kernels:
@@ -3052,11 +3168,13 @@ def check_training_reference(dev) -> None:
 
 
 def run_training(dev, n_layers: int, counters: dict, name: str = "training",
-                 **extra) -> tuple[dict, object]:
+                 profile: bool = False, **extra) -> tuple[dict, object]:
     """BSP at Llama-3-8B widths through ``BSP().init`` (``ici32``, or
     the exchange ``extra`` config keys name): each step timed (the
     device synchronized around it), K1/K2/K3 launches counted over the
-    run (train steps and val).  Returns (numbers, the trained model)."""
+    run (train steps and val).  ``profile``: the run also takes
+    ``step_profile`` and ``trace`` (``check_step_profile``).  Returns
+    (numbers, the trained model)."""
     import torch
 
     from theanompi_tpu_torch.models import LLAMA3_8B, Llama
@@ -3067,6 +3185,10 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
                compute_dtype="bfloat16", optimizer="adam", lr=1e-4,
                remat=True, xent_chunks="auto", exch_strategy="ici32", seed=0)
     cfg.update(extra)
+    export = None
+    if profile:
+        export = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "trace.json"
+        cfg.update(step_profile=True, trace=True, trace_export=str(export))
     times = []
     train_iter = Llama.train_iter
 
@@ -3089,8 +3211,10 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
                    if hasattr(fn, "tc_launches")}
     model = out["model"]
     losses = out["recorder"].train_losses
-    med = statistics.median(times[1:])
+    # the profile's steps ran through the same timed train_iter
+    med = statistics.median(times[1:steps])
     tokens = batch * seq
+    counted = steps + (PROFILE_STEPS if profile else 0)
     res = {
         "config": {k: cfg[k] for k in ("dim", "n_layers", "n_heads",
                                        "n_kv_heads", "ffn_dim", "vocab",
@@ -3100,32 +3224,140 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
         "params_b": model.n_params() / 1e9,
         "xent_chunks": model._n_xent_chunks,
         "losses": losses, "val": out["final_val"],
-        "step_s": times, "median_step_s": med,
+        "step_s": times[:steps], "median_step_s": med,
         "tokens_per_s": tokens / med,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches, "tc_launches": tc_launches,
         "launches_per_step": {
-            "K1": (launches["K1"] - val_batches * n_layers) / steps,
-            "K2": launches["K2"] / steps, "K3": launches["K3"] / steps,
+            "K1": (launches["K1"] - val_batches * n_layers) / counted,
+            "K2": launches["K2"] / counted, "K3": launches["K3"] / counted,
         },
     }
     log(f"[{name}] {json.dumps(res)} on {card_line()}")
+    if profile:
+        res["step_profile"] = check_step_profile(name, out, steps, export)
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: last loss {losses[-1]} is not below "
                              f"the first {losses[0]}")
-    want = {"K1": steps * 2 * n_layers + val_batches * n_layers,
-            "K2": steps * n_layers, "K3": steps * n_layers}
+    want = {"K1": counted * 2 * n_layers + val_batches * n_layers,
+            "K2": counted * n_layers, "K3": counted * n_layers}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want} "
                              f"(2L/L/L per step with remat, L per val "
-                             f"batch)")
+                             f"batch, {counted} steps)")
     for k in tc_launches:
         check_tc_route(f"{name} {k}", counters[k])
     if res["xent_chunks"] != 24:
         raise AssertionError(f"{name}: {res['xent_chunks']} head chunks")
     return res, model
+
+
+def check_step_profile(name: str, out: dict, steps: int,
+                       export: Path) -> dict:
+    """The BSP summary's ``step_profile`` and ``trace_spans`` after a
+    run with both knobs on (``run_training(profile=True)``): the legs,
+    coverage, MFU against the H100's peak, the span count, the export
+    and ``metrics_txt``; any miss fails the phase.  Returns the profile
+    with its legs in ms."""
+    from theanompi_tpu_torch.utils.scaling_model import H100
+
+    prof = out["step_profile"]
+    if not isinstance(prof, dict) or "error" in prof:
+        raise AssertionError(f"{name}: step profile failed: {prof}")
+    legs = prof["legs"]
+    summary = {
+        "legs_ms": {k: v["time_s"] * 1e3 for k, v in legs.items()},
+        "step_ms": prof["step_s"] * 1e3,
+        "device_busy_ms": prof["device_busy_s"] * 1e3 / prof["n_steps"],
+        "coverage": prof["coverage"], "measured_mfu": prof["measured_mfu"],
+        "step_flops": prof["step_flops"],
+        "exposed_comm_ms": prof["exposed_comm_s"] * 1e3,
+        "gap_ms": {k: v * 1e3 for k, v in (prof["gap"] or {}).get(
+            "legs", {}).items()},
+        "ideal_step_ms": (prof["gap"] or {}).get("ideal_step_s", 0) * 1e3,
+        "trace_spans": out["trace_spans"],
+    }
+    log(f"[{name}] step profile {json.dumps(summary)} on {card_line()}")
+    missing = [k for k in ("compute", "optimizer", "host_gap") if k not in legs]
+    if missing or not any(k.startswith("exchange_b") for k in legs):
+        raise AssertionError(f"{name}: profile legs {list(legs)} lack "
+                             f"{missing or 'an exchange_b leg'}")
+    lo, hi = PROFILE_COVERAGE
+    if not lo <= prof["coverage"] <= hi:
+        raise AssertionError(f"{name}: coverage {prof['coverage']}")
+    mfu, flops = prof["measured_mfu"], prof["step_flops"]
+    want = (flops / (prof["step_s"] * prof["n_devices"] * H100.peak_bf16)
+            if flops else None)
+    if mfu is None or not 0 < mfu <= 1 or abs(mfu - want) > 1e-9 * want:
+        raise AssertionError(f"{name}: MFU {mfu}, want {want} from "
+                             f"{flops} FLOPs at {H100.peak_bf16:g}/s")
+    # each iteration is a root with its load and step spans; the root
+    # the last boundary opened closes at the run's end
+    if out["trace_spans"] != 3 * steps + 1:
+        raise AssertionError(f"{name}: {out['trace_spans']} spans, want "
+                             f"{3 * steps + 1}")
+    events = json.loads(export.read_text())["traceEvents"]
+    n_iter = sum(e.get("name") == "iteration" and e.get("ph") == "X"
+                 for e in events)
+    counters = {e["name"] for e in events if e.get("ph") == "C"}
+    if n_iter != steps + 1 or "step_phase_s:Llama" not in counters:
+        raise AssertionError(f"{name}: export holds {n_iter} iterations, "
+                             f"counters {sorted(counters)}")
+    txt = out["recorder"].metrics_txt(world_size=1)
+    for family in ("tm_train_iterations_total", "tm_train_seconds_total",
+                   "tm_train_steps_per_sec", "tm_train_loss"):
+        if family not in txt:
+            raise AssertionError(f"{name}: metrics_txt lacks {family}")
+    summary["legs"] = list(legs)
+    return summary
+
+
+def check_step_flops(name: str, model, res: dict) -> None:
+    """The count behind the profile's MFU: ``train_step_flops()`` once
+    more on the trained model, its K1-K3 part (``count_kernel_ops``)
+    against ``flash_ops`` of the step's launches (with remat: per layer
+    two K1, the forward and its replay, one K2 and one K3, causal at
+    [batch, heads, seq, head dim]), and the whole equal to the
+    profile's ``step_flops`` (one rank).  Launches made here come after
+    the run's counts were read."""
+    from theanompi_tpu_torch.ops.attention import count_kernel_ops
+
+    c = res["config"]
+    shape = (c["batch_size"], c["n_heads"], c["seq_len"],
+             c["dim"] // c["n_heads"])
+    with count_kernel_ops() as ops:
+        total = model.train_step_flops()
+    kernels = ops[0]
+    want = c["n_layers"] * (2 * flash_ops("fwd", shape)
+                            + flash_ops("dkv", shape) + flash_ops("dq", shape))
+    prof = res["step_profile"]["step_flops"]
+    res["step_flops"] = {"total": total, "kernels": kernels,
+                         "products": total - kernels, "kernels_want": want}
+    log(f"[{name}] step FLOPs {json.dumps(res['step_flops'])}: kernels "
+        f"against L*(2*K1 + K2 + K3) at {list(shape)} causal, the total "
+        f"against the profile's {prof}")
+    if abs(kernels - want) > 1e-12 * want:
+        raise AssertionError(f"{name}: K1-K3 operations {kernels}, want "
+                             f"{want}")
+    if abs(total - prof) > 1e-12 * prof:
+        raise AssertionError(f"{name}: train_step_flops {total} against "
+                             f"the profile's {prof}")
+
+
+def check_profile_busy(name: str, res: dict) -> None:
+    """The step profile's device busy time a step against
+    ``profile_training``'s device time a step, within
+    ``PROFILE_BUSY_RTOL``."""
+    got = res["step_profile"]["device_busy_ms"]
+    ref = res["profile"]["device_ms_per_step"]
+    rel = abs(got - ref) / ref
+    log(f"[{name}] step profile busy {got:.2f} ms a step against the "
+        f"2-step profile's {ref:.2f} ms: {rel:.3%} (rtol "
+        f"{PROFILE_BUSY_RTOL})")
+    if rel > PROFILE_BUSY_RTOL:
+        raise AssertionError(f"{name}: profile busy {got} ms against {ref}")
 
 
 def check_train_trajectory(name: str, res: dict) -> None:
@@ -4712,6 +4944,22 @@ def exchange_layout_arm(dev, records: dict) -> dict:
     return res
 
 
+def check_int8_legs(res: dict, n_buckets: int) -> None:
+    """The int8 arm's step profile: the codec's ``quantize`` leg above 0
+    and one ``exchange_b{i}`` leg a bucket of the flat spec."""
+    legs = res["step_profile"]["legs_ms"]
+    buckets = sorted(k for k in legs if k.startswith("exchange_b"))
+    log(f"[exchange int8] quantize {legs.get('quantize')} ms, "
+        f"{len(buckets)} exchange legs for {n_buckets} buckets, "
+        f"exchange {sum(legs[k] for k in buckets):.2f} ms, optimizer "
+        f"{legs.get('optimizer')} ms")
+    if not legs.get("quantize", 0) > 0:
+        raise AssertionError(f"exchange int8: no quantize leg in {legs}")
+    if buckets != sorted(f"exchange_b{i}" for i in range(n_buckets)):
+        raise AssertionError(f"exchange int8: legs {buckets} for "
+                             f"{n_buckets} buckets")
+
+
 def run_exchange_phase(dev, n_layers: int, records: dict) -> None:
     """The exchange phase (module docstring): zero1 and the int8 wire
     at one rank and Llama-3-8B widths through ``BSP().init``, the
@@ -4736,8 +4984,11 @@ def run_exchange_phase(dev, n_layers: int, records: dict) -> None:
         init_group(dev)
         try:
             res, model = run_training(dev, n_layers, counters,
-                                      name=f"exchange {arm}", **extra)
+                                      name=f"exchange {arm}",
+                                      profile=arm == "int8", **extra)
             res["profile"] = profile_training(model, name=f"exchange {arm}")
+            if arm == "int8":
+                check_int8_legs(res, model._fspec.n_buckets)
         finally:
             destroy_group()
         res["arm_s"] = time.perf_counter() - t0
@@ -5917,7 +6168,6 @@ def pt_hop_kernels(dev, records: dict, errs: dict) -> None:
     sm = shape[-1] ** -0.5
     o, lse = flash_fwd_cuda(q, k, v, False, sm)
     delta = (do.float() * o.float()).sum(-1)
-    b, h, t, d = shape
     f_ms = time_ms(lambda: flash_fwd_cuda(q, k, v, False, sm), flush=flush)
     k2_ms = time_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                False, sm), flush=flush)
@@ -5935,7 +6185,7 @@ def pt_hop_kernels(dev, records: dict, errs: dict) -> None:
     sdpa_b = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
                                                  retain_graph=True),
                      flush=flush)
-    f_bound = bound(4 * d * b * h * t * t,
+    f_bound = bound(flash_ops("fwd", q.shape, causal=False),
                     4 * q.numel() * q.element_size() + lse.numel() * 4,
                     "bfloat16")
     k2_bound = bwd_bound("dkv", q, "bfloat16", causal=False)
@@ -6415,6 +6665,7 @@ def main(argv=None) -> int:
         if hits < 1:
             raise AssertionError("paged: no prefix-cache hit")
         profile_decode("paged", dec, prompts)
+        profile_decode_scopes(dec, prompts)
         del dec, model
         log(f"peak device memory (serving) "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -6463,9 +6714,12 @@ def main(argv=None) -> int:
                     "K3": flash_bwd_dq_cuda}
         # the group outlives the run, so the profile can take more steps
         init_group(dev)
-        res, model = run_training(dev, ns.layers or 8, counters)
+        res, model = run_training(dev, ns.layers or 8, counters,
+                                  profile=True)
         check_train_trajectory("training", res)
         res["profile"] = profile_training(model)
+        check_profile_busy("training", res)
+        check_step_flops("training", model, res)
         TRAINED["ici32"] = res
         destroy_group()
         del model

@@ -378,8 +378,6 @@ def test_detached_launch_runs_one_controller(tmp_path):
      ValueError, "one process drives one device"),
     ("gosgd", dict(world_size=2, init_method="tcp://127.0.0.1:1"),
      ValueError, "one process drives one device"),
-    ("easgd", dict(config=dict(TINY, trace=True)), NotImplementedError,
-     "A13"),
     ("gosgd", dict(modelfile="theanompi_tpu_torch.models.llama",
                    modelclass="Llama"), TypeError, "ClassifierModel"),
 ])
@@ -395,6 +393,20 @@ def test_bad_runs_fail_before_the_model_is_built(monkeypatch, rule, kwargs,
     run = (gosgd_worker if rule == "gosgd" else easgd_worker).run
     with pytest.raises(error, match=match):
         run(**kw)
+
+
+@pytest.mark.parametrize("rule", ["easgd", "gosgd"])
+def test_async_rules_take_trace_and_ignore_it(monkeypatch, rule):
+    """As the JAX async workers do, which never read it: ``trace`` is
+    not refused, and the run goes on to build the model."""
+    def built(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(LSTM, "build_model", built)
+    run = (gosgd_worker if rule == "gosgd" else easgd_worker).run
+    with pytest.raises(AssertionError, match="the model was built"):
+        run(devices=["cpu"] * 2, config=dict(TINY, trace=True),
+            verbose=False, **PORT["lstm"])
 
 
 def test_unstable_alpha_may_proceed_with_a_warning():

@@ -467,11 +467,41 @@ def test_entry_points_train_on_the_cpu_and_want_the_card_by_default(
     (WResNet, dict(steps_per_call=4), NotImplementedError, "A7"),
     (WResNet, dict(device_data_cache=True, steps_per_call=4),
      NotImplementedError, "A7"),
-    (ResNet50, dict(trace=True), NotImplementedError, "A13"),
 ])
 def test_unported_knobs_raise(model, config, error, match):
     with pytest.raises(error, match=match):
         model(dict(TINY, **config), device="cpu")
+
+
+def test_classifiers_take_the_trace_and_profile_knobs(tmp_path):
+    """``trace`` and ``step_profile`` run through the classifiers' BSP as
+    through the Llama's: the JAX worker's leg names and span count on
+    the same config, coverage within JAX's bar, and the iteration spans
+    and the profile's counter track in the export."""
+    cfg = dict(CFG, trace=True, trace_sample=2, step_profile=True)
+    want = jax_worker.run(devices=[0], modelfile="theanompi_tpu.models."
+                          "wresnet", modelclass="WResNet", config=cfg,
+                          n_epochs=1, verbose=False)
+    export = tmp_path / "trace.json"
+    out = port_worker.run(devices=["cpu"], n_epochs=1, verbose=False,
+                          config=dict(cfg, trace_export=str(export)), **WRN)
+    prof = out["step_profile"]
+    assert "error" not in prof
+    # the port's mean of the loss and error over the ranks is a
+    # collective of its own outside the exchange's range, so it files
+    # under exchange_other; JAX's trace holds one collective, inside
+    # exchange_b0
+    jax_legs = list(want["step_profile"]["legs"])
+    assert "exchange_other" not in jax_legs
+    assert list(prof["legs"]) == jax_legs[:-1] + ["exchange_other",
+                                                  "host_gap"]
+    assert "optimizer" in prof["legs"] and "exchange_b0" in prof["legs"]
+    assert 0.95 <= prof["coverage"] <= 1.05
+    assert prof["step_flops"] > 0
+    assert out["trace_spans"] == want["trace_spans"]
+    names = {e.get("name") for e in json.loads(export.read_text())[
+        "traceEvents"]}
+    assert {"iteration", "load", "step", "step_phase_s:WResNet"} <= names
 
 
 def test_unported_exchanges_raise():

@@ -245,7 +245,10 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
      "exchange_bucket_mb"),
     (dict(config=dict(TRAIN, elastic=True, elastic_batch_policy="all")),
      ValueError, "elastic_batch_policy"),
-    (dict(config=dict(TRAIN, trace=True)), NotImplementedError, "A13"),
+    # trace and step_profile are no longer refused: the worker goes on
+    # to join its group
+    (dict(config=dict(TRAIN, trace=True, step_profile=True)),
+     AssertionError, "the group was joined"),
     # elastic at pp = 2 is no longer refused: the worker goes on to join
     # the group its resume runs over
     (dict(config=dict(TRAIN, pp=2, elastic=True), devices=["cpu"] * 2,

@@ -13,7 +13,8 @@ Port of ``theanompi_tpu/data/pipeline.py``.  Two pieces:
   consumer still reads them.  A pinned slot is refilled only after its
   previous copy has finished (its event), else a batch in flight would
   be overwritten.  The JAX stager's ``host_load`` HLO marker becomes a
-  ``torch.profiler.record_function("host_load")`` range around the
+  ``host_load`` profiler range (``obs.profiler.scope``: entered only
+  while a profiler is active on the staging thread) around the
   staging.  On the CPU staging is ``torch.from_numpy`` of the same rows:
   no pinning, no stream.
 - :class:`StreamingLoader` — a producer thread pulls ``fetch(i)`` and
@@ -45,6 +46,8 @@ from collections import deque
 
 import numpy as np
 import torch
+
+from theanompi_tpu_torch.obs.profiler import scope
 
 __all__ = [
     "HostStager", "StagedBatch", "StreamingLoader", "engine_feed",
@@ -190,7 +193,7 @@ class HostStager:
                 out.append(t if dt is None else t.to(dt))
             return StagedBatch(tuple(out))
         with self._lock, torch.cuda.device(self.device), \
-                torch.profiler.record_function("host_load"):
+                scope("host_load"):
             slot = self._next
             self._next = (slot + 1) % self.slots
             if self._events[slot] is not None:

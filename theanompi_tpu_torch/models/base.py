@@ -63,6 +63,7 @@ from theanompi_tpu_torch.data.pipeline import (
     StreamingLoader,
     resolve_loader_depth,
 )
+from theanompi_tpu_torch.obs.profiler import scope
 from theanompi_tpu_torch.ops import optimizers as opt_lib
 from theanompi_tpu_torch.ops.layers import (
     accuracy,
@@ -104,13 +105,6 @@ def resolve_dtype(name) -> torch.dtype:
     return DTYPES[str(name)]
 
 
-#: config knobs of the JAX package that the port does not run yet
-UNPORTED_KNOBS = {
-    "trace": "A13 (span tracing)",
-    "step_profile": "A13 (step-phase profiler)",
-}
-
-
 def resume_checkpoint(directory: str | Path, validate: bool = True,
                       device: torch.device | None = None) -> Path | None:
     """The checkpoint a resume loads, chosen once for every rank: rank 0
@@ -134,15 +128,9 @@ def resume_checkpoint(directory: str | Path, validate: bool = True,
 
 
 def refuse_unported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for a config
-    knob of a feature the port does not run yet, and ``ValueError`` for
-    a bad ``loader_pipeline``."""
-    for knob, item in UNPORTED_KNOBS.items():
-        if cfg.get(knob):
-            raise NotImplementedError(
-                f"config {knob}={cfg[knob]!r} is not ported yet "
-                f"(ROADMAP.md {item})"
-            )
+    """Raise ``NotImplementedError`` naming its ROADMAP item for
+    ``steps_per_call > 1``, which the port does not run yet, and
+    ``ValueError`` for a bad ``loader_pipeline``."""
     resolve_loader_depth(cfg)
     if int(cfg.get("steps_per_call", 0) or 0) > 1:
         raise NotImplementedError(
@@ -251,6 +239,32 @@ class TMModel:
     def restore_trees(self, trees: dict) -> None:
         """Adopt trees of numpy arrays read from a checkpoint."""
         raise NotImplementedError
+
+    # -- a step's FLOPs ------------------------------------------------------
+
+    def _step_loss(self, count: int):
+        """``(loss, leaves)`` of train batch ``count``'s forward, the
+        graph ``train_step_flops`` differentiates."""
+        raise NotImplementedError
+
+    def train_step_flops(self, count: int = 0) -> float:
+        """One training step's FLOPs on this rank (the counterpart of
+        the JAX ``train_step_cost_analysis``): the forward and backward
+        of batch ``count`` counted by ``torch.utils.flop_counter.
+        FlopCounterMode`` (remat's replayed forward included), plus the
+        operations of the K1-K3 launches, which the counter cannot see
+        inside the extension (on the CPU their plain versions' products
+        are counted as they run).  Neither the exchange nor the update
+        runs, and their elementwise work is not counted: the parameters
+        and the optimizer state are left as they were."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from theanompi_tpu_torch.ops.attention import count_kernel_ops
+
+        with count_kernel_ops() as ops, FlopCounterMode(display=False) as fc:
+            loss, leaves = self._step_loss(count)
+            torch.autograd.grad(loss, leaves)
+        return float(fc.get_total_flops()) + ops[0]
 
     # -- schedules ----------------------------------------------------------
 
@@ -427,8 +441,10 @@ class TMModel:
         else:
             self._strategy(grads, group=self._dp_group,
                            bucket_elems=self._bucket_elems)
-        self.opt_state = self.optimizer.update(leaves, grads, self.opt_state,
-                                               lr)
+        # the optimizer update is its own step-phase leg (obs/profiler)
+        with scope("opt_update"):
+            self.opt_state = self.optimizer.update(leaves, grads,
+                                                   self.opt_state, lr)
         self._resync_replicated(leaves)
 
     @torch.no_grad()
@@ -993,6 +1009,11 @@ class ClassifierModel(TMModel):
         stats = self._rank_mean(loss.detach(), err)
         recorder.end("calc")
         recorder.train_error(count, stats[0], stats[1])
+
+    def _step_loss(self, count: int):
+        x, y = self.put_batch(self.data.train_batch(count))
+        out = self.net(self.prep_input(x), train=True, gen=self._dropout_gen)
+        return self.compute_loss(out, y), self.params
 
     @torch.no_grad()
     def val_iter(self, count: int, recorder):

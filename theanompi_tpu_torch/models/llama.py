@@ -818,6 +818,12 @@ class Llama(TMModel):
         recorder.end("calc")
         recorder.train_error(count, stats[0], stats[1])
 
+    def _step_loss(self, count: int):
+        x, y = self._seq_columns(
+            *self._stager.stage(self.data.train_batch(count)).wait())
+        leaves = list(_leaves(self.params))
+        return self._loss(self.params, x, y)[0], leaves
+
     @torch.no_grad()
     def val_iter(self, count: int, recorder):
         x, y = self._seq_columns(

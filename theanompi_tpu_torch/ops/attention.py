@@ -34,6 +34,7 @@ length runs through them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -126,6 +127,44 @@ def mha_reference_fwd(q, k, v, *, causal=True, sm_scale=None):
     return o, torch.logsumexp(s, dim=-1)
 
 
+#: while :func:`count_kernel_ops` is entered, ``[operations]`` K1-K3
+#: did (the flop counter of ``train_step_flops`` cannot see inside the
+#: extension); None otherwise
+_KERNEL_OPS: list | None = None
+
+
+@contextlib.contextmanager
+def count_kernel_ops():
+    """Tally the operations of the K1-K3 launches made inside: yields a
+    one-element list whose entry grows by ``KERNEL_OPS_PER_PAIR[k]·D``
+    operations per live (q, k) pair of each launch.  An enclosing tally
+    also counts what a nested one did."""
+    global _KERNEL_OPS
+    prev, _KERNEL_OPS = _KERNEL_OPS, [0.0]
+    mine = _KERNEL_OPS
+    try:
+        yield mine
+    finally:
+        _KERNEL_OPS = prev
+        if prev is not None:
+            prev[0] += mine[0]
+
+
+#: operations per live (q, k) pair and unit of head dim: K1 does 2
+#: products (S, O), K2 4 (S, dP, dV, dK), K3 3 (S, dP, dQ)
+KERNEL_OPS_PER_PAIR = {"fwd": 4, "dkv": 8, "dq": 6}
+
+
+def _tally(kernel: str, q, tk: int, causal: bool) -> None:
+    if _KERNEL_OPS is None:
+        return
+    b, h, tq, d = q.shape
+    # causal: query i sees keys 0..i (positions from 0 on both sides)
+    pairs = (tq * tk if not causal else
+             min(tq, tk) * (min(tq, tk) + 1) // 2 + max(0, tq - tk) * tk)
+    _KERNEL_OPS[0] += float(KERNEL_OPS_PER_PAIR[kernel] * d * b * h * pairs)
+
+
 def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_fwd.cu`` on contiguous CUDA tensors
     q [B, H, Tq, D], k/v [B, H, Tk, D] (f32 or bf16).  Returns
@@ -175,6 +214,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     _build.check(lib, err, "flash_fwd")
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.tc_launches += int(q.dtype == TC_DTYPE)
+    _tally("fwd", q, tk, causal)
     return o, lse
 
 
@@ -299,6 +339,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
               (dk, dv), causal, sm_scale)
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.tc_launches += int(q.dtype == TC_DTYPE)
+    _tally("dkv", q, k.shape[2], causal)
     return dk, dv
 
 
@@ -319,6 +360,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
               (dq,), causal, sm_scale)
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.tc_launches += int(q.dtype == TC_DTYPE)
+    _tally("dq", q, k.shape[2], causal)
     return dq
 
 

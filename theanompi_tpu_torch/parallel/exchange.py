@@ -69,6 +69,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from theanompi_tpu_torch.obs.profiler import scope
+
 from theanompi_tpu_torch.parallel.collectives import permute_all
 
 MAX_EXCHANGE_BUCKETS = 64
@@ -229,18 +231,22 @@ def allreduce_mean(tensors: list[torch.Tensor], *, group=None,
         spec = flat_spec(tensors, n, bucket_elems=bucket_elems)
         if spec.n_buckets > 1:
             for i in range(spec.n_buckets):
-                buf = flat_pack_bucket(tensors, spec, i)
-                w = buf if wire_dtype is None else buf.to(wire_dtype)
-                _reduce(w, n, two_phase, group)
-                flat_unpack_range((w / n).to(spec.dtype), spec,
-                                  i * spec.bucket_len, tensors)
+                # one profiler range a bucket (obs/profiler.py's legs)
+                with scope(f"exchange_b{i}"):
+                    buf = flat_pack_bucket(tensors, spec, i)
+                    w = buf if wire_dtype is None else buf.to(wire_dtype)
+                    _reduce(w, n, two_phase, group)
+                    flat_unpack_range((w / n).to(spec.dtype), spec,
+                                      i * spec.bucket_len, tensors)
             return
-    for t in tensors:
-        w = t if wire_dtype is None else t.to(wire_dtype)
-        if not w.is_contiguous():
-            w = w.contiguous()
-        _reduce(w, n, two_phase, group)
-        t.copy_(w / n)
+    # the monolithic exchange is "bucket 0" to the profiler
+    with scope("exchange_b0"):
+        for t in tensors:
+            w = t if wire_dtype is None else t.to(wire_dtype)
+            if not w.is_contiguous():
+                w = w.contiguous()
+            _reduce(w, n, two_phase, group)
+            t.copy_(w / n)
 
 
 # -- the compressed wire with error feedback -----------------------------------
@@ -293,13 +299,16 @@ def _compressed_reduce_scatter(buf: torch.Tensor, n: int, compression: str,
     one of the ``[n]`` scales; each sender's chunk decoded by its scale
     and summed in f32 in rank order."""
     chunks = buf.to(torch.float32).reshape(n, -1)
-    wire, scales = quantize_chunks(chunks, compression)
-    decoded = dequantize_chunks(wire, scales).reshape(-1)
+    with scope("quantize_wire"):
+        wire, scales = quantize_chunks(chunks, compression)
+    with scope("dequantize_wire"):
+        decoded = dequantize_chunks(wire, scales).reshape(-1)
     wr = torch.empty_like(wire)
     sr = torch.empty_like(scales)
     dist.all_to_all_single(_bytes(wr), _bytes(wire), group=group)
     dist.all_to_all_single(sr, scales, group=group)
-    parts = dequantize_chunks(wr, sr)
+    with scope("dequantize_wire"):
+        parts = dequantize_chunks(wr, sr)
     shard = parts[0].clone()
     for j in range(1, n):
         shard += parts[j]
@@ -311,14 +320,17 @@ def _compressed_all_gather(shard: torch.Tensor, n: int, compression: str,
     """Quantized all-gather of ``shard`` ``[L]``: ``(full [n*L] f32,
     decoded [L] f32)``.  Every rank decodes ``full`` from the same
     gathered bytes and scales, so the replicas agree bit for bit."""
-    wire, scales = quantize_chunks(shard[None, :], compression)
-    decoded = dequantize_chunks(wire, scales)[0]
+    with scope("quantize_wire"):
+        wire, scales = quantize_chunks(shard[None, :], compression)
+    with scope("dequantize_wire"):
+        decoded = dequantize_chunks(wire, scales)[0]
     wg = torch.empty((n * wire.shape[1],), dtype=wire.dtype,
                      device=wire.device)
     sg = torch.empty((n,), dtype=torch.float32, device=wire.device)
     dist.all_gather_into_tensor(_bytes(wg), _bytes(wire[0]), group=group)
     dist.all_gather_into_tensor(sg, scales, group=group)
-    full = dequantize_chunks(wg.reshape(n, -1), sg).reshape(-1)
+    with scope("dequantize_wire"):
+        full = dequantize_chunks(wg.reshape(n, -1), sg).reshape(-1)
     return full, decoded
 
 
@@ -341,20 +353,22 @@ def compressed_allreduce_mean(tensors: list[torch.Tensor], *,
     bl = spec.bucket_len or spec.padded
     bs = spec.bucket_shard_len
     for i in range(spec.n_buckets):
-        g = flat_pack_bucket(tensors, spec, i).to(torch.float32)
-        if r1 is not None:
-            g = g + r1[i * bl:(i + 1) * bl]
-        shard_sum, dec1 = _compressed_reduce_scatter(g, n, compression,
-                                                     group)
-        if r1 is not None:
-            r1[i * bl:(i + 1) * bl] = g - dec1
-        m = shard_sum / n
-        if r2 is not None:
-            m = m + r2[i * bs:(i + 1) * bs]
-        full, dec2 = _compressed_all_gather(m, n, compression, group)
-        if r2 is not None:
-            r2[i * bs:(i + 1) * bs] = m - dec2
-        flat_unpack_range(full.to(spec.dtype), spec, i * bl, tensors)
+        # the bucket's range; the codec's nested ranges win inside it
+        with scope(f"exchange_b{i}"):
+            g = flat_pack_bucket(tensors, spec, i).to(torch.float32)
+            if r1 is not None:
+                g = g + r1[i * bl:(i + 1) * bl]
+            shard_sum, dec1 = _compressed_reduce_scatter(g, n, compression,
+                                                         group)
+            if r1 is not None:
+                r1[i * bl:(i + 1) * bl] = g - dec1
+            m = shard_sum / n
+            if r2 is not None:
+                m = m + r2[i * bs:(i + 1) * bs]
+            full, dec2 = _compressed_all_gather(m, n, compression, group)
+            if r2 is not None:
+                r2[i * bs:(i + 1) * bs] = m - dec2
+            flat_unpack_range(full.to(spec.dtype), spec, i * bl, tensors)
 
 
 # -- ZeRO-1: the optimizer on this rank's flat shard ---------------------------
@@ -429,31 +443,35 @@ def scatter_update_gather(params: list[torch.Tensor],
     dev = params[0].device
     parts = []
     for i in range(spec.n_buckets):
-        gb = flat_pack_bucket(grads, spec, i)
-        if compression is not None:
-            g32 = gb.to(torch.float32)
-            if r1 is not None:
-                g32 = g32 + r1[i * bl:(i + 1) * bl]
-            g_sum, dec = _compressed_reduce_scatter(g32, n, compression,
-                                                    group)
-            if r1 is not None:
-                r1[i * bl:(i + 1) * bl] = g32 - dec
-            g_shard = (g_sum / n).to(spec.dtype)
-        else:
-            w = gb if wire_dtype is None else gb.to(wire_dtype)
-            gs = torch.empty(bs, dtype=w.dtype, device=dev)
-            dist.reduce_scatter_tensor(gs, w, group=group)
-            g_shard = gs.to(spec.dtype) / n
-        del gb
-        lo = i * bl + me * bs
-        p_shard = flat_pack_range(params, spec, lo, lo + bs)
-        parts.append(opt_update(
-            p_shard, g_shard, opt_state if spec.n_buckets == 1
-            else _slice_shard_state(opt_state, spec, i)))
-        full = torch.empty(bl, dtype=spec.dtype, device=dev)
-        dist.all_gather_into_tensor(full, p_shard.to(spec.dtype),
-                                    group=group)
-        flat_unpack_range(full, spec, i * bl, params)
+        # the bucket's range; the update's (and the codec's) nested
+        # ranges win inside it
+        with scope(f"exchange_b{i}"):
+            gb = flat_pack_bucket(grads, spec, i)
+            if compression is not None:
+                g32 = gb.to(torch.float32)
+                if r1 is not None:
+                    g32 = g32 + r1[i * bl:(i + 1) * bl]
+                g_sum, dec = _compressed_reduce_scatter(g32, n, compression,
+                                                        group)
+                if r1 is not None:
+                    r1[i * bl:(i + 1) * bl] = g32 - dec
+                g_shard = (g_sum / n).to(spec.dtype)
+            else:
+                w = gb if wire_dtype is None else gb.to(wire_dtype)
+                gs = torch.empty(bs, dtype=w.dtype, device=dev)
+                dist.reduce_scatter_tensor(gs, w, group=group)
+                g_shard = gs.to(spec.dtype) / n
+            del gb
+            lo = i * bl + me * bs
+            p_shard = flat_pack_range(params, spec, lo, lo + bs)
+            with scope("opt_update"):
+                parts.append(opt_update(
+                    p_shard, g_shard, opt_state if spec.n_buckets == 1
+                    else _slice_shard_state(opt_state, spec, i)))
+            full = torch.empty(bl, dtype=spec.dtype, device=dev)
+            dist.all_gather_into_tensor(full, p_shard.to(spec.dtype),
+                                        group=group)
+            flat_unpack_range(full, spec, i * bl, params)
     if spec.n_buckets == 1:
         return parts[0]
     return _concat_shard_state(opt_state, parts, spec)

@@ -83,6 +83,7 @@ from theanompi_tpu_torch.models.llama import (
     rope,
     rope_at,
 )
+from theanompi_tpu_torch.obs.profiler import scope
 from theanompi_tpu_torch.ops.attention import NEG_INF, flash_attention
 from theanompi_tpu_torch.ops.norm import rms_norm_rows
 from theanompi_tpu_torch.parallel import tp as tp_lib
@@ -265,12 +266,14 @@ class LlamaDecoder:
         at position pos+1 draws its noise from (seed, pos+1), so
         batched and single-request decodes draw identical noise.
         ``seeds``/``pos`` are host sequences, ``temps`` [N] f32."""
-        if greedy:
-            return tp_lib.sharded_argmax(logits.float(), self.model.vocab,
-                                         self._group)
-        folded = [tp_lib.fold_seed(s, int(p) + 1) for s, p in zip(seeds, pos)]
-        return tp_lib.sharded_sample(logits, self.model.vocab, folded, temps,
-                                     self._group)
+        with scope("serving_sample"):
+            if greedy:
+                return tp_lib.sharded_argmax(logits.float(), self.model.vocab,
+                                             self._group)
+            folded = [tp_lib.fold_seed(s, int(p) + 1)
+                      for s, p in zip(seeds, pos)]
+            return tp_lib.sharded_sample(logits, self.model.vocab, folded,
+                                         temps, self._group)
 
     def _decode_body(self, tokens, lengths, seeds, host_lengths, temps,
                      greedy: bool):
@@ -458,8 +461,9 @@ class PagedLlamaDecoder(LlamaDecoder):
         """Scatter per-row K/V [N, Hkv, hd] into the pools at (block id,
         offset).  Only rows routed to the trash block may collide, and
         its content is never read unmasked."""
-        pool["k"][bids, :, offs] = k.to(self._cdtype)
-        pool["v"][bids, :, offs] = v.to(self._cdtype)
+        with scope("kv_write"):
+            pool["k"][bids, :, offs] = k.to(self._cdtype)
+            pool["v"][bids, :, offs] = v.to(self._cdtype)
 
     def _decode_body(self, tables, tokens, lengths, seeds, host_lengths,
                      temps, active, greedy: bool):
@@ -484,10 +488,11 @@ class PagedLlamaDecoder(LlamaDecoder):
             q = rope_at(q, pos)
             k = rope_at(k, pos)
             self._write_kv(pool, k, v, wbid, woff)
-            o = paged_attend(
-                q.reshape(s, 1, self._hkv, rep, hd), pool["k"], pool["v"],
-                tables, pos_q,
-            ).reshape(s, self._h * hd)
+            with scope("paged_attend"):
+                o = paged_attend(
+                    q.reshape(s, 1, self._hkv, rep, hd), pool["k"],
+                    pool["v"], tables, pos_q,
+                ).reshape(s, self._h * hd)
             x = x + self._row(_pad_rows(o, mr), p["wo"], mr).to(self._cdtype)
             x = self._mlp(p, x, mr)
         return self._sample(self._logits(x, mr)[:s], seeds, host_lengths,
@@ -537,10 +542,11 @@ class PagedLlamaDecoder(LlamaDecoder):
             q = rope_at(q, pos_f)
             k = rope_at(k, pos_f)
             self._write_kv(pool, k, v, wbid, woff)
-            o = paged_attend(
-                q.reshape(s, kq, self._hkv, rep, hd), pool["k"], pool["v"],
-                tables, pos_q,
-            ).reshape(n, self._h * hd)
+            with scope("paged_attend"):
+                o = paged_attend(
+                    q.reshape(s, kq, self._hkv, rep, hd), pool["k"],
+                    pool["v"], tables, pos_q,
+                ).reshape(n, self._h * hd)
             x = x + self._row(_pad_rows(o, rows), p["wo"], mr).to(
                 self._cdtype)
             x = self._mlp(p, x, mr)

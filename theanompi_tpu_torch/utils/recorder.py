@@ -7,8 +7,11 @@
   or epoch end (the read is the fence), val records, epoch times, and
   ``state_dict``/``load_state_dict`` in the JAX layout, so a checkpoint's
   recorder state crosses between the packages; ``record_restart`` and
-  ``mttr_s``, the restart accounting of a supervised run.  Left out:
-  span tracing and ``metrics_txt`` (A13).
+  ``mttr_s``, the restart accounting of a supervised run; span
+  tracing (``attach_tracer``: each sampled iteration one trace whose
+  load/step/exchange spans are the ``start()``/``end(mode)`` segments),
+  ``metrics_txt`` (the ``tm_train_*`` families over ``obs/metrics.py``)
+  and ``start_profiler``/``stop_profiler`` on ``torch.profiler``.
 - ``Reservoir``/``ServingRecorder`` — copies of the serving section
   (numpy only): per-request TTFT/TPOT, tokens/s, slot occupancy, queue
   depth, KV-block gauges, the speculative accept rate, the tokenize
@@ -22,6 +25,7 @@
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from collections import Counter, deque
@@ -30,6 +34,11 @@ import numpy as np
 
 
 MODES = ("calc", "comm", "wait")
+
+#: recorder segment -> span name in the training trace (the phases
+#: Theano-MPI's per-iteration breakdown named: load the batch, run
+#: the step, exchange the gradients)
+_MODE_SPAN = {"calc": "step", "comm": "exchange", "wait": "load"}
 
 
 class Recorder:
@@ -57,9 +66,50 @@ class Recorder:
         self._last_print = 0
         self.window_marks: list[tuple[int, float]] = []
         self.restart_events: list[dict] = []
+        # span tracing (obs/tracer.py): attach_tracer() turns the
+        # per-iteration segments into load/step/exchange spans
+        self._tracer = None
+        self._iter_ctx: dict | None = None
+        self._iter_root: dict | None = None
+        self._t0_trace: float | None = None
+        self._profiler = None
+
+    # -- span tracing (obs/tracer.py) -------------------------------------
+
+    def attach_tracer(self, tracer) -> None:
+        """Record each sampled ITERATION as one trace (root span
+        ``iteration``) whose children are the load/step/exchange phase
+        spans the ``start()``/``end(mode)`` segments measure.  The
+        tracer's own ``sample`` knob decides which iterations trace;
+        call :meth:`trace_boundary` at the iteration boundary."""
+        self._tracer = tracer
+
+    def trace_boundary(self, iteration: int | None = None) -> None:
+        """Close the current iteration's trace and open the next (the
+        BSP worker calls this where it stamps its heartbeat)."""
+        if self._tracer is None:
+            return
+        if self._iter_root is not None:
+            self._tracer.end_span(self._iter_root)
+        self._iter_ctx = self._tracer.new_context()
+        self._iter_root = self._tracer.start_span(
+            self._iter_ctx, "iteration",
+            iteration=int(iteration if iteration is not None
+                          else self.n_iter),
+        )
+
+    def finish_trace(self) -> None:
+        """Close the trailing open iteration span (end of run)."""
+        if self._tracer is not None and self._iter_root is not None:
+            self._tracer.end_span(self._iter_root)
+            self._iter_root = self._iter_ctx = None
+
+    # -- wall-clock segments ----------------------------------------------
 
     def start(self) -> None:
         self._t0 = time.perf_counter()
+        if self._tracer is not None and self._iter_root is not None:
+            self._t0_trace = self._tracer.clock()
 
     def end(self, mode: str) -> None:
         assert mode in MODES, mode
@@ -67,6 +117,14 @@ class Recorder:
             return
         self._add(mode, time.perf_counter() - self._t0)
         self._t0 = None
+        if (self._tracer is not None and self._iter_root is not None
+                and self._t0_trace is not None):
+            self._tracer.record_span(
+                self._iter_ctx, _MODE_SPAN[mode], self._t0_trace,
+                self._tracer.clock(),
+                parent_id=self._iter_root["span_id"],
+            )
+            self._t0_trace = None
 
     def _add(self, mode: str, dt: float) -> None:
         for seg in (self.segments, self.epoch_segments,
@@ -197,6 +255,68 @@ class Recorder:
         rs = [e["recovery_s"] for e in self.restart_events
               if e.get("recovery_s") is not None]
         return sum(rs) / len(rs) if rs else None
+
+    def metrics_txt(self, prefix: str = "tm_train",
+                    world_size: int | None = None) -> str:
+        """Prometheus-style text for the training loop: step rate over
+        cumulative calc time, per-mode wall totals, restart/MTTR/reshard
+        accounting from the restart events, latest loss.
+        ``world_size`` — the current DP width (the worker passes it;
+        falls back to the newest restart event's stamp)."""
+        from theanompi_tpu_torch.obs.metrics import render_metrics
+
+        self.flush()
+        calc = self.total_segments["calc"]
+        if world_size is None:
+            stamps = [e.get("world_size") for e in self.restart_events
+                      if e.get("world_size") is not None]
+            world_size = stamps[-1] if stamps else None
+        resharded = sum(1 for e in self.restart_events if e.get("resharded"))
+        p = prefix
+        return render_metrics([
+            (f"{p}_iterations_total", "counter", [(None, self.n_iter)]),
+            (f"{p}_epochs_total", "counter",
+             [(None, len(self.epoch_times))]),
+            (f"{p}_seconds_total", "counter", [
+                ({"mode": m}, self.total_segments[m]) for m in MODES
+            ]),
+            (f"{p}_steps_per_sec", "gauge",
+             [(None, self.n_iter / calc if calc else None)]),
+            (f"{p}_loss", "gauge",
+             [(None, self._train_losses[-1]
+               if self._train_losses else None)]),
+            (f"{p}_restarts_total", "counter",
+             [(None, len(self.restart_events))]),
+            (f"{p}_resharded_total", "counter", [(None, resharded)]),
+            (f"{p}_mttr_seconds", "gauge", [(None, self.mttr_s)]),
+            (f"{p}_world_size", "gauge", [(None, world_size)]),
+        ])
+
+    # -- profiler handoff -------------------------------------------------
+
+    def start_profiler(self, logdir: str) -> None:
+        """Start a ``torch.profiler`` trace (CPU, and the card when one
+        is available) that :meth:`stop_profiler` writes under
+        ``logdir`` as a Chrome trace (``utils/trace_comm.comm_report``
+        reads it)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler_dir = logdir
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+
+    def stop_profiler(self) -> None:
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        prof.stop()
+        os.makedirs(self._profiler_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self._profiler_dir, f"trace_{time.time_ns()}.pt.trace.json"))
 
     def state_dict(self) -> dict:
         self.flush()

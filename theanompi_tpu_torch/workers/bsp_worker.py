@@ -42,6 +42,17 @@ data replicas' (``n_replicas = world // (tp·sp·pp)``, the JAX ``expert
 × data``).  ``TM_DEBUG_SYNC`` checks each leaf over the ranks that must
 hold it equal (``model.replica_groups()``).
 
+Observability, as the JAX worker wires it: ``config["trace"]`` records
+each sampled iteration (``trace_sample``, default 1) as one trace of
+load/step spans (``Recorder.attach_tracer``) and ``trace_export`` writes
+them, with the step profile's spans and counter tracks, as one Perfetto
+JSON (rank 0); ``config["step_profile"]`` runs one profiled window after
+training, on the final parameters, against a throwaway ``Recorder``
+(``obs.step_profile``: legs, coverage, MFU, the gap attribution).  The
+summary carries ``trace_spans`` and ``step_profile`` (a failed profile
+is ``{"error": ...}``, not a failed run).  Each rank profiles its own
+device.
+
 A run in this process uses one device; ``launcher.launch(mode=
 "subprocess")`` starts one process per device and hands each its rank.
 Config knobs of features not ported yet raise ``NotImplementedError``
@@ -240,6 +251,49 @@ def _preempt_agreed(flag, world: int, supervised: bool) -> bool:
     return stop
 
 
+def _profile_step_phase(model, world: int, verbose: bool) -> dict:
+    """One profiled training window through ``obs.step_profile``: the
+    legs from the trace's ranges, FLOPs from ``train_step_flops`` (this
+    rank's, times the world: each rank runs a like step), the peak from
+    the card's name (None on the CPU: the time decomposition without an
+    absolute MFU)."""
+    from theanompi_tpu_torch.obs import format_profile, step_profile
+    from theanompi_tpu_torch.utils.scaling_model import peak_flops_per_chip
+
+    peak = peak_flops_per_chip([model.device])
+    nb = model.data.n_batch_train
+    prof_rec = Recorder(verbose=False)
+    # the window walks SEQUENTIAL in-epoch indices: a streaming feed only
+    # overlaps on a sequential stream
+    cursor = {"i": 0}
+
+    def window():
+        i = cursor["i"]
+        model.train_iter(i, prof_rec)
+        cursor["i"] = 0 if i + 2 > nb else i + 1
+        prof_rec.flush()
+
+    window()    # warm: the profiled step is not the first of its kind
+    flops = None
+    try:
+        flops = model.train_step_flops() * world
+    except Exception as e:   # the time decomposition stands without MFU
+        if verbose:
+            print(f"step_profile: no FLOP count ({type(e).__name__}: {e})",
+                  flush=True)
+    prof = step_profile(
+        window, n_steps=1, n_devices=world, name=type(model).__name__,
+        peak_flops=peak, step_flops=flops or None,
+    )
+    if verbose:
+        print(format_profile(prof), flush=True)
+    return {
+        "profile": prof.as_dict(),
+        "profile_spans": prof.spans(process="bsp_worker"),
+        "profile_counters": prof.counter_tracks(process="bsp_worker"),
+    }
+
+
 def run(
     devices: Sequence[Any] | None = None,
     modelfile: str = "",
@@ -326,6 +380,16 @@ def run(
         model.compile_iter_fns(exch_strategy=strat.name)
         recorder = Recorder(rank=rank, size=n_replicas, print_freq=print_freq,
                             verbose=verbose)
+        # span tracing (config knob "trace"): each sampled iteration is
+        # one trace of load/step spans, dumped to config["trace_export"]
+        tracer = None
+        if cfg.get("trace"):
+            from theanompi_tpu_torch.obs import Tracer
+
+            tracer = Tracer(process="bsp_worker",
+                            sample=int(cfg.get("trace_sample", 1)))
+            recorder.attach_tracer(tracer)
+            recorder.trace_boundary()   # labels default to n_iter
         # graceful preemption: SIGTERM → checkpoint at the next
         # iteration boundary (meta stamps next_iter) and exit 0
         start_iter, resumed_from = _sup.begin_resilient_run(
@@ -375,6 +439,7 @@ def run(
                     epoch, i, i, checkpoint_dir=checkpoint_dir, world=world,
                     rank=rank, barrier=barrier)
                 i += 1
+                recorder.trace_boundary()
                 if rank == 0:
                     _sup.heartbeat(recorder.n_iter, epoch, i - 1,
                                    resumed_from=resumed_from,
@@ -419,6 +484,40 @@ def run(
                            i if preempted else None,
                            status="preempted" if preempted else "completed",
                            world_size=world, resharded=bool(resharded))
+        # step-phase profiler (config knob "step_profile"): one
+        # profiled window after training, on the final parameters,
+        # against a throwaway recorder.  A failure is reported, not
+        # fatal: it must not cost a completed run its summary.
+        step_prof = None
+        if cfg.get("step_profile") and not preempted:
+            try:
+                step_prof = _profile_step_phase(model, world,
+                                                verbose and rank == 0)
+            except Exception as e:
+                step_prof = {"error": f"{type(e).__name__}: {e}"}
+                if verbose:
+                    print(f"step_profile failed: {e}", flush=True)
+        trace_spans = None
+        if tracer is not None:
+            recorder.finish_trace()
+            trace_spans = tracer.stats()["n_spans"]
+            if cfg.get("trace_export") and rank == 0:
+                from theanompi_tpu_torch.obs import write_chrome_trace
+
+                # the profile rides the same export as the iteration
+                # spans: phase tree and counter tracks in one view
+                spans, counters = tracer.spans(), None
+                if isinstance(step_prof, dict) and "profile" in step_prof:
+                    spans = spans + step_prof["profile_spans"]
+                    counters = step_prof["profile_counters"]
+                write_chrome_trace(spans, cfg["trace_export"],
+                                   counters=counters)
+                if verbose:
+                    print(f"trace: {trace_spans} spans -> "
+                          f"{cfg['trace_export']}", flush=True)
+        if isinstance(step_prof, dict):
+            # the span/counter payloads only ride the export file
+            step_prof = step_prof.get("profile", step_prof)
         # the stream cursor (staged/starved counts), read before the
         # producer is parked below
         feed = getattr(model, "_feed", None)
@@ -447,6 +546,8 @@ def run(
                 if elastic else None),
             "elastic_resume": elastic_note,
             "resharded": bool(resharded),
+            "trace_spans": trace_spans,
+            "step_profile": step_prof,
             "rank": rank,
             "device": str(device),
             "loader": loader,
