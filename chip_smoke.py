@@ -131,7 +131,17 @@ phase's seconds are printed at the end):
    spans, the export's iteration spans and counter tracks and the
    ``tm_train_*`` families of ``metrics_txt``; then a 2-step profile,
    whose device time a step the profile's busy time must be within
-   ``PROFILE_BUSY_RTOL`` of;
+   ``PROFILE_BUSY_RTOL`` of, and one more staged step's copies and host
+   syncs (``host_traffic``: host-to-device copies counted at dispatch,
+   asserted equal to the stager's bytes, and the CUDA runtime's memcpy
+   and synchronizing calls); then the same cell twice more
+   (``run_training_arms``): the train set on the card with
+   ``steps_per_call`` = ``TRAIN_CHUNK`` (8 steps, two ``train_chunk``
+   calls; losses asserted bitwise the staged run's, K1/K2/K3 2L/L/L a
+   step, no byte to the card and no host sync in one more chunk) and
+   ``remat_save=("attn_out",)`` (losses asserted bitwise full remat's,
+   K1 asserted L a step, not 2L); each arm's step, tokens/s and peak
+   memory beside the staged run's;
 7b. exchange — the exchange extensions.  The training phase's run
    again through ``BSP().init`` with ``exch_strategy="zero1"`` (losses
    asserted bitwise the ``ici32`` run's, or held to
@@ -227,8 +237,11 @@ phase's seconds are printed at the end):
    ``BSP().init`` on the card with ResNet-50 at its published config
    (crop 224, 1000 classes, batch 128, bf16 compute, fp32 master
    weights, momentum 0.9, weight decay 1e-4, lr 0.1, ``ici32``) under
-   each of the three feeds (the pinned stager inside the step,
-   ``loader_pipeline=2``, ``device_data_cache=True``): 8 steps, each
+   each of the four feeds (the pinned stager inside the step,
+   ``loader_pipeline=2``, ``device_data_cache=True``, and the same with
+   ``steps_per_call=4``: two ``train_chunk`` calls, its losses asserted
+   bitwise the per-step cache's, no byte to the card and no host sync
+   in one more chunk): 8 steps, each
    timed with its Recorder wait and calc segments, and 2 val batches,
    with the median step, images/s, peak memory, the feed's counts and
    a 2-step profile (busy share, memcpy time); the losses held to
@@ -330,6 +343,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -541,7 +555,10 @@ def log(*a):
     print(*a, flush=True)
 
 
+@functools.cache
 def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them,
+    read once a run: neither changes while it runs."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1273,22 +1290,46 @@ def run_serving(name, dec, prompts, alone_idx, counter) -> dict:
             "stats": stats, "wall_s": wall}
 
 
+#: whether this run has held ``device_kernels``' raw reading against
+#: ``key_averages`` yet
+_KERNELS_CHECKED: list = []
+
+
 def device_kernels(prof) -> list:
     """(name, device ms) of each kernel of a ``torch.profiler`` run,
-    largest first.  The port's registered ranges (``obs.scope``) also
-    carry the device time of the kernels under them (kineto's
-    ``gpu_user_annotation``): they are not kernels, and are left out
-    so that no kernel counts twice."""
+    largest first, summed from the profiler's raw kineto events
+    (``key_averages`` first builds a Python event tree: seconds a
+    profile).  The port's registered ranges (``obs.scope``) also carry
+    the device time of the kernels under them (kineto's
+    ``gpu_user_annotation``): they are not kernels, and are left out so
+    that no kernel counts twice.  The first call of a run also reads
+    ``key_averages`` and fails unless the two agree."""
     import torch
 
     from theanompi_tpu_torch.obs import profile_scope_sets
 
-    return sorted(
-        ((e.key, e.self_device_time_total / 1e3)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0
-         and not profile_scope_sets([e.key])), key=lambda kv: -kv[1])
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            ns[e.name()] = ns.get(e.name(), 0) + e.duration_ns()
+    out = sorted(((k, v / 1e6) for k, v in ns.items()
+                  if v > 0 and not profile_scope_sets([k])),
+                 key=lambda kv: -kv[1])
+    if not _KERNELS_CHECKED:
+        ref = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0
+               and not profile_scope_sets([e.key])}
+        got = dict(out)
+        bad = [k for k in set(ref) | set(got)
+               if abs(got.get(k, 0.0) - ref.get(k, 0.0))
+               > 1e-3 * abs(ref.get(k, 0.0)) + 1e-2]
+        if bad:
+            raise AssertionError(f"device_kernels: the raw events and "
+                                 f"key_averages disagree at {bad[:5]}")
+        _KERNELS_CHECKED.append(len(ref))
+    return out
 
 
 def trace_steps(step, steps: int, top: int) -> tuple[dict, list]:
@@ -3170,9 +3211,12 @@ def check_training_reference(dev) -> None:
 def run_training(dev, n_layers: int, counters: dict, name: str = "training",
                  profile: bool = False, **extra) -> tuple[dict, object]:
     """BSP at Llama-3-8B widths through ``BSP().init`` (``ici32``, or
-    the exchange ``extra`` config keys name): each step timed (the
-    device synchronized around it), K1/K2/K3 launches counted over the
-    run (train steps and val).  ``profile``: the run also takes
+    what the ``extra`` config keys name: an exchange, the device-resident
+    chunk, ``remat_save``): each step timed (the device synchronized
+    around it; a ``train_chunk`` call around the chunk, each of its steps
+    charged the chunk's time over K), K1/K2/K3 launches counted over the
+    run (train steps and val; K1 2L a step under full remat, L with
+    ``remat_save=("attn_out",)``).  ``profile``: the run also takes
     ``step_profile`` and ``trace`` (``check_step_profile``).  Returns
     (numbers, the trained model)."""
     import torch
@@ -3189,23 +3233,38 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
     if profile:
         export = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "trace.json"
         cfg.update(step_profile=True, trace=True, trace_export=str(export))
-    times = []
-    train_iter = Llama.train_iter
+    times, inside = [], []
+    train_iter, train_chunk = Llama.train_iter, Llama.train_chunk
 
-    def timed(self, count, recorder):
+    def timed(self, count, recorder, k=None):
+        # one clock around the outermost call (a cached train_iter is a
+        # chunk of one)
+        if inside:
+            return (train_iter(self, count, recorder) if k is None
+                    else train_chunk(self, count, k, recorder))
+        inside.append(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train_iter(self, count, recorder)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        try:
+            if k is None:
+                train_iter(self, count, recorder)
+            else:
+                train_chunk(self, count, k, recorder)
+            torch.cuda.synchronize()
+        finally:
+            inside.clear()
+        times.extend([(time.perf_counter() - t0) / (k or 1)] * (k or 1))
+
+    def timed_chunk(self, count, k, recorder):
+        timed(self, count, recorder, k)
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*counters.values())
-    Llama.train_iter = timed
+    Llama.train_iter, Llama.train_chunk = timed, timed_chunk
     try:
         out = bsp([dev.index], cfg, print_freq=1)
     finally:
-        Llama.train_iter = train_iter
+        Llama.train_iter, Llama.train_chunk = train_iter, train_chunk
     launches = {k: fn.launches for k, fn in counters.items()}
     tc_launches = {k: fn.tc_launches for k, fn in counters.items()
                    if hasattr(fn, "tc_launches")}
@@ -3215,6 +3274,10 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
     med = statistics.median(times[1:steps])
     tokens = batch * seq
     counted = steps + (PROFILE_STEPS if profile else 0)
+    # the forward once a step with the attention output kept, twice
+    # under full remat
+    k1_step = n_layers * (1 if "attn_out" in cfg.get("remat_save", ())
+                          else 2)
     res = {
         "config": {k: cfg[k] for k in ("dim", "n_layers", "n_heads",
                                        "n_kv_heads", "ffn_dim", "vocab",
@@ -3232,6 +3295,7 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
             "K1": (launches["K1"] - val_batches * n_layers) / counted,
             "K2": launches["K2"] / counted, "K3": launches["K3"] / counted,
         },
+        "chunk": model._chunk_k,
     }
     log(f"[{name}] {json.dumps(res)} on {card_line()}")
     if profile:
@@ -3241,17 +3305,233 @@ def run_training(dev, n_layers: int, counters: dict, name: str = "training",
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: last loss {losses[-1]} is not below "
                              f"the first {losses[0]}")
-    want = {"K1": counted * 2 * n_layers + val_batches * n_layers,
+    want = {"K1": counted * k1_step + val_batches * n_layers,
             "K2": counted * n_layers, "K3": counted * n_layers}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want} "
-                             f"(2L/L/L per step with remat, L per val "
+                             f"({k1_step}/L/L per step, L per val "
                              f"batch, {counted} steps)")
     for k in tc_launches:
         check_tc_route(f"{name} {k}", counters[k])
     if res["xent_chunks"] != 24:
         raise AssertionError(f"{name}: {res['xent_chunks']} head chunks")
     return res, model
+
+
+def host_to_device_mode():
+    """A dispatch mode that counts the operations which read a host
+    tensor into a device one (a copy from the host, or a host operand
+    of more than one element to a device op) and the bytes they read:
+    every such copy the calling thread (and the autograd engine's, which
+    inherits the mode) makes through torch, whoever makes it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    aten = torch.ops.aten
+    copies = {aten.copy_, aten._to_copy, aten.copy, aten._copy_from,
+              aten._copy_from_and_resize}
+
+    class HostToDevice(TorchDispatchMode):
+        ops = 0
+        bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.device.type != "cpu"
+                   for t in tree_flatten(out)[0]):
+                copy = func.overloadpacket in copies
+                src = [t for t in tree_flatten((args, kwargs))[0]
+                       if isinstance(t, torch.Tensor)
+                       and t.device.type == "cpu" and (copy or t.dim() > 0)]
+                if src:
+                    self.ops += 1
+                    self.bytes += sum(t.numel() * t.element_size()
+                                      for t in src)
+            return out
+
+    return HostToDevice()
+
+
+def host_traffic(fn) -> dict:
+    """``fn()`` under ``torch.profiler`` (host and device activities) and
+    ``host_to_device_mode``: its host-to-device copies counted on the
+    host at dispatch (``h2d_ops``, ``h2d_op_bytes``), the batch bytes
+    the ``HostStager`` sent to the card (``staged_bytes``), the CUDA
+    runtime's memcpy calls and its synchronizing calls by name made
+    while ``fn`` ran (host events, always recorded; the closing
+    ``cudaDeviceSynchronize`` and the profiler's own lie outside), and
+    the device trace's host-to-device and device-to-host memcpys
+    (count, bytes: kept in some runs and not in others)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from theanompi_tpu_torch.data.pipeline import HostStager
+
+    staged = [0]
+    stage = HostStager.stage
+
+    def counted(self, batch):
+        out = stage(self, batch)
+        staged[0] += sum(t.numel() * t.element_size() for t in out.tensors)
+        return out
+
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    torch.cuda.synchronize()
+    HostStager.stage = counted
+    mode = host_to_device_mode()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("host_traffic.fn"), mode:
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        HostStager.stage = stage
+    prof.export_chrome_trace(str(tmp / "traffic.json"))
+    events = json.loads((tmp / "traffic.json").read_text())["traceEvents"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    span = [e for e in events if e.get("name") == "host_traffic.fn"
+            and e.get("cat") == "user_annotation"]
+    if len(span) != 1:
+        raise AssertionError(f"host_traffic: {len(span)} spans of fn in "
+                             f"the trace")
+    lo = float(span[0]["ts"])
+    hi = lo + float(span[0]["dur"])
+    out = {"staged_bytes": staged[0], "h2d_ops": mode.ops,
+           "h2d_op_bytes": mode.bytes, "memcpy_calls": 0,
+           "h2d_copies": 0, "h2d_bytes": 0, "d2h_copies": 0,
+           "d2h_bytes": 0, "syncs": {}}
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "gpu_memcpy":
+            for way, key in (("HtoD", "h2d"), ("DtoH", "d2h")):
+                if way in name:
+                    out[f"{key}_copies"] += 1
+                    out[f"{key}_bytes"] += int(e.get("args", {}).get(
+                        "bytes", 0))
+        elif cat in ("cuda_runtime", "cuda_driver") and \
+                lo <= float(e.get("ts", -1)) <= hi:
+            if "Memcpy" in name or "memcpy" in name:
+                out["memcpy_calls"] += 1
+            if "Synchronize" in name or name in ("cudaMemcpy",
+                                                 "cuMemcpy"):
+                out["syncs"][name] = out["syncs"].get(name, 0) + 1
+    out["n_syncs"] = sum(out["syncs"].values())
+    return out
+
+
+def check_no_host_traffic(name: str, traffic: dict) -> None:
+    """A device-resident chunk sends no byte to the card (at the stager,
+    at dispatch and in the device trace) and makes no host sync."""
+    if (traffic["staged_bytes"] or traffic["h2d_ops"]
+            or traffic["h2d_bytes"] or traffic["n_syncs"]):
+        raise AssertionError(f"{name}: a chunk sent bytes to the card or "
+                             f"synced the host: {traffic}")
+
+
+#: the training cell's device-resident arm: ``steps_per_call`` 4, its 8
+#: steps two chunks
+TRAIN_CHUNK = 4
+
+
+def chunk_ab(model, k: int) -> dict:
+    """A device-resident model's steps taken one a call against ``k`` a
+    call, in turns (one, chunk, chunk, one: ``k`` steps each), each call
+    closed by its recorder's read of the losses, as the worker's is at
+    ``print_freq=1``: ms a step of each turn, and the host syncs and
+    host-to-device bytes of one call of each (``host_traffic``)."""
+    import torch
+
+    from theanompi_tpu_torch.utils import Recorder
+
+    rec = Recorder(verbose=False)
+
+    def one_at_a_time():
+        for j in range(k):
+            model.train_iter(j, rec)
+            rec.flush()
+
+    def chunk():
+        model.train_chunk(0, k, rec)
+        rec.flush()
+
+    def ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    turns = [("one", one_at_a_time), ("chunk", chunk), ("chunk", chunk),
+             ("one", one_at_a_time)]
+    out = {"one_ms_per_step": [], "chunk_ms_per_step": []}
+    for name, fn in turns:
+        out[f"{name}_ms_per_step"].append(ms(fn))
+    out["one_traffic"] = host_traffic(lambda: model.train_iter(0, rec))
+    out["chunk_traffic"] = host_traffic(lambda: model.train_chunk(0, k, rec))
+    return out
+
+
+def run_training_arms(dev, n_layers: int, counters: dict,
+                      records: dict) -> None:
+    """The training cell twice more (module docstring, phase 7): the
+    train set on the card with ``steps_per_call`` = ``TRAIN_CHUNK`` (two
+    chunks; the losses bitwise the staged ``ici32`` run's; one step a
+    call against a chunk in turns, and the host-to-device bytes and
+    host syncs of one more chunk, asserted none, beside one staged
+    step's: ``chunk_ab``) and ``remat_save=("attn_out",)`` (K1 L a step,
+    which ``run_training`` asserts; the losses bitwise full remat's;
+    peak memory and step beside full remat's)."""
+    import torch
+
+    ref = TRAINED.get("ici32")
+    arms = {}
+    for arm, extra in (("chunk", dict(device_data_cache=True,
+                                      steps_per_call=TRAIN_CHUNK)),
+                       ("remat_save", dict(remat_save=("attn_out",)))):
+        res, model = run_training(dev, n_layers, counters,
+                                  name=f"training {arm}", **extra)
+        if arm == "chunk":
+            if res["chunk"] != TRAIN_CHUNK:
+                raise AssertionError(f"training chunk: the model runs "
+                                     f"{res['chunk']} steps a call")
+            res["ab"] = chunk_ab(model, TRAIN_CHUNK)
+            res["traffic_per_chunk"] = res["ab"]["chunk_traffic"]
+            log(f"[training chunk] one step a call against "
+                f"{TRAIN_CHUNK} a call, in turns: {json.dumps(res['ab'])} "
+                f"on {card_line()}")
+        arms[arm] = res
+        del model
+        torch.cuda.empty_cache()
+        for k in counters:
+            add_launches(records.setdefault(k, {}),
+                         **{f"training_{arm}": res["launches"][k]})
+    side = {"ici32": ref} if ref is not None else {}
+    side.update(arms)
+    log("[training arms] " + json.dumps({
+        k: {"median_step_s": v["median_step_s"], "step_s": v["step_s"],
+            "tokens_per_s": v["tokens_per_s"], "peak_gib": v["peak_gib"],
+            "launches_per_step": v["launches_per_step"],
+            "traffic": v.get("traffic_per_chunk",
+                             v.get("traffic_per_step"))}
+        for k, v in side.items()}) + f" on {card_line()}")
+    check_no_host_traffic("training chunk",
+                          arms["chunk"]["traffic_per_chunk"])
+    if ref is None or ref["config"]["n_layers"] != n_layers:
+        log("[training arms] no ici32 run at this depth in this run: the "
+            "arms held to TRAIN_TRAJECTORY")
+        for arm, res in arms.items():
+            check_train_trajectory(f"training {arm}", res)
+        return
+    for arm, res in arms.items():
+        same = res["losses"] == ref["losses"]
+        log(f"[training {arm}] losses {res['losses']} against the staged "
+            f"full-remat run's {ref['losses']}: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"training {arm}: losses differ from the "
+                                 f"staged full-remat run's")
 
 
 def check_step_profile(name: str, out: dict, steps: int,
@@ -3478,11 +3758,14 @@ VGG16_CFG = dict(RESNET50_CFG, batch_size=VGG_BATCH,
                  n_val=CNN_VAL_BATCHES * VGG_BATCH, lr=0.01,
                  weight_decay=5e-4)
 GOOGLENET_CFG = dict(VGG16_CFG, weight_decay=2e-4)
-# the three feeds of the ResNet-50 run: the pinned stager inside the
+# the four feeds of the ResNet-50 run: the pinned stager inside the
 # step, the streaming feed (a producer thread, 2 slots), the train set
-# on the card gathered there
+# on the card gathered there a step at a time, and in chunks of four
+# steps a call (steps_per_call)
 FEEDS = {"synchronous": {}, "pipelined": {"loader_pipeline": 2},
-         "device_cache": {"device_data_cache": True}}
+         "device_cache": {"device_data_cache": True},
+         "device_cache_chunk": {"device_data_cache": True,
+                                "steps_per_call": 4}}
 # the torch.nn zoo (flax_zoo's counterpart): ResNet-18 at flax_zoo's
 # width 64 on synthetic CIFAR-10 (32 x 32), batch 128, at the JAX
 # defaults' precision (the batch cast to bf16, linen's promotion runs
@@ -3608,20 +3891,38 @@ def run_cnn(dev, name: str, model: dict, cfg: dict,
 
     from theanompi_tpu_torch.models.base import ClassifierModel
 
-    times, segs, sums, seen = [], [], [], []
+    times, segs, sums, seen, inside = [], [], [], [], []
     train_iter, prep = ClassifierModel.train_iter, ClassifierModel.prep_input
+    train_chunk = ClassifierModel.train_chunk
 
-    def timed(self, count, recorder):
+    def timed(self, count, recorder, k=None):
+        # one clock around the outermost call; a chunk of K charges each
+        # of its steps the chunk's time and segments over K
+        if inside:
+            return (train_iter(self, count, recorder) if k is None
+                    else train_chunk(self, count, k, recorder))
+        inside.append(1)
         seen.clear()
         before = dict(recorder.total_segments)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train_iter(self, count, recorder)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        segs.append({k: recorder.total_segments[k] - before[k]
-                     for k in ("wait", "calc")})
-        sums.append(bits_checksum(seen[0].to(self.compute_dtype)))
+        try:
+            if k is None:
+                train_iter(self, count, recorder)
+            else:
+                train_chunk(self, count, k, recorder)
+            torch.cuda.synchronize()
+        finally:
+            inside.clear()
+        n = k or 1
+        times.extend([(time.perf_counter() - t0) / n] * n)
+        segs.extend([{m: (recorder.total_segments[m] - before[m]) / n
+                      for m in ("wait", "calc")}] * n)
+        sums.extend(bits_checksum(x.to(self.compute_dtype))
+                    for x in seen[:n])
+
+    def timed_chunk(self, count, k, recorder):
+        timed(self, count, recorder, k)
 
     def stash(self, x):
         seen.append(x)
@@ -3629,11 +3930,13 @@ def run_cnn(dev, name: str, model: dict, cfg: dict,
 
     torch.cuda.reset_peak_memory_stats()
     ClassifierModel.train_iter, ClassifierModel.prep_input = timed, stash
+    ClassifierModel.train_chunk = timed_chunk
     try:
         out = bsp([dev.index], cfg, model=model, print_freq=1, **kw)
     finally:
         ClassifierModel.train_iter = train_iter
         ClassifierModel.prep_input = prep
+        ClassifierModel.train_chunk = train_chunk
     trained = out["model"]
     losses, val = out["recorder"].train_losses, out["final_val"]
     med = statistics.median(times[1:])
@@ -3674,12 +3977,28 @@ def check_trajectory(name: str, res: dict, want: dict) -> None:
 
 def profile_feed(model, name: str) -> dict:
     """The trained model's feed rebuilt (the run closed it), one warm
-    step, then ``profile_training`` over the next batches in order; the
-    busy share and the memcpy device time a step."""
+    step, then ``profile_training`` over the next batches in order (a
+    model that runs K steps a call: one warm chunk, then two chunks
+    traced, each charged over its K steps); the busy share and the
+    memcpy device time a step."""
     from theanompi_tpu_torch.utils import Recorder
 
     model.compile_iter_fns()
+    k = model._chunk_k
     try:
+        if k:
+            rec = Recorder(verbose=False)
+            model.train_chunk(0, k, rec)
+            out, kernels = trace_steps(
+                lambda i: model.train_chunk(0, k, rec), 2, top=10)
+            memcpy = sum(ms for name_, ms in kernels
+                         if kernel_kind(name_) == "memcpy/memset")
+            log(f"[{name}] chunk profile {json.dumps(out)} on "
+                f"{card_line()}")
+            return {"busy_share": out["busy_share"],
+                    "wall_ms_per_step": out["wall_ms_per_step"] / k,
+                    "device_ms_per_step": out["device_ms_per_step"] / k,
+                    "memcpy_ms_per_step": memcpy / k}
         model.train_iter(0, Recorder(verbose=False))
         prof = profile_training(model, name=name, start=1)
     finally:
@@ -3887,6 +4206,13 @@ def run_cnn_phase(dev) -> None:
                              dict(RESNET50_CFG, **knobs))
         check_trajectory(f"cnn resnet50 {feed}", res, CNN_TRAJECTORY)
         res["profile"] = profile_feed(model, f"cnn resnet50 {feed}")
+        if model._chunk_k:
+            res["ab"] = chunk_ab(model, model._chunk_k)
+            log(f"[cnn resnet50 {feed}] one step a call against "
+                f"{model._chunk_k} a call, in turns: "
+                f"{json.dumps(res['ab'])} on {card_line()}")
+            check_no_host_traffic(f"cnn resnet50 {feed}",
+                                  res["ab"]["chunk_traffic"])
         feeds[feed] = res
         if feed == "synchronous":
             # the momentum update alone (zero gradients, lr 0): its
@@ -3916,6 +4242,14 @@ def run_cnn_phase(dev) -> None:
         raise AssertionError(f"cnn: the feeds staged other batches: {sums}")
     log(f"[cnn resnet50 feeds] the {CNN_STEPS} staged batches are bitwise "
         f"equal across {list(FEEDS)}")
+    chunk, cached = (feeds[f]["losses"]
+                     for f in ("device_cache_chunk", "device_cache"))
+    log(f"[cnn resnet50 feeds] device_cache_chunk losses {chunk} against "
+        f"device_cache's {cached}: "
+        f"{'bitwise equal' if chunk == cached else 'DIFFER'}")
+    if chunk != cached:
+        raise AssertionError("cnn: the chunked device-resident feed's "
+                             "losses differ from the per-step one's")
     run_tmb_feeds(dev, feeds["device_cache"])
 
     _, model = run_cnn(dev, "alexnet", ALEXNET, ALEXNET_CFG)
@@ -6710,6 +7044,8 @@ def main(argv=None) -> int:
     if "training" in ns.phases:
         phase_start("training", t_start)
         # phase 7: BSP training at Llama-3-8B widths, then its profile
+        from theanompi_tpu_torch.utils import Recorder
+
         counters = {"K1": flash_fwd_cuda, "K2": flash_bwd_dkv_cuda,
                     "K3": flash_bwd_dq_cuda}
         # the group outlives the run, so the profile can take more steps
@@ -6720,13 +7056,24 @@ def main(argv=None) -> int:
         res["profile"] = profile_training(model)
         check_profile_busy("training", res)
         check_step_flops("training", model, res)
+        # one staged step's copies and syncs, beside the cached chunk's
+        res["traffic_per_step"] = host_traffic(
+            lambda: model.train_iter(0, Recorder(verbose=False)))
+        # the dispatch count sees the stager's copies: it can fire
+        t = res["traffic_per_step"]
+        if not t["staged_bytes"] or t["h2d_op_bytes"] != t["staged_bytes"]:
+            raise AssertionError(f"training: the staged step's copies at "
+                                 f"dispatch are not the stager's: {t}")
         TRAINED["ici32"] = res
-        destroy_group()
         del model
         torch.cuda.empty_cache()
         for k in ("K1", "K2", "K3"):
             if k in records:
                 add_launches(records[k], training=res["launches"][k])
+        # the device-resident chunk and selective remat
+        run_training_arms(dev, ns.layers or 8, counters, records)
+        destroy_group()
+        torch.cuda.empty_cache()
 
     if "exchange" in ns.phases:
         phase_start("exchange", t_start)

@@ -464,9 +464,6 @@ def test_entry_points_train_on_the_cpu_and_want_the_card_by_default(
 
 @pytest.mark.parametrize("model,config,error,match", [
     (WResNet, dict(loader_pipeline=1), ValueError, "at least 2 ring slots"),
-    (WResNet, dict(steps_per_call=4), NotImplementedError, "A7"),
-    (WResNet, dict(device_data_cache=True, steps_per_call=4),
-     NotImplementedError, "A7"),
 ])
 def test_unported_knobs_raise(model, config, error, match):
     with pytest.raises(error, match=match):

@@ -310,8 +310,14 @@ def test_llama_pipelined_feed_is_bitwise_equal_to_synchronous():
     for a, b in zip(*(_leaves(r["model"].params) for r in runs)):
         assert torch.equal(a, b)
     assert runs[1]["loader"]["staged"] + runs[1]["loader"]["starved"] == 4
-    with pytest.raises(NotImplementedError, match="A7"):
-        Llama(dict(LLAMA_CFG, device_data_cache=True), device="cpu")
+    # the device-resident train set moves no batch bytes a step: a feed
+    # asked for beside it is declined, loudly
+    m = Llama(dict(LLAMA_CFG, device_data_cache=True, loader_pipeline=2),
+              device="cpu")
+    m.build_model()
+    with pytest.warns(UserWarning, match="device_data_cache"):
+        m.compile_iter_fns()
+    assert m._feed is None and m._device_cache is not None
 
 
 def test_checkpoint_stamps_the_jax_loader_cursor(tmp_path):

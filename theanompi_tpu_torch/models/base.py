@@ -41,9 +41,12 @@ and optimizer update, and the checkpoint round trip.
 subclasses: a net of ``ops.layers`` in fp32 master weights run in the
 compute dtype, the synthetic or file-backed data modules fed through
 the stager, the streaming feed or the device-resident train set
-(``device_data_cache``), momentum SGD, and the JAX step's exchange
-(gradients by the named strategy, BN running statistics, loss and
-error averaged over the ranks every step).  Its checkpoints hold the
+(``device_data_cache``; each step's rows gathered on the device from
+the epoch permutation, and with ``steps_per_call`` K > 1
+``train_chunk`` runs K steps a call with no host fence among them, the
+loss and error averaged over the ranks once a chunk), momentum SGD, and the JAX step's exchange
+(gradients by the named strategy and BN running statistics every step,
+loss and error averaged over the ranks).  Its checkpoints hold the
 JAX trees (``params``, ``net_state``, ``opt_state``) in the JAX layout
 under JAX keystr keys, so they load in either package.
 """
@@ -125,18 +128,6 @@ def resume_checkpoint(directory: str | Path, validate: bool = True,
     if step < 0:
         return None
     return Path(directory) / f"ckpt_{step}{'.shards' if sharded else '.npz'}"
-
-
-def refuse_unported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for
-    ``steps_per_call > 1``, which the port does not run yet, and
-    ``ValueError`` for a bad ``loader_pipeline``."""
-    resolve_loader_depth(cfg)
-    if int(cfg.get("steps_per_call", 0) or 0) > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 (several steps a call over the "
-            "device-resident data) is not ported yet (ROADMAP.md A7)"
-        )
 
 
 def refuse_layout_exchange(cfg: dict, zero1: bool,
@@ -230,6 +221,72 @@ class TMModel:
 
     def val_iter(self, count: int, recorder):
         raise NotImplementedError
+
+    # -- K steps a call over the device-resident data (steps_per_call) -----
+
+    #: the chunk length ``train_chunk`` runs as one call (0: none; set
+    #: by a model whose device-resident path is live)
+    _chunk_k: int = 0
+
+    def preferred_chunk(self, remaining: int) -> int:
+        """Steps ``train_chunk`` should take in one call: the chunk
+        length when the device-resident path is live and fits in
+        ``remaining``, else 1."""
+        if self._chunk_k and remaining >= self._chunk_k:
+            return self._chunk_k
+        return 1
+
+    def train_chunk(self, count: int, k: int, recorder) -> None:
+        """Steps ``count .. count+k-1``.  On a device-resident path
+        (``_device_cache``) the ``k`` steps run with no host fence among
+        them, each on the rows of its own batch (the model's
+        ``_cached_batch`` and ``_train_step``), their f32 ``[loss, err]``
+        stacked on the device and meaned over the ranks once
+        (``_rank_mean``), one record of the ``k`` (the model's
+        ``train_iter`` there is a chunk of one); otherwise a per-step
+        ``train_iter`` loop."""
+        if self._device_cache is None:
+            for j in range(k):
+                self.train_iter(count + j, recorder)
+            return
+        recorder.start()
+        self._stage_cached_perm()
+        recorder.end("wait")
+        recorder.start()
+        rows = []
+        for j in range(k):
+            rows.append(self._train_step(*self._cached_batch(count + j)))
+        stats = self._rank_mean(torch.stack(rows))
+        recorder.end("calc")
+        recorder.train_error(count, stats[:, 0], stats[:, 1])
+
+    def _stage_cached_perm(self) -> None:
+        """Put the epoch permutation on the device when it changed: with
+        the train set there, the one host→device transfer of the path,
+        once an epoch."""
+        perm = self.data.epoch_permutation()
+        if perm is not self._perm_src:
+            self._perm_src = perm
+            self._perm_dev = torch.from_numpy(
+                np.asarray(perm, np.int64)).to(self.device)
+
+    def _cached_rows(self, count: int) -> torch.Tensor:
+        """This replica's sample ids of train batch ``count``: rows
+        ``[r*B, (r+1)*B)`` of the global batch in the epoch permutation
+        on the device, r this rank's replica coordinate, as the staged
+        path takes them.  The batch index is the host's own, so a run
+        resumed inside an epoch takes the batches it stopped at."""
+        self._stage_cached_perm()
+        lo = count * self.data.global_batch + self._rank * self._b_loc
+        return self._perm_dev[lo:lo + self._b_loc]
+
+    def _init_cached_steps(self, b_loc: int, k: int) -> None:
+        """The chunk length of a live device-resident path: ``k`` steps
+        a ``train_chunk`` call (0 or 1: none), ``b_loc`` rows a
+        replica."""
+        self._chunk_k = k if k > 1 else 0
+        self._b_loc = b_loc
+        self._perm_src = self._perm_dev = None
 
     def checkpoint_trees(self) -> dict:
         """Named trees (nested dicts/lists of tensors or arrays) to
@@ -826,7 +883,8 @@ class ClassifierModel(TMModel):
     ``batch_size`` (per rank), ``n_epochs``, ``lr``, ``lr_schedule``,
     ``momentum``, ``weight_decay``, ``compute_dtype``, ``seed``,
     ``exch_strategy``, ``exchange_bucket_mb``, ``loader_pipeline``,
-    ``device_data_cache``.  ``device`` defaults to the card;
+    ``device_data_cache``, ``steps_per_call``.  ``device`` defaults to
+    the card;
     ``device="cpu"`` runs on the CPU.
     """
 
@@ -834,7 +892,7 @@ class ClassifierModel(TMModel):
 
     def __init__(self, config: dict | None = None, device=None):
         self.config = dict(config or {})
-        refuse_unported(self.config)
+        resolve_loader_depth(self.config)   # a bad value fails here
         self.n_epochs = int(self.config.get("n_epochs", 10))
         self.epoch = 0
         self.current_lr = float(self.config.get("lr", 0.1))
@@ -919,7 +977,8 @@ class ClassifierModel(TMModel):
         (``device_data_cache``): floats in the compute dtype, labels as
         int64.  Each step then gathers its rows there from the epoch
         permutation (put there once an epoch), so steady-state steps
-        move no image bytes from the host."""
+        move no image bytes from the host; ``steps_per_call`` K > 1 makes ``train_chunk`` run K steps
+        a call."""
         get = getattr(self.data, "dataset_arrays", None)
         arrays = get("train") if get is not None else None
         if arrays is None:
@@ -935,20 +994,14 @@ class ClassifierModel(TMModel):
         if xs.is_floating_point():
             xs = xs.to(self.compute_dtype)
         self._device_cache = (xs, ys.to(self.device, torch.int64))
-        self._perm_src = self._perm_dev = None
+        self._init_cached_steps(
+            self.data.batch_size,
+            int(self.config.get("steps_per_call", 0) or 0))
 
     def _cached_batch(self, count: int):
         """This rank's rows of train batch ``count``, gathered on the
-        device: the rows ``[r*B, (r+1)*B)`` of the global batch, as the
-        staged path takes them."""
-        perm = self.data.epoch_permutation()
-        if perm is not self._perm_src:
-            self._perm_src = perm
-            self._perm_dev = torch.from_numpy(
-                np.asarray(perm, np.int64)).to(self.device)
-        b = self.data.batch_size
-        lo = count * self.data.global_batch + self._rank * b
-        idx = self._perm_dev[lo:lo + b]
+        device (:meth:`_cached_rows`)."""
+        idx = self._cached_rows(count)
         return tuple(a.index_select(0, idx) for a in self._device_cache)
 
     # -- loss hooks ---------------------------------------------------------
@@ -976,18 +1029,17 @@ class ClassifierModel(TMModel):
         through the compile's :class:`HostStager` (labels as int64)."""
         return self._stager.stage(batch).wait()
 
-    def _rank_mean(self, *xs) -> torch.Tensor:
-        stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
-                                             device=self.device)
-                             for x in xs])
+    def _rank_mean(self, stats: torch.Tensor) -> torch.Tensor:
+        """f32 ``stats`` (a step's ``[loss, err]``, a chunk's ``[K, 2]``)
+        meaned over the ranks."""
         dist.all_reduce(stats)
         return stats / self._world
 
     def train_iter(self, count: int, recorder) -> None:
-        recorder.start()
         if self._device_cache is not None:
-            x, y = self._cached_batch(count)
-        elif self._feed is not None:
+            return self.train_chunk(count, 1, recorder)
+        recorder.start()
+        if self._feed is not None:
             # fetched and staged by the producer thread under the last
             # step: the wait segment is a ring pop
             x, y = self._feed.next(count).wait()
@@ -995,6 +1047,15 @@ class ClassifierModel(TMModel):
             x, y = self.put_batch(self.data.train_batch(count))
         recorder.end("wait")
         recorder.start()
+        stats = self._rank_mean(self._train_step(x, y))
+        recorder.end("calc")
+        recorder.train_error(count, stats[0], stats[1])
+
+    def _train_step(self, x, y) -> torch.Tensor:
+        """One step on this rank's batch: forward, backward, the BN
+        statistics' and the gradients' exchange and the update; returns
+        this rank's f32 ``[loss, err]``, not yet meaned over the
+        ranks."""
         out = self.net(self.prep_input(x), train=True, gen=self._dropout_gen)
         loss = self.compute_loss(out, y)
         err = 1.0 - accuracy(self.primary_logits(out).detach(), y)
@@ -1006,9 +1067,7 @@ class ClassifierModel(TMModel):
         # every rank evaluates with the same statistics
         allreduce_mean(self.net_state)
         self._exchange_update(self.params, grads)
-        stats = self._rank_mean(loss.detach(), err)
-        recorder.end("calc")
-        recorder.train_error(count, stats[0], stats[1])
+        return torch.stack([loss.detach().float(), err.float()])
 
     def _step_loss(self, count: int):
         x, y = self.put_batch(self.data.train_batch(count))
@@ -1019,11 +1078,11 @@ class ClassifierModel(TMModel):
     def val_iter(self, count: int, recorder):
         x, y = self.put_batch(self.data.val_batch(count))
         logits = self.primary_logits(self.net(self.prep_input(x)))
-        stats = self._rank_mean(
-            softmax_cross_entropy(logits, y),
+        stats = self._rank_mean(torch.stack([
+            softmax_cross_entropy(logits, y).float(),
             1.0 - accuracy(logits, y),
             1.0 - accuracy(logits, y, k=5),
-        )
+        ]))
         return tuple(float(v) for v in stats)
 
     # -- checkpoint: the JAX trees ------------------------------------------

@@ -87,11 +87,32 @@ layer holds ``router`` [D, E] and ``we_gate``/``we_up`` [E, D, F],
   checkpoint (seq ranks hold equal blocks; seq rank 0 writes), and
   resume only at the layout they were written under.
 
-Selective remat (``remat_save``) is not ported yet (ROADMAP.md); zero1
-and the compressed wire with MoE are refused (as in JAX).
+- ``remat_save=("attn_out",)`` (selective remat, with ``remat``): each
+  layer runs as two checkpointed segments around its attention call
+  (flash at sp = 1, the ring or Ulysses at sp > 1), which runs once and
+  keeps its residuals (K1's o and lse, with q, k and v), so the
+  backward replays the projections, the norms and the FFN but not the
+  attention forward: K1 L times a step, not 2L, and at sp > 1 no ring
+  hop again.  The JAX policy ``save_only_these_names`` keeps only the
+  names the layer has: any other name saves nothing, which is full
+  remat, as here.
+- ``device_data_cache`` puts ``dataset_sequences()`` on the device once;
+  each step's rows come from the epoch permutation on the device,
+  sliced at the step's batch index (this replica's ``[b_loc, T + 1]``
+  rows; the inputs this seq rank's ``T/sp`` columns, the targets the
+  same shifted by one), and ``train_chunk`` runs ``steps_per_call``
+  steps a call (2 by default) with no host fence among them: their
+  (loss, err) pairs stay on the device and are meaned over the ranks
+  once a chunk.  ``train_iter`` on the cached path is a chunk of one.
+  With ``steps_per_call < 2`` or data without ``dataset_sequences`` it
+  warns and stages per step, as JAX does.
+
+Zero1 and the compressed wire with MoE are refused (as in JAX).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -230,8 +251,9 @@ class Llama(TMModel):
     vocab, seq_len, compute_dtype, seed, tp, sp, sp_mode`` and, for
     training,
     ``batch_size`` (per data replica), ``n_train, n_val, n_epochs, lr,
-    optimizer, weight_decay, remat, xent_chunks, exch_strategy,
-    exchange_bucket_mb, lr_schedule, loader_pipeline, pp,
+    optimizer, weight_decay, remat, remat_save, xent_chunks,
+    exch_strategy, exchange_bucket_mb, lr_schedule, loader_pipeline,
+    device_data_cache, steps_per_call, pp,
     pp_microbatches, pp_head_scatter, n_experts, moe_top_k,
     capacity_factor, ep, moe_aux_coef, moe_z_coef``.  Serving
     parameters are drawn from ``self.generator`` (seeded with ``seed``)
@@ -350,17 +372,10 @@ class Llama(TMModel):
                 raise ValueError(
                     f"ulysses needs per-TP-shard heads divisible by sp: "
                     f"H/tp={h_loc}, Hkv/tp={hkv_loc}, sp={self.sp}")
-        if c.get("device_data_cache"):
-            raise NotImplementedError(
-                "device_data_cache for Llama is not ported yet (ROADMAP.md "
-                "A7: the JAX Llama cache runs steps_per_call steps a call)"
-            )
-        if c.get("remat_save"):
-            raise NotImplementedError(
-                "remat_save (selective remat) is not ported yet "
-                "(ROADMAP.md A6); remat=True recomputes whole layers"
-            )
         self.remat = bool(c.get("remat", True))
+        # the names the remat policy saves (JAX save_only_these_names):
+        # the layer names one, "attn_out"
+        self.remat_save = tuple(c.get("remat_save", ()))
         self.n_epochs = int(c.get("n_epochs", 5))
         self.epoch = 0
         self.current_lr = float(c.get("lr", 3e-3))
@@ -481,27 +496,41 @@ class Llama(TMModel):
         compute dtype, H/tp query and Hkv/tp kv heads.  With MoE returns
         ``(x, moments)``: the fp32 ``[2E+1]`` of this layer's aux moments
         (f, p, z), kept linear so microbatches average exactly."""
-        cd, g = self.compute_dtype, self.group
+        return self._attn_out(p, x, self._attn(*self._attn_in(p, x, pos)))
+
+    def _attn_in(self, p, x, pos):
+        """The attention's inputs: q [B, H/tp, T/sp, hd] and k, v (at
+        sp = 1 repeated to the query heads), roped."""
         h, hkv = self.n_heads // self.tp, self.n_kv_heads // self.tp
         hd = self.head_dim
-        xn = tp_lib.copy_to_group(rms_norm(x, p["attn_norm"]), g)
+        xn = tp_lib.copy_to_group(rms_norm(x, p["attn_norm"]), self.group)
         q = rope(_heads(tp_lib.col_parallel(xn, p["wq"]), h, hd), pos)
         k = rope(_heads(tp_lib.col_parallel(xn, p["wk"]), hkv, hd), pos)
         v = _heads(tp_lib.col_parallel(xn, p["wv"]), hkv, hd)
         # GQA: K/V stay compact on the wire; repeated only to compute
-        rep = h // hkv
+        if self.sp == 1 and h != hkv:
+            # jnp.repeat on axis 1 is repeat_interleave on dim 1
+            k = k.repeat_interleave(h // hkv, dim=1)
+            v = v.repeat_interleave(h // hkv, dim=1)
+        return q, k, v
+
+    def _attn(self, q, k, v):
+        """The attention output ``o`` (the JAX layer's ``attn_out``): K1
+        at sp = 1, the ring or Ulysses over the seq group."""
         if self.sp == 1:
-            if rep != 1:
-                # jnp.repeat on axis 1 is repeat_interleave on dim 1
-                k = k.repeat_interleave(rep, dim=1)
-                v = v.repeat_interleave(rep, dim=1)
-            o = flash_attention(q, k, v, causal=True)
-        elif self.sp_mode == "ring":
-            o = ring_attention(q, k, v, self.layout.seq, causal=True,
-                               kv_rep=rep)
-        else:
-            o = ulysses_attention(q, k, v, self.layout.seq, causal=True,
+            return flash_attention(q, k, v, causal=True)
+        rep = q.shape[1] // k.shape[1]
+        if self.sp_mode == "ring":
+            return ring_attention(q, k, v, self.layout.seq, causal=True,
                                   kv_rep=rep)
+        return ulysses_attention(q, k, v, self.layout.seq, causal=True,
+                                 kv_rep=rep)
+
+    def _attn_out(self, p, x, o):
+        """The rest of the block after the attention output ``o``: its
+        projection onto the residual stream, then the FFN (dense or
+        MoE)."""
+        cd, g = self.compute_dtype, self.group
         x = x + tp_lib.row_parallel(_unheads(o), p["wo"], g).to(cd)
         xn = rms_norm(x, p["mlp_norm"])
         if self.n_experts:
@@ -530,7 +559,8 @@ class Llama(TMModel):
         fallback they are valid on the last stage only.  Each layer runs
         under non-reentrant ``checkpoint`` when ``remat`` and gradients
         are on (its forward, collectives included, runs again in the
-        backward)."""
+        backward); with ``"attn_out"`` in ``remat_save`` as two
+        checkpointed segments around the attention, which runs once."""
         t_loc = ids.shape[1]
         seq_idx = self.layout.seq.rank if self.sp > 1 else 0
         pos = seq_idx * t_loc + torch.arange(t_loc, device=ids.device)
@@ -538,12 +568,20 @@ class Llama(TMModel):
                                 self.group)
         x = x.to(self.compute_dtype)
         remat = self.remat and torch.is_grad_enabled()
+        keep_attn = remat and "attn_out" in self.remat_save
+
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
 
         def layer(p, x):
+            if keep_attn:
+                # the attention's own residuals (q, k, v, o, lse) are
+                # saved by its autograd function; both segments replay
+                return ckpt(self._attn_out, p, x,
+                            self._attn(*ckpt(self._attn_in, p, x, pos)))
             if remat:
-                return checkpoint(self._layer, p, x, pos,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
+                return ckpt(self._layer, p, x, pos)
             return self._layer(p, x, pos)
 
         moe = bool(self.n_experts)
@@ -777,17 +815,52 @@ class Llama(TMModel):
         self._replicated = tuple(replicated)
         if not self._zero1:          # zero1 holds the state of its shard
             self.opt_state = self.optimizer.init(list(_leaves(params)))
+        self._device_cache, self._chunk_k = None, 0
+        if cfg.get("device_data_cache"):
+            self._init_device_cache(b)
         # this rank's rows of each global (inputs, targets) batch, as
-        # int64 ids, through the stager (and the feed, when asked for)
+        # int64 ids, through the stager (and the feed, when asked for
+        # and the train set is not on the device)
         self._init_feed(b, dtypes=(torch.int64, torch.int64))
 
-    def _rank_mean(self, *xs) -> torch.Tensor:
-        """The means of ``xs`` over the replica and seq ranks (the model
-        and pipe ranks hold equal values), as the JAX pmean over
-        (expert, data, seq)."""
-        stats = torch.stack([torch.as_tensor(x, dtype=torch.float32,
-                                             device=self.device)
-                             for x in xs])
+    def _init_device_cache(self, b_loc: int) -> None:
+        """Put the train sequences on the device once and run
+        ``steps_per_call`` steps a ``train_chunk`` call (2 by default);
+        with fewer than 2, or data without ``dataset_sequences``, warn
+        and stage per step (the JAX ``_init_device_cache``)."""
+        k = int(self.config.get("steps_per_call", 2) or 0)
+        get = getattr(self.data, "dataset_sequences", None)
+        if k < 2 or get is None:
+            warnings.warn(
+                "device_data_cache requested but "
+                + ("steps_per_call < 2" if get is not None else
+                   "the data object does not expose "
+                   "dataset_sequences()")
+                + "; falling back to per-step host staging",
+                stacklevel=3,
+            )
+            return
+        self._device_cache = (torch.from_numpy(
+            np.asarray(get(), np.int64)).to(self.device),)
+        self._init_cached_steps(b_loc, k)
+
+    def _cached_batch(self, count: int):
+        """This rank's (inputs, targets) of train batch ``count``: its
+        replica's ``[b_loc, T + 1]`` rows gathered on the device
+        (``_cached_rows``), the inputs this seq rank's ``T/sp`` columns
+        and the targets the same shifted by one."""
+        rows = self._device_cache[0].index_select(
+            0, self._cached_rows(count))
+        t_loc = self.seq_len // self.sp
+        lo = (self.layout.seq.rank if self.sp > 1 else 0) * t_loc
+        return (rows[:, lo:lo + t_loc].contiguous(),
+                rows[:, lo + 1:lo + 1 + t_loc].contiguous())
+
+    def _rank_mean(self, stats: torch.Tensor) -> torch.Tensor:
+        """f32 ``stats`` (a step's ``[loss, err]``, a chunk's ``[K, 2]``)
+        meaned over the replica and seq ranks (the model and pipe ranks
+        hold equal values), as the JAX pmean over (expert, data,
+        seq)."""
         if self.layout is None:
             dist.all_reduce(stats)
             return stats / self._world
@@ -804,19 +877,27 @@ class Llama(TMModel):
                      for t in ts)
 
     def train_iter(self, count: int, recorder) -> None:
+        if self._device_cache is not None:
+            return self.train_chunk(count, 1, recorder)
         recorder.start()
         staged = (self._feed.next(count) if self._feed is not None
                   else self._stager.stage(self.data.train_batch(count)))
         x, y = self._seq_columns(*staged.wait())
         recorder.end("wait")
         recorder.start()
+        stats = self._rank_mean(self._train_step(x, y))
+        recorder.end("calc")
+        recorder.train_error(count, stats[0], stats[1])
+
+    def _train_step(self, x, y) -> torch.Tensor:
+        """One step on this rank's (inputs, targets): forward, backward,
+        the exchange and the update; this rank's f32 ``[loss, err]``, not
+        yet meaned over the ranks."""
         leaves = list(_leaves(self.params))
         loss, err = self._loss(self.params, x, y)
         grads = list(torch.autograd.grad(loss, leaves))
         self._exchange_update(leaves, grads)
-        stats = self._rank_mean(loss.detach(), err)
-        recorder.end("calc")
-        recorder.train_error(count, stats[0], stats[1])
+        return torch.stack([loss.detach().float(), err.float()])
 
     def _step_loss(self, count: int):
         x, y = self._seq_columns(
@@ -832,10 +913,12 @@ class Llama(TMModel):
         logits = tp_lib.col_parallel(h, self.params["lm_head"])
         g = self.group
         y = self._pp_targets(y).reshape(logits.shape[:-1])
-        stats = self._rank_mean(*(self._pp_value(v) for v in (
-            tp_lib.sharded_softmax_xent(logits, y, self.vocab, g),
-            tp_lib.sharded_top1_err(logits, y, self.vocab, g),
-            tp_lib.sharded_topk_err(logits, y, self.vocab, k=5, group=g))))
+        stats = self._rank_mean(torch.stack([
+            self._pp_value(v).float() for v in (
+                tp_lib.sharded_softmax_xent(logits, y, self.vocab, g),
+                tp_lib.sharded_top1_err(logits, y, self.vocab, g),
+                tp_lib.sharded_topk_err(logits, y, self.vocab, k=5,
+                                        group=g))]))
         return tuple(float(v) for v in stats)
 
     def replica_groups(self) -> list:

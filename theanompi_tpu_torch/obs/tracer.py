@@ -241,7 +241,11 @@ class Tracer:
             "attrs": attrs,
         }
         with self._lock:
-            self._append_locked(span)
+            # TM102 resolves the dicts' .get under _append_locked by name
+            # to KVStore.get, whose torch store's .wait to the launcher's
+            # LaunchHandle.wait, which reaches the supervisor's tracer:
+            # no lock is taken on that path
+            self._append_locked(span)  # tmcheck: disable=TM102
         return span["span_id"]
 
     # -- ring discipline ---------------------------------------------------

@@ -272,8 +272,12 @@ def _xent_grad(lg, lse, labels, g, off):
     columns are vocab ids ``[off, off + Vc)``, f32."""
     d = torch.exp(lg - lse[:, None])
     local = labels - off
-    rows = torch.nonzero((local >= 0) & (local < lg.shape[1]))[:, 0]
-    d[rows, local[rows]] -= 1.0
+    hit = (local >= 0) & (local < lg.shape[1])
+    # minus one at each row's target column in this block (minus zero,
+    # an exact no-op, where the target lies in another): no row count
+    # read back to the host, as a boolean index would
+    d.scatter_add_(1, local.clamp(0, lg.shape[1] - 1)[:, None],
+                   -hit.to(d.dtype)[:, None])
     return d * g[:, None]
 
 

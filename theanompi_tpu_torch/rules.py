@@ -12,8 +12,9 @@ them) or runs the worker in this process (``launch="inprocess"``:
 ``wait()`` returns its summary).  BSP takes one process per device.
 ``EASGD`` and ``GOSGD`` run all their workers in one process, as
 replicas on one device: ``devices`` lists that device once per worker
-(``["cpu"] * 4``, ``[0, 0, 0, 0]``); their multi-process form is not
-ported yet (ROADMAP.md A10).
+(``["cpu"] * 4``, ``[0, 0, 0, 0]``), or one worker a process:
+``rule.init(devices=[d], rank=r, world_size=n, init_method=...)`` in
+each process (the launcher's ``--coordinator`` does the same).
 """
 
 from __future__ import annotations

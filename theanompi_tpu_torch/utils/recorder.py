@@ -136,18 +136,24 @@ class Recorder:
         self.epoch_segments = {m: 0.0 for m in MODES}
 
     def train_error(self, count: int, loss, err) -> None:
-        """One step's (loss, err), read lazily (see :meth:`flush`)."""
+        """One step's (loss, err), or a chunk's: length-K device vectors
+        (``train_chunk``'s K steps, one record and one read for the
+        chunk), read lazily (see :meth:`flush`)."""
         del count
         self._pending.append((loss, err))
-        self.n_iter += 1
+        self.n_iter += loss.shape[0] if getattr(loss, "ndim", 0) else 1
 
     def flush(self) -> None:
-        """Read the pending device scalars (this is the fence)."""
+        """Read the pending device values (this is the fence)."""
         for loss, err in self._pending:
-            pair = (float(loss), float(err))
-            self._train_losses.append(pair[0])
-            self._train_errors.append(pair[1])
-            self._window.append(pair)
+            if getattr(loss, "ndim", 0):
+                pairs = zip(loss.tolist(), err.tolist())
+            else:
+                pairs = [(float(loss), float(err))]
+            for pair in pairs:
+                self._train_losses.append(pair[0])
+                self._train_errors.append(pair[1])
+                self._window.append(pair)
         self._pending = []
 
     @property

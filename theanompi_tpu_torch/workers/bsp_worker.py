@@ -5,17 +5,20 @@ is one controller driving every chip through a mesh, this one is one
 process per device: rank ``r`` of the process group (NCCL on cards,
 gloo on the CPU) owns device ``r`` and takes rows ``[r*B, (r+1)*B)`` of
 each global batch.  The loop is the JAX one: per epoch
-``data.shuffle(epoch)``, ``train_iter`` over the batches (forward,
-backward, allreduce-mean by the named strategy, optimizer update), the
-val pass, the replica check (``TM_DEBUG_SYNC=1``), ``adjust_hyperp``,
-``save``; ``resume`` restarts from the newest valid checkpoint (after
-its epoch, or inside it at a stamped ``next_iter``).  The streaming
-feed's cursor is read and its producer thread stopped when the run
-ends, on an exception too; the cursor is the summary's ``loader``.
+``data.shuffle(epoch)``, the batches in chunks of
+``model.preferred_chunk(remaining)`` steps (``train_chunk``: K steps a
+call on a device-resident path with ``steps_per_call``, else one
+``train_iter`` each: forward, backward, allreduce-mean by the named
+strategy, optimizer update), the val pass, the replica check
+(``TM_DEBUG_SYNC=1``), ``adjust_hyperp``, ``save``; ``resume`` restarts
+from the newest valid checkpoint (after its epoch, or inside it at a
+stamped ``next_iter``).  The streaming feed's cursor is read and its
+producer thread stopped when the run ends, on an exception too; the
+cursor is the summary's ``loader``.
 
 Resilience, as in the JAX worker: ``utils/supervisor.
 begin_resilient_run`` restores and installs the graceful-SIGTERM
-handler; at each iteration boundary the ``TM_FAULT_AT`` drills fire
+handler; at each chunk boundary the ``TM_FAULT_AT`` drills fire
 (``utils/faults.py``; rank 0 alone touches files), rank 0 stamps the
 heartbeat, and a requested preemption ends the epoch loop: the run
 checkpoints with ``next_iter`` and ``preempted`` stamped and exits 0.
@@ -48,15 +51,13 @@ load/step spans (``Recorder.attach_tracer``) and ``trace_export`` writes
 them, with the step profile's spans and counter tracks, as one Perfetto
 JSON (rank 0); ``config["step_profile"]`` runs one profiled window after
 training, on the final parameters, against a throwaway ``Recorder``
-(``obs.step_profile``: legs, coverage, MFU, the gap attribution).  The
-summary carries ``trace_spans`` and ``step_profile`` (a failed profile
-is ``{"error": ...}``, not a failed run).  Each rank profiles its own
-device.
+(``obs.step_profile``: legs, coverage, MFU, the gap attribution; one
+chunk when the model runs K > 1 steps a call).  The summary carries
+``trace_spans`` and ``step_profile`` (a failed profile is ``{"error":
+...}``, not a failed run).  Each rank profiles its own device.
 
 A run in this process uses one device; ``launcher.launch(mode=
 "subprocess")`` starts one process per device and hands each its rank.
-Config knobs of features not ported yet raise ``NotImplementedError``
-naming their ROADMAP item before anything is built.
 """
 
 from __future__ import annotations
@@ -68,9 +69,9 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
+from theanompi_tpu_torch.data.pipeline import resolve_loader_depth
 from theanompi_tpu_torch.models.base import (
     refuse_layout_exchange,
-    refuse_unported,
     resume_checkpoint,
 )
 from theanompi_tpu_torch.parallel.debug import check_replicas_synced
@@ -262,6 +263,7 @@ def _profile_step_phase(model, world: int, verbose: bool) -> dict:
 
     peak = peak_flops_per_chip([model.device])
     nb = model.data.n_batch_train
+    k = model.preferred_chunk(nb)
     prof_rec = Recorder(verbose=False)
     # the window walks SEQUENTIAL in-epoch indices: a streaming feed only
     # overlaps on a sequential stream
@@ -269,11 +271,11 @@ def _profile_step_phase(model, world: int, verbose: bool) -> dict:
 
     def window():
         i = cursor["i"]
-        model.train_iter(i, prof_rec)
-        cursor["i"] = 0 if i + 2 > nb else i + 1
+        model.train_chunk(i, k, prof_rec)
+        cursor["i"] = 0 if i + 2 * k > nb else i + k
         prof_rec.flush()
 
-    window()    # warm: the profiled step is not the first of its kind
+    window()    # warm: the profiled window is not the first of its kind
     flops = None
     try:
         flops = model.train_step_flops() * world
@@ -282,7 +284,7 @@ def _profile_step_phase(model, world: int, verbose: bool) -> dict:
             print(f"step_profile: no FLOP count ({type(e).__name__}: {e})",
                   flush=True)
     prof = step_profile(
-        window, n_steps=1, n_devices=world, name=type(model).__name__,
+        window, n_steps=k, n_devices=world, name=type(model).__name__,
         peak_flops=peak, step_flops=flops or None,
     )
     if verbose:
@@ -322,7 +324,7 @@ def run(
     strat = get_strategy(exch_strategy or cfg.get("exch_strategy", "ici32"))
     bucket_mb = resolve_bucket_mb(cfg)
     comp, _ = resolve_compression(cfg)
-    refuse_unported(cfg)            # loader_pipeline is validated here
+    resolve_loader_depth(cfg)       # a bad loader_pipeline fails here
     _faults.targets()               # and a malformed TM_FAULT_AT
     if str(cfg.get("elastic_batch_policy", "global")) \
             not in ELASTIC_BATCH_POLICIES:
@@ -433,12 +435,15 @@ def run(
             i = start_iter
             start_iter = 0
             while i < data.n_batch_train:
-                model.train_iter(i, recorder)
-                recorder.print_train_info(i)
+                # a device-resident model takes K steps a call
+                # (steps_per_call); else one step each
+                k = model.preferred_chunk(data.n_batch_train - i)
+                model.train_chunk(i, k, recorder)
+                i += k
+                recorder.print_train_info(i - 1)
                 _faults.maybe_inject_fault(
-                    epoch, i, i, checkpoint_dir=checkpoint_dir, world=world,
-                    rank=rank, barrier=barrier)
-                i += 1
+                    epoch, i - k, i - 1, checkpoint_dir=checkpoint_dir,
+                    world=world, rank=rank, barrier=barrier)
                 recorder.trace_boundary()
                 if rank == 0:
                     _sup.heartbeat(recorder.n_iter, epoch, i - 1,

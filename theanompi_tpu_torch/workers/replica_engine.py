@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from theanompi_tpu_torch.data.pipeline import HostStager, resolve_loader_depth
-from theanompi_tpu_torch.models.base import ClassifierModel, refuse_unported
+from theanompi_tpu_torch.models.base import ClassifierModel
 from theanompi_tpu_torch.ops.layers import accuracy, softmax_cross_entropy
 from theanompi_tpu_torch.parallel.exchange import tree_map
 from theanompi_tpu_torch.parallel.mesh import (
@@ -48,8 +48,9 @@ def resolve_async_run(rule: str, devices, modelfile: str, modelclass: str,
     multi-process run (``world_size`` given) this process is one worker
     and ``devices`` names its one device (``ValueError`` otherwise: one
     process drives one device).  A model the workers cannot drive
-    raises ``TypeError``, an unported config knob ``NotImplementedError``
-    naming its ROADMAP item."""
+    raises ``TypeError``, a bad ``loader_pipeline`` ``ValueError``.  The
+    rules step each replica once a call, as the JAX workers do:
+    ``steps_per_call`` does not change them."""
     if world_size is not None:
         devs = resolve_worker_devices(devices)
         if len(devs) != 1:
@@ -70,7 +71,7 @@ def resolve_async_run(rule: str, devices, modelfile: str, modelclass: str,
     cfg.update(extra)
     if n_epochs is not None:
         cfg["n_epochs"] = n_epochs
-    refuse_unported(cfg)
+    resolve_loader_depth(cfg)       # a bad loader_pipeline fails here
     return device, n_workers, Model, cfg
 
 
