@@ -27,14 +27,15 @@ phase's seconds are printed at the end):
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
    source, all at once), with the build time; ptxas's report
    (registers, spills) and the shared memory and CTAs per SM of the
-   flash tensor-core kernels;
+   flash tensor-core kernels (bf16, and fp32 K2/K3);
 2. kernels — each kernel against its plain PyTorch version on the
    card, at the shapes the serving and training paths give it, with
    its error, tolerance and times (kernel, plain version, and the one
    PyTorch call computing the same function, where there is one): K1,
-   K2 and K3 on both routes (bf16 on the tensor cores, fp32 on the SIMT
-   kernels), K4 (split and merge) at the decode shape, the 16-row
-   verify shape and past one row group (20, 32, 64 rows), the serving
+   K2 and K3 on both routes (bf16 on the tensor cores; fp32 K1 on the
+   SIMT kernel, fp32 K2 and K3 on the tensor cores in three TF32
+   passes, each launch's route checked and two launches bitwise), K4
+   (split and merge) at the decode shape, the 16-row verify shape and past one row group (20, 32, 64 rows), the serving
    RMS norm kernel also at [32, 16384] (not a TPU kernel: every
    norm of the serving decoder, one CTA a row) at 8, 32 and 64 rows
    within one bf16 ulp or 1e-6 in fp32 (64 rows: every paged decode and
@@ -185,7 +186,8 @@ phase's seconds are printed at the end):
    (``chip_smoke.py --pt-rank r``) that run in turn tp = 2, sp = 2 with
    ring attention and sp = 2 with Ulysses, then four that run tp = 2 x
    sp = 2 (ring); each layout first at the small width in fp32 (SGD at
-   lr 0.5; K1-K3 on the SIMT kernels), then at Llama-3-8B widths,
+   lr 0.5; K1 on the SIMT kernel, K2 and K3 in three TF32 passes),
+   then at Llama-3-8B widths,
    ``PT_LAYERS`` deep, seq 8192, batch 1, bf16, Adam, remat, the
    chunked head (the tensor cores), ``PT_STEPS`` steps from the same
    seed's init (drawn whole, then sharded) and batches.  Every rank's
@@ -211,7 +213,7 @@ phase's seconds are printed at the end):
    children that run in turn MoE at ep = 1 over two data replicas,
    ep = 2, pp = 2 (MoE) and pp = 2 dense, then four that run pp = 2 x
    ep = 2; each at the small width in fp32
-   (4 experts, top-2, capacity factor 2.0; SGD at lr 0.5; the SIMT
+   (4 experts, top-2, capacity factor 2.0; SGD at lr 0.5; the fp32
    kernels), then ep = 2 and pp = 2 at Mixtral-8x7B's published widths
    (``MIXTRAL_8X7B``), ``ST_LAYERS`` deep, seq ``ST_SEQ``, global batch
    2, bf16, Adam, remat, capacity factor 4.0 = E/k (nothing drops, as
@@ -307,7 +309,7 @@ phase's seconds are printed at the end):
    processes keep (``install_journal``: the supervised runs start this
    script as their worker, which runs the port's
    ``bsp_worker.worker_main`` inside the journal).  First the drill
-   matrix: the small fp32 model (K1-K3 SIMT) in one
+   matrix: the small fp32 model (the fp32 K1-K3) in one
    ``BSP().init(launch="supervised")`` from an
    init checkpoint, ``TM_FAULT_AT`` = ``RES_DRILLS`` (die, hang,
    sigterm, corrupt_ckpt, each after a committed checkpoint; an 8 s
@@ -359,9 +361,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published peaks of one H100 SXM (dense): bytes/s and ops/s by dtype
+# published peaks of one H100 SXM (dense): bytes/s, and ops/s by the
+# route's arithmetic: bf16 and fp32 (CUDA cores, fp32 K1) at their
+# peaks; fp32 K2/K3 three TF32 passes on the tensor cores (495 TF/s),
+# so a third of the TF32 rate in fp32 operations
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 # (atol, rtol) of a kernel against its plain version evaluated in fp32
 # on the same inputs: fp32 differs by summation order only; bf16 adds
 # the rounding of the output to bf16 (half an ulp: 2**-9 relative)
@@ -506,8 +511,8 @@ REDUCED = {
 # the devices and Adam carries it on (measured ~1e-6 relative)
 TRAIN_REF_RTOL = 1e-4
 # first and last training loss and the val loss of phase 5 at its
-# default depth (8 layers), as the SIMT kernels gave them on an H100
-# (products in fp32): the tensor-core kernels, which round P and dS to
+# default depth (8 layers), as kernels with fp32 products gave them on
+# an H100: the bf16 tensor-core kernels, which round P and dS to
 # bf16 before their products, must stay within TRAIN_TRAJECTORY_RTOL
 TRAIN_TRAJECTORY = {"first": 11.7917, "last": 11.7502, "val": 11.7429}
 TRAIN_TRAJECTORY_RTOL = 1e-3
@@ -619,15 +624,34 @@ def flash_ops(kernel: str, shape, causal: bool = True) -> float:
 
 def bound(ops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): ``ops`` at the
-    peak rate of ``dtype_name`` against ``nbytes`` at the HBM rate."""
+    peak rate of ``dtype_name`` (a ``PEAK_OPS`` key) against ``nbytes``
+    at the HBM rate."""
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def route(dtype_name: str) -> str:
-    """Which kernel of K1/K2/K3 a dtype takes on the card."""
-    return "tensor cores" if dtype_name == "bfloat16" else "SIMT"
+def route(dtype_name: str, kernel: str = "fwd") -> str:
+    """Which kernel of K1 (``"fwd"``), K2 or K3 a dtype takes on the
+    card."""
+    if dtype_name == "bfloat16":
+        return "tensor cores"
+    return "SIMT" if kernel == "fwd" else "tensor cores, three TF32 passes"
+
+
+def route_counts(fn) -> list:
+    """A K1-K3 wrapper's [launches, bf16 tensor-core launches, three-pass
+    TF32 launches]; K1 has no three-pass route."""
+    return [fn.launches, fn.tc_launches, getattr(fn, "tf32x3_launches", 0)]
+
+
+def routes_want(dtype_name: str, launches: dict) -> dict:
+    """The ``route_counts`` K1-K3 (keys "K1", "K2", "K3") must show after
+    ``launches`` of each in ``dtype_name``: bf16 all on the tensor
+    cores; fp32 K1 on its SIMT kernel, K2 and K3 in three TF32 passes."""
+    if dtype_name == "bfloat16":
+        return {k: [n, n, 0] for k, n in launches.items()}
+    return {k: [n, 0, 0 if k == "K1" else n] for k, n in launches.items()}
 
 
 def check_flash(dev, flush) -> dict:
@@ -754,22 +778,25 @@ def check_flash(dev, flush) -> dict:
 
 def bwd_bound(name, q, dtype_name, causal=True):
     """(bound ms, what bounds it) of K2 or K3 on q-shaped inputs: their
-    ``flash_ops`` against q, k, v, dO, lse, delta read once and the
-    outputs written once."""
+    ``flash_ops`` (fp32: three TF32 passes on the tensor cores) against
+    q, k, v, dO, lse, delta read once and the outputs written once."""
     b, h, t, _ = q.shape
     ops = flash_ops(name, q.shape, causal)
     n_out = 2 if name == "dkv" else 1
     nbytes = (4 + n_out) * q.numel() * q.element_size() + 2 * b * h * t * 4
-    return bound(ops, nbytes, dtype_name)
+    return bound(ops, nbytes,
+                 "tf32x3" if dtype_name == "float32" else dtype_name)
 
 
 def check_flash_bwd(dev, flush) -> dict:
     """K2 (dK, dV) and K3 (dQ), both routes, against
     ``flash_bwd_reference`` evaluated in fp32 on the same inputs and
-    residuals, each launch checked to take its dtype's route; times of
-    the fp32 routes at [1, 32, 2047, 128] and of the bf16 kernels at the
-    training shape [2, 32, 2048, 128].  Returns the records keyed "K2"
-    (bf16), "K2 fp32", "K3" (bf16) and "K3 fp32"."""
+    residuals, each launch checked to take its dtype's route (bf16: the
+    tensor-core kernel, fp32: three TF32 passes), the fp32 route twice
+    and bitwise; times of the fp32 routes at [1, 32, 2047, 128] and of
+    the bf16 kernels at the training shape [2, 32, 2048, 128].  Returns
+    the records keyed "K2" (bf16), "K2 fp32", "K3" (bf16) and "K3
+    fp32"."""
     import torch
     import torch.nn.functional as F
 
@@ -790,10 +817,13 @@ def check_flash_bwd(dev, flush) -> dict:
         return q, k, v, do, lse, delta
 
     def routed(fn, what, args, causal):
-        """``fn`` on ``args``, checked to take its dtype's route."""
-        before = fn.tc_launches
+        """``fn`` (K2 or K3) on ``args``, checked to take its dtype's
+        route."""
+        before = route_counts(fn)
         out = fn(*args, causal, args[0].shape[-1] ** -0.5)
-        if fn.tc_launches - before != (args[0].dtype == torch.bfloat16):
+        took = [a - b for a, b in zip(route_counts(fn), before)]
+        if took != routes_want(str(args[0].dtype).split(".")[1],
+                               {what: 1})[what]:
             raise AssertionError(f"{what}: launch took the wrong route")
         return out
 
@@ -811,19 +841,29 @@ def check_flash_bwd(dev, flush) -> dict:
         q, k, v, do, lse, delta = args
         ref = flash_bwd_reference(q.float(), k.float(), v.float(),
                                   do.float(), lse, delta, causal=causal)
+        # fp32: a second launch of each, bitwise the first (one owner
+        # per output tile, no atomics)
+        same = dtype is torch.bfloat16 or all(
+            torch.equal(a, b)
+            for a, b in zip((dk, dv, dq), (*dkv(args, causal),
+                                           dq_(args, causal))))
         torch.cuda.synchronize()
         errs = {}
         for kname, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
                                  ("dv", dv, ref[2])):
             errs[kname] = compare(got, want, name)
-        ok = all(e[1] for e in errs.values())
-        log(f"K2/K3 flash_bwd {name} ({route(name)}) {list(shape)} "
+        ok = all(e[1] for e in errs.values()) and same
+        log(f"K2/K3 flash_bwd {name} ({route(name, 'bwd')}) {list(shape)} "
             f"{'causal' if causal else 'full'}: max_abs_err "
             + ", ".join(f"{k} {e[0]:.3e}" for k, e in errs.items())
-            + f" (atol, rtol {TOL[name]}) -> {'ok' if ok else 'FAIL'}")
+            + f" (atol, rtol {TOL[name]})"
+            + ("" if dtype is torch.bfloat16 else
+               f", two launches {'bitwise' if same else 'DIFFER'}")
+            + f" -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2/K3 disagree with flash_bwd_reference "
-                                 f"at {name} {shape} causal={causal}")
+                                 f"or between launches at {name} {shape} "
+                                 f"causal={causal}")
         return args, errs
 
     def sdpa_backward_ms(args):
@@ -863,12 +903,12 @@ def check_flash_bwd(dev, flush) -> dict:
                         *args, causal=True), reps=5, flush=flush)
                     lib = sdpa_backward_ms(args)
                     records["K2 fp32"] = record(
-                        "flash_bwd_dkv_simt", "dkv", args,
+                        "flash_bwd_dkv_tf32x3", "dkv", args,
                         max(errs["dk"][0], errs["dv"][0]),
                         time_ms(lambda: dkv(args, True), flush=flush),
                         plain, lib)
                     records["K3 fp32"] = record(
-                        "flash_bwd_dq_simt", "dq", args, errs["dq"][0],
+                        "flash_bwd_dq_tf32x3", "dq", args, errs["dq"][0],
                         time_ms(lambda: dq_(args, True), flush=flush),
                         plain, lib)
     args, errs = check((2, 32, 2048, 128), torch.bfloat16, True)
@@ -1231,6 +1271,8 @@ def reset_counts(*wrappers) -> None:
         fn.launches = 0
         if hasattr(fn, "tc_launches"):
             fn.tc_launches = 0
+        if hasattr(fn, "tf32x3_launches"):
+            fn.tf32x3_launches = 0
         if hasattr(fn, "launches_by_rows"):
             fn.launches_by_rows = {}
 
@@ -3672,8 +3714,9 @@ def kernel_kind(name: str) -> str:
                       ("flash_bwd_dkv_tc_kernel", "K2 flash_bwd_dkv_tc"),
                       ("flash_bwd_dq_tc_kernel", "K3 flash_bwd_dq_tc"),
                       ("flash_fwd_kernel", "K1 flash_fwd (SIMT)"),
-                      ("flash_bwd_dkv_kernel", "K2 flash_bwd_dkv (SIMT)"),
-                      ("flash_bwd_dq_kernel", "K3 flash_bwd_dq (SIMT)"),
+                      ("flash_bwd_dkv_tf32x3_kernel",
+                       "K2 flash_bwd_dkv_tf32x3"),
+                      ("flash_bwd_dq_tf32x3_kernel", "K3 flash_bwd_dq_tf32x3"),
                       ("paged_split", "K4 paged_split"),
                       ("paged_combine", "K4 paged_combine"),
                       ("rms_norm_kernel", "rms_norm"),
@@ -5261,14 +5304,20 @@ def exchange_layout_arm(dev, records: dict) -> dict:
         fails.append("wide: zero1 losses differ from ici32's")
     res["wide"] = wide
     log(f"[exchange layout] {json.dumps(res)} on {card_line()}")
+    # the small fp32 arms on the card: K1 on its SIMT kernel, K2 and K3
+    # in three TF32 passes
+    fp32_jobs = [j for name, _, *o in quad
+                 if not name.startswith("wide") and not (
+                     o and o[0].get("device") == "cpu")
+                 for j in jobs(quads, name)] + jobs(pairs, "elastic")
+    for j in fp32_jobs:
+        if j["routes"] != routes_want("float32", j["launches"]):
+            fails.append(f"fp32 arm launches, bf16 tensor-core, three-pass "
+                         f"TF32: {j['routes']}")
     for k in ("K1", "K2", "K3"):
         n = sum(j["launches"][k] for arm in ("ici32", "zero1")
                 for j in jobs(quads, f"wide_{arm}"))
-        n32 = sum(j["launches"][k] for name, _, *o in quad
-                  if not name.startswith("wide") and not (
-                      o and o[0].get("device") == "cpu")
-                  for j in jobs(quads, name))
-        n32 += sum(j["launches"][k] for j in jobs(pairs, "elastic"))
+        n32 = sum(j["launches"][k] for j in fp32_jobs)
         if k in records:
             add_launches(records[k], exchange_layout=n)
         if f"{k} fp32" in records:
@@ -5441,7 +5490,7 @@ def install_journal(directory: str) -> None:
            "save_s": [], "age_s": {}}
 
     def write() -> None:
-        rec["launches"] = {k: [fn.launches, fn.tc_launches] for k, fn in (
+        rec["launches"] = {k: route_counts(fn) for k, fn in (
             ("K1", att.flash_fwd_cuda), ("K2", att.flash_bwd_dkv_cuda),
             ("K3", att.flash_bwd_dq_cuda))}
         tmp = path.with_suffix(".tmp")
@@ -5509,13 +5558,19 @@ def journals(d: Path) -> list[dict]:
 
 def journal_launches(js: list[dict]) -> dict:
     """K1/K2/K3 launches summed over every process: ``{k: [all, on the
-    tensor cores]}``."""
-    out = {k: [0, 0] for k in ("K1", "K2", "K3")}
+    bf16 tensor-core kernel, in three TF32 passes]}``."""
+    out = {k: [0, 0, 0] for k in ("K1", "K2", "K3")}
     for j in js:
-        for k, (n, tc) in j["launches"].items():
-            out[k][0] += n
-            out[k][1] += tc
+        for k, counts in j["launches"].items():
+            out[k] = [a + b for a, b in zip(out[k], counts)]
     return out
+
+
+def fp32_routes_ok(launches: dict) -> bool:
+    """``journal_launches`` of an fp32 run: each kernel launched, each on
+    its fp32 route."""
+    return all(v[0] for v in launches.values()) and launches == \
+        routes_want("float32", {k: v[0] for k, v in launches.items()})
 
 
 def supervised_env(**env) -> None:
@@ -5551,7 +5606,7 @@ def final_losses(d: Path) -> list:
 
 
 def resilience_drills(dev, root: Path, records: dict) -> dict:
-    """Arm 1: the drill matrix on the small fp32 model (K1-K3 SIMT), one
+    """Arm 1: the drill matrix on the small fp32 model (the fp32 K1-K3), one
     rank on card 0, one ``BSP().init(launch="supervised")``; against an
     unsupervised run from the same init checkpoint."""
     from theanompi_tpu_torch import BSP
@@ -5597,10 +5652,9 @@ def resilience_drills(dev, root: Path, records: dict) -> dict:
     if len(got) != RES_EPOCHS * 3 or got != want:
         raise AssertionError(f"resilience drills: losses {got}, the "
                              f"unsupervised run's {want}")
-    if any(tc for _, tc in launches.values()) or \
-            not all(n for n, _ in launches.values()):
+    if not fp32_routes_ok(launches):
         raise AssertionError(f"resilience drills: launches {launches} (fp32 "
-                             f"SIMT kernels, each launched)")
+                             f"kernels, each launched, on their routes)")
     for k in ("K1", "K2", "K3"):
         add_launches(records.setdefault(f"{k} fp32", {}),
                      resilience_drills=launches[k][0])
@@ -5699,8 +5753,7 @@ def resilience_preemption(dev, root: Path, records: dict,
                              f"uninterrupted run's {want}")
     wl = {"K1": 2 * RES_LAYERS * RES_STEPS + RES_LAYERS,
           "K2": RES_LAYERS * RES_STEPS, "K3": RES_LAYERS * RES_STEPS}
-    if {k: v for k, v in launches.items()} != {k: [n, n]
-                                                for k, n in wl.items()}:
+    if launches != routes_want("bfloat16", wl):
         raise AssertionError(f"resilience preemption: launches {launches}, "
                              f"want {wl} all on the tensor cores")
     for k in ("K1", "K2", "K3"):
@@ -5830,10 +5883,9 @@ def resilience_elastic(dev, root: Path, records: dict) -> dict:
     if len(got) != len(want) or rel > RES_ELASTIC_RTOL:
         raise AssertionError(f"resilience elastic: losses {got}, the "
                              f"one-rank resume's {want}")
-    if any(tc for _, tc in launches.values()) or \
-            not all(n for n, _ in launches.values()):
+    if not fp32_routes_ok(launches):
         raise AssertionError(f"resilience elastic: launches {launches} (fp32 "
-                             f"SIMT kernels, each launched)")
+                             f"kernels, each launched, on their routes)")
     for k in ("K1", "K2", "K3"):
         add_launches(records.setdefault(f"{k} fp32", {}),
                      resilience_elastic=launches[k][0])
@@ -5892,8 +5944,8 @@ PT_QUAD = {"tp2_ring": dict(tp=2, sp=2, sp_mode="ring")}
 # init and batches.  bf16: the layouts round other partial sums (two
 # row-parallel partial products, the ring's per-hop merge of o rounded
 # to bf16 by K1, the all-to-alls' other block shapes) and Adam carries
-# that on (measured at most 3.1e-6 over 3 steps on an H100); fp32 (the
-# SIMT kernels): summation order only (measured 7.5e-8)
+# that on (measured at most 3.1e-6 over 3 steps on an H100); fp32:
+# summation order only (measured 7.5e-8)
 PT_RTOL = {"bfloat16": 1e-4, "float32": 1e-5}
 # the L2 norm of each leaf's gradient after the first step's exchange
 # (a sharded leaf's over its model group) against the one-rank run's:
@@ -6150,6 +6202,8 @@ def pt_rank(dev, rank: int, world: int, init: str, jobs: list) -> None:
                 "launches": {k: fn.launches for k, fn in counters.items()},
                 "tc_launches": {k: fn.tc_launches
                                 for k, fn in counters.items()},
+                "routes": {k: route_counts(fn)
+                           for k, fn in counters.items()},
                 "plain_calls": dict(plain_calls),
                 "collective_ms": {k: list(v) for k, v in times.items()},
                 "seq_rank": model.layout.seq.rank,
@@ -6304,10 +6358,10 @@ def pt_check(name: str, dtype: str, layout: dict, ranks: list, ref: dict,
         if job["launches"] != want:
             fails.append(f"rank {r} (seq rank {job['seq_rank']}): "
                          f"launches {job['launches']}, want {want}")
-        tc = job["tc_launches"]
-        if tc != (want if dtype == "bfloat16" else
-                  {k: 0 for k in want}):
-            fails.append(f"rank {r}: tensor-core launches {tc} of {want}")
+        if job["routes"] != routes_want(dtype, want):
+            fails.append(f"rank {r}: launches, bf16 tensor-core, three-pass "
+                         f"TF32 {job['routes']}, want "
+                         f"{routes_want(dtype, want)}")
         if job["plain_calls"]:
             fails.append(f"rank {r}: plain versions or SDPA called "
                          f"{job['plain_calls']}")
@@ -6390,7 +6444,8 @@ def kernels_vs_plain(got: dict, q, k, v, do, lse, delta, causal: bool,
 def pt_kernel_checks(dev, records: dict, *, shapes=None,
                      phase: str = "parallel_train") -> dict:
     """K1, K2 and K3 against their plain versions at every shape of
-    ``pt_path_shapes`` in bf16 (the tensor cores) and fp32 (SIMT), and
+    ``pt_path_shapes`` in bf16 (the tensor cores) and fp32 (K1 SIMT,
+    K2/K3 three TF32 passes), and
     K2/K3 against a GLOBAL (lse, delta): a ring rank's queries over two
     blocks (its diagonal causal, an earlier one full), the lse and o of
     their merge fed to K2/K3 for each block, as the ring's backward
@@ -6546,7 +6601,7 @@ def run_parallel_train_phase(dev, records: dict, card: str) -> None:
     Ulysses) and tp = 2 x sp = 2, ranks on card 0 over gloo, against the
     one-rank run from the same init (drawn whole from the seed, then
     sharded) and batches; each layout in fp32 at the small width (the
-    SIMT kernels) and in bf16 at Llama-3-8B widths (the tensor cores);
+    fp32 kernels) and in bf16 at Llama-3-8B widths (the tensor cores);
     then K1/K2/K3 at the ring's full hop shape."""
     t0 = time.perf_counter()
     refs = {}
@@ -6752,13 +6807,17 @@ TC_OCCUPANCY = {"flash_fwd_tc_kernel": ("flash_fwd",
                 "flash_bwd_dkv_tc_kernel": ("flash_bwd",
                                             "tm_flash_bwd_dkv_tc_occupancy"),
                 "flash_bwd_dq_tc_kernel": ("flash_bwd",
-                                           "tm_flash_bwd_dq_tc_occupancy")}
+                                           "tm_flash_bwd_dq_tc_occupancy"),
+                "flash_bwd_dkv_tf32x3_kernel": (
+                    "flash_bwd", "tm_flash_bwd_dkv_tf32x3_occupancy"),
+                "flash_bwd_dq_tf32x3_kernel": (
+                    "flash_bwd", "tm_flash_bwd_dq_tf32x3_occupancy")}
 
 
 def tc_report(reports: dict) -> dict:
-    """Per tensor-core kernel and head dim: ptxas's registers and
-    spills, the dynamic shared memory and the CTAs the runtime fits on
-    one SM."""
+    """Per tensor-core kernel (bf16, and the fp32 K2/K3 in three TF32
+    passes) and head dim: ptxas's registers and spills, the dynamic
+    shared memory and the CTAs the runtime fits on one SM."""
     import ctypes
 
     from theanompi_tpu_torch.kernels import _build
@@ -6766,7 +6825,8 @@ def tc_report(reports: dict) -> dict:
     out = {}
     for rep in reports.values():
         for e in ptxas_kernels(rep):
-            m = re.search(r"(flash_[a-z_]+_tc_kernel)ILi(\d+)E", e["name"])
+            m = re.search(r"(flash_[a-z_]+_(?:tc|tf32x3)_kernel)ILi(\d+)E",
+                          e["name"])
             if m is None:
                 continue
             kernel, d = m.group(1), int(m.group(2))
@@ -6937,7 +6997,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         for k, kernel in (("K1", "flash_fwd_tc_kernel"),
                           ("K2", "flash_bwd_dkv_tc_kernel"),
-                          ("K3", "flash_bwd_dq_tc_kernel")):
+                          ("K3", "flash_bwd_dq_tc_kernel"),
+                          ("K2 fp32", "flash_bwd_dkv_tf32x3_kernel"),
+                          ("K3 fp32", "flash_bwd_dq_tf32x3_kernel")):
             records[k]["ptxas_d128"] = tc.get(kernel, {}).get(128)
         # the fp32 routes run on the small fp32 models: count them there
         fp32_routes = {"K1 fp32": flash_fwd_cuda,
@@ -6950,9 +7012,13 @@ def main(argv=None) -> int:
             reset_counts(*fp32_routes.values())
             run(dev)
             for k, fn in fp32_routes.items():
-                if fn.tc_launches:
-                    raise AssertionError(f"{path}: fp32 {fn.__name__} took "
-                                         f"the tensor-core route")
+                key = k.split()[0]
+                if route_counts(fn) != routes_want(
+                        "float32", {key: fn.launches})[key]:
+                    raise AssertionError(f"{path}: fp32 {fn.__name__} "
+                                         f"launches, bf16 tensor-core, "
+                                         f"three-pass TF32 "
+                                         f"{route_counts(fn)}")
                 if fn.launches:
                     by_path[k][path] = fn.launches
         for k, paths in by_path.items():

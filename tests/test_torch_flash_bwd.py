@@ -13,7 +13,15 @@ with torch ops on bf16 inputs (K1 rounds P to bf16 before P V, K2 rounds
 P and dS before dV = P^T dO and dK = dS^T Q, K3 rounds dS before
 dQ = dS K), held to the fp32 plain versions and to the Pallas kernels in
 interpret mode within the tolerance the card's kernels are held to
-(atol = rtol = 1e-2)."""
+(atol = rtol = 1e-2).
+
+And the fp32 K2 and K3, which take every product on the tensor cores as
+three TF32 passes: the split (hi rounded as cvt.rna rounds, done with
+integer bit operations; lo = x - hi truncated to TF32) and the three
+products emulated on the plain path, held to the fp32 plain version and
+the Pallas kernels within the card's fp32 tolerance (atol = rtol =
+1e-4), and one pass shown to miss a float64 backward by at least 50
+times what three passes miss."""
 
 import jax
 import jax.numpy as jnp
@@ -315,3 +323,134 @@ def test_k3_bf16_ds_rounding_fits_the_card_tolerance(t, causal):
         jnp.asarray(delta.numpy())[..., None], causal, scale, t, t, True)[0]
     close(dq.float(), dq_ref, "dq vs fp32 plain")
     close(dq.float(), want_dq.astype(jnp.float32), "dq vs Pallas")
+
+
+# -- the fp32 K2 and K3: three TF32 passes on the tensor cores -----------------
+
+FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def tf32_split(x):
+    """(hi, lo) of fp32 ``x`` as ``split_tf32`` in csrc/mma_sm90.cuh
+    takes them: hi rounded to a 10-bit mantissa to nearest, ties away
+    from zero, as cvt.rna.tf32.f32 rounds (half a TF32 ulp added to the
+    bits, the 13 low bits cleared); lo = x - hi in fp32 with its 13 low
+    bits cleared (truncated to TF32)."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+    lo = ((x.numpy() - hi).view(np.uint32) & np.uint32(0xffffe000)).view(
+        np.float32)
+    return torch.from_numpy(hi), torch.from_numpy(lo)
+
+
+def tf32_product(eq, a, b, passes):
+    """``einsum(eq, a, b)`` as the fp32 kernels take it on the tensor
+    cores: three passes sum lo*hi, hi*lo and hi*hi (TF32 products are
+    exact in fp32, the sums fp32); one pass is hi*hi alone."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    if passes == 1:
+        return torch.einsum(eq, ah, bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def tf32_bwd_emulated(q, k, v, do, lse, delta, causal, sm_scale, passes=3):
+    """K2 (dK, dV) and K3 (dQ) in fp32 with every product taken as
+    ``tf32_product`` takes it: S, dP, dV and dK (K2), S, dP and dQ
+    (K3), P and dS in fp32 between them.  Returns (dq, dk, dv)."""
+    s = tf32_product("bhqd,bhkd->bhqk", q, k, passes) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(port_attn.causal_mask(torch.arange(q.shape[2]),
+                                              torch.arange(k.shape[2])),
+                        p, 0.0)
+    dp = tf32_product("bhqd,bhkd->bhqk", do, v, passes)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    return (tf32_product("bhqk,bhkd->bhqd", ds, k, passes),
+            tf32_product("bhqk,bhqd->bhkd", ds, q, passes),
+            tf32_product("bhqk,bhqd->bhkd", p, do, passes))
+
+
+def fp32_case(seed, t, causal):
+    """fp32 q, k, v, dO [1, 2, t, 32] from a seed, with lse and delta
+    from the fp32 forward's plain version (K1 fp32's)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(normal(rng, 1, 2, t, 32))
+                   for _ in range(4))
+    o, lse = port_attn.mha_reference_fwd(q, k, v, causal=causal)
+    return q, k, v, do, lse, (do * o).sum(-1)
+
+
+def pallas_bwd(q, k, v, do, lse, delta, causal, sm_scale):
+    """(dq, dk, dv) of the Pallas dK/dV and dQ kernels in interpret mode
+    on fp32 inputs and the given residuals."""
+    t = q.shape[2]
+    return jax_attn._flash_bwd_call(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, do)),
+        jnp.asarray(lse.numpy())[..., None],
+        jnp.asarray(delta.numpy())[..., None], causal, sm_scale, t, t, True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [15, 64, 65, 130])
+def test_k2_fp32_tf32x3_fits_the_card_tolerance(t, causal):
+    """K2's three TF32 passes against ``flash_bwd_reference`` in fp32
+    and the Pallas dK/dV kernel (fp32, interpret mode), on the residuals
+    of the fp32 forward, within the fp32 tolerance of the card's
+    check."""
+    args = fp32_case(600 + t, t, causal)
+    scale = 32 ** -0.5
+    _, dk, dv = tf32_bwd_emulated(*args, causal, scale)
+    _, dk_ref, dv_ref = port_attn.flash_bwd_reference(*args, causal=causal)
+    _, want_dk, want_dv = pallas_bwd(*args, causal, scale)
+    for got, want, what in ((dk, dk_ref, "dk vs fp32 plain"),
+                            (dv, dv_ref, "dv vs fp32 plain"),
+                            (dk, want_dk, "dk vs Pallas"),
+                            (dv, want_dv, "dv vs Pallas")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=what, **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [15, 64, 65, 130])
+def test_k3_fp32_tf32x3_fits_the_card_tolerance(t, causal):
+    """K3's three TF32 passes (S, dP and dQ = dS K) against
+    ``flash_bwd_reference`` in fp32 and the Pallas dQ kernel (fp32,
+    interpret mode), on the residuals of the fp32 forward, within the
+    fp32 tolerance of the card's check."""
+    args = fp32_case(700 + t, t, causal)
+    scale = 32 ** -0.5
+    dq = tf32_bwd_emulated(*args, causal, scale)[0]
+    dq_ref = port_attn.flash_bwd_reference(*args, causal=causal)[0]
+    want_dq = pallas_bwd(*args, causal, scale)[0]
+    for want, what in ((dq_ref, "dq vs fp32 plain"),
+                       (want_dq, "dq vs Pallas")):
+        np.testing.assert_allclose(dq.numpy(), np.asarray(want),
+                                   err_msg=what, **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_tf32_pass_is_why_there_are_three(causal):
+    """At the same inputs, one TF32 pass (hi*hi) misses the float64
+    backward by at least 50 times what three passes miss, in each of
+    dq, dk and dv: TF32 keeps a 10-bit mantissa, the three passes about
+    fp32's 23 bits."""
+    args = fp32_case(800 + causal, 130, causal)
+    scale = 32 ** -0.5
+    q, k, v, do, lse, delta = (x.double() for x in args)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.tril(p)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, v)
+              - delta[..., None]) * scale
+    exact = (torch.einsum("bhqk,bhkd->bhqd", ds, k),
+             torch.einsum("bhqk,bhqd->bhkd", ds, q),
+             torch.einsum("bhqk,bhqd->bhkd", p, do))
+    three = tf32_bwd_emulated(*args, causal, scale, passes=3)
+    one = tf32_bwd_emulated(*args, causal, scale, passes=1)
+    for name, want, a, b in zip(("dq", "dk", "dv"), exact, three, one):
+        err3 = (a.double() - want).abs().max().item()
+        err1 = (b.double() - want).abs().max().item()
+        assert err1 >= 50 * err3, (name, err1, err3)

@@ -2,7 +2,10 @@
 card, at shapes the serving and training paths do not reach (ragged
 and tiny T, every supported head dim, full attention, multi-row query
 windows), the tensor-core K1 and K2 (bf16) across their tile edges,
-and a small Llama's training steps on the card against the CPU.
+K2 and K3 in fp32 (three TF32 passes on the tensor cores) at every head
+dim, bitwise from run to run and from a layout's heads to the whole
+launch's, and a small Llama's training steps on the card against the
+CPU.
 Marked ``cuda``; each test skips where no CUDA device is present.  Run
 on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 
@@ -91,7 +94,8 @@ def test_flash_fwd_refuses_bad_inputs(dev):
                                  (130, 128), (333, 64)])
 def test_flash_bwd_matches_reference(dev, dtype, causal, t, d):
     """K2 (dk, dv) and K3 (dq) against ``flash_bwd_reference`` in fp32
-    on the same inputs and residuals; each launch counted once."""
+    on the same inputs and residuals; each launch counted once, on its
+    dtype's route (bf16: ``.tc_launches``, fp32: ``.tf32x3_launches``)."""
     from theanompi_tpu_torch.ops.attention import (
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
@@ -104,14 +108,13 @@ def test_flash_bwd_matches_reference(dev, dtype, causal, t, d):
                    .to(dtype) for _ in range(4))
     o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
     delta = (do.float() * o.float()).sum(-1)
-    before = (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches,
-              flash_bwd_dkv_cuda.tc_launches, flash_bwd_dq_cuda.tc_launches)
+    fns = (flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    before = [(f.launches, f.tc_launches, f.tf32x3_launches) for f in fns]
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
     tc = int(dtype is torch.bfloat16)
-    assert (flash_bwd_dkv_cuda.launches, flash_bwd_dq_cuda.launches,
-            flash_bwd_dkv_cuda.tc_launches, flash_bwd_dq_cuda.tc_launches) \
-        == (before[0] + 1, before[1] + 1, before[2] + tc, before[3] + tc)
+    assert [(f.launches, f.tc_launches, f.tf32x3_launches) for f in fns] \
+        == [(n + 1, c + tc, x + 1 - tc) for n, c, x in before]
     want = flash_bwd_reference(q.float(), k.float(), v.float(), do.float(),
                                lse, delta, causal=causal)
     for got, ref in zip((dq, dk, dv), want):
@@ -270,6 +273,92 @@ def test_tc_cross_lengths_full_attention(dev, tq, tk):
     for x, y, ref in zip(a, b, want):
         assert torch.equal(x, y)
         torch.testing.assert_close(x.float(), ref, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", TC_DS)
+@pytest.mark.parametrize("t", TC_TS)
+def test_tf32x3_flash_bwd_fp32_matches_reference(dev, t, d, causal):
+    """K2 (dK, dV) and K3 (dQ) in fp32, three TF32 passes on the tensor
+    cores, against the plain version within the fp32 tolerance, every
+    launch on that route (``.tf32x3_launches``), none on the bf16
+    kernel's."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5 * t + d)
+    q, k, v, do = (torch.randn((1, 2, t, d), generator=gen, device=dev)
+                   for _ in range(4))
+    o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
+    delta = (do * o).sum(-1)
+    fns = (flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    before = [(f.tf32x3_launches, f.tc_launches) for f in fns]
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, d ** -0.5)
+    assert [(f.tf32x3_launches, f.tc_launches) for f in fns] \
+        == [(x + 1, c) for x, c in before]
+    refs = flash_bwd_reference(q, k, v, do, lse, delta, causal=causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ref, **TOL[torch.float32])
+
+
+def fp32_bwd_case(dev, h, t, seed):
+    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((1, h, t, 128), generator=gen, device=dev)
+                   for _ in range(4))
+    o, lse = flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    return q, k, v, do, lse, (do * o).sum(-1)
+
+
+def test_tf32x3_flash_bwd_is_bitwise_at_the_serving_length(dev):
+    """fp32 K2 and K3 at [1, 32, 2047, 128] causal, twice: bitwise the
+    same (one owner per output tile, no atomics)."""
+    from theanompi_tpu_torch.ops.attention import flash_bwd_cuda
+
+    args = fp32_bwd_case(dev, 32, 2047, 19)
+    a = flash_bwd_cuda(*args, True, 128 ** -0.5)
+    b = flash_bwd_cuda(*args, True, 128 ** -0.5)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("t", [65, 2047])
+def test_tf32x3_flash_bwd_heads_of_a_layout_rank_are_bitwise(dev, t):
+    """A tp = 2 rank's [1, 16, T, 128] launch gives bitwise the rows of
+    the matching 16 heads of the one-rank [1, 32, T, 128] launch: a
+    head's rows never depend on the other heads."""
+    from theanompi_tpu_torch.ops.attention import flash_bwd_cuda
+
+    whole = fp32_bwd_case(dev, 32, t, 23)
+    full = flash_bwd_cuda(*whole, True, 128 ** -0.5)
+    for h0 in (0, 16):
+        part = [x[:, h0:h0 + 16].contiguous() for x in whole]
+        for x, y in zip(flash_bwd_cuda(*part, True, 128 ** -0.5), full):
+            assert torch.equal(x, y[:, h0:h0 + 16])
+
+
+def test_tf32x3_kernels_refuse_unaligned_fp32(dev):
+    """fp32 K2 and K3 copy rows 16 bytes at a time: an fp32 view that
+    starts off a 16-byte boundary is refused, not misread."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_cuda,
+        flash_bwd_dq_cuda,
+    )
+
+    n = 2 * 8 * 64
+    x = torch.zeros(n + 1, device=dev)[1:].view(1, 2, 8, 64)
+    r = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="aligned float32"):
+        flash_bwd_cuda(x, x, x, x, r, r, True, 1.0)
+    with pytest.raises(ValueError, match="aligned float32"):
+        flash_bwd_dq_cuda(x, x, x, x, r, r, True, 1.0)
 
 
 def test_tc_kernels_refuse_what_they_cannot_take(dev):

@@ -2,7 +2,9 @@
 // (K1 forward, K2 dK/dV, K3 dQ, K4 paged attention): the m16n8k16 bf16
 // product with an fp32 accumulator, ldmatrix (plain and transposed),
 // cp.async with zero fill (contiguous rows, or rows through a block
-// table), and the padded bf16 tile layout they share.
+// table), and the padded bf16 tile layout they share; and those of the
+// fp32 K2 and K3: the m16n8k8 TF32 product in three passes and its
+// padded fp32 tiles.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4;
 // each 32-bit register holds two bf16, the lower column in the low
@@ -14,6 +16,23 @@
 // Two neighbouring 16x8 accumulator tiles, rounded to bf16 pairwise,
 // are exactly one A fragment (`acc_to_a`), so a product's result feeds
 // the next product without leaving registers.
+//
+// The fp32 kernels (K2 and K3 at fp32) run on the tensor cores through
+// TF32 in three passes: each operand x is split into hi = tf32(x) (to
+// nearest, ties away from zero, as cvt.rna rounds) and lo = tf32(x - hi)
+// (truncated), and a product is lo*hi + hi*lo + hi*hi into one fp32
+// accumulator (the dropped lo*lo and lo's truncation are each at most
+// about 2^-21 of a term).  Fragment layouts of
+// mma.sync.m16n8k8 with tf32 (one value a 32-bit register):
+//   A 16x8 (row):  a0 (g, t)   a1 (g+8, t)   a2 (g, t+4)   a3 (g+8, t+4)
+//   B 8x8  (col):  b0 (k t, n g)   b1 (k t+4, n g)
+//   C 16x8 (f32):  as m16n8k16's
+// A's k = t and t + 4 are not the accumulator's columns 2t and 2t + 1,
+// but a sum over k does not care about its order: an accumulator tile
+// read as an A fragment takes column 2t as k = t and 2t + 1 as k = t + 4
+// (`acc_to_a_tf32x3`), and that product's B fragment reads its rows in
+// the same places (`load_b_cols_tf32x3`), so P and dS feed the next
+// product from registers here too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -219,6 +238,136 @@ __device__ __forceinline__ void acc_to_smem(__nv_bfloat16* tile,
       pack_bf16(c[0], c[1]);
   *reinterpret_cast<uint32_t*>(tile + (g + 8) * Tile<D>::kStride + col) =
       pack_bf16(c[2], c[3]);
+}
+
+// -- fp32 through TF32 in three passes ----------------------------------
+
+// Tiles of fp32 rows D wide, each row padded by 4 floats: a fragment's
+// 32 scalar reads then hit 32 distinct banks both along a row (A, and
+// B of X * Y^T: row g, column t) and down the columns (B of X * Y: rows
+// 2t and 2t + 1, column g), for every D in {16, 32, 64, 128}; rows
+// start 16-byte aligned for cp.async.
+template <int D>
+struct F32Tile {
+  static constexpr int kStride = D + 4;  // floats per row in smem
+  static constexpr int kChunks = D / 4;  // 16-byte chunks per row
+};
+
+// x as hi = x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x
+// (to nearest, ties away from zero: half a TF32 ulp added to the
+// magnitude's bits, the 13 low bits cleared) and lo = x - hi truncated
+// to TF32 (its 13 low bits cleared): the split of CUTLASS's "fast fp32",
+// in four instructions where two cvt.rna and the subtraction take nine
+// (ptxas guards each cvt against NaN and infinity), and the split sets
+// the kernels' pace (PERF.md).  lo of a NaN is a NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// d += a * b on the tensor cores (tf32 operands, fp32 accumulator)
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b to about fp32 accuracy: the two small terms, then hi * hi;
+// b holds {hi0, hi1, lo0, lo1}
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&b)[4]) {
+  mma_tf32(d, alo, b[0], b[1]);
+  mma_tf32(d, ahi, b[2], b[3]);
+  mma_tf32(d, ahi, b[0], b[1]);
+}
+
+// The A fragment (hi, lo) of rows [0, 16) x columns [k0, k0 + 8) of a
+// row-major fp32 tile of row stride `stride` floats
+__device__ __forceinline__ void load_a_tf32x3(uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4],
+                                              const float* tile, int stride,
+                                              int k0, int lane) {
+  const float* p = tile + (lane / 4) * stride + k0 + lane % 4;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * stride], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * stride + 4], hi[3], lo[3]);
+}
+
+// The B fragment {hi0, hi1, lo0, lo1} of a product X * Y^T, Y a
+// row-major fp32 tile whose rows are the n dimension: rows [n0, n0 + 8)
+// x k columns [k0, k0 + 8)
+__device__ __forceinline__ void load_b_rows_tf32x3(uint32_t (&b)[4],
+                                                   const float* tile,
+                                                   int stride, int n0,
+                                                   int k0, int lane) {
+  const float* p = tile + (n0 + lane / 4) * stride + k0 + lane % 4;
+  split_tf32(p[0], b[0], b[2]);
+  split_tf32(p[4], b[1], b[3]);
+}
+
+// The B fragment {hi0, hi1, lo0, lo1} of a product X * Y, Y a row-major
+// fp32 tile whose rows are the k dimension, k in the order of
+// `acc_to_a_tf32x3`: k rows [k0, k0 + 8) x n columns [n0, n0 + 8)
+__device__ __forceinline__ void load_b_cols_tf32x3(uint32_t (&b)[4],
+                                                   const float* tile,
+                                                   int stride, int k0,
+                                                   int n0, int lane) {
+  const float* p = tile + (k0 + 2 * (lane % 4)) * stride + n0 + lane / 4;
+  split_tf32(p[0], b[0], b[2]);
+  split_tf32(p[stride], b[1], b[3]);
+}
+
+// An accumulator tile (16 x 8) as the A fragment (hi, lo) of the next
+// product, k = t from column 2t and k = t + 4 from column 2t + 1
+__device__ __forceinline__ void acc_to_a_tf32x3(uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4],
+                                                const float (&c)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// rows [r0, r0 + R) of a [t, D] fp32 matrix into a padded tile by
+// cp.async, kThreads threads (this one is `tid`) taking 16-byte chunks
+// in turn; rows past t are zero-filled (their source clamped to row 0)
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_f32_tile_async(float* dst,
+                                                    const float* src, int r0,
+                                                    int t, int tid) {
+  using L = F32Tile<D>;
+  for (int i = tid; i < R * L::kChunks; i += kThreads) {
+    const int r = i / L::kChunks, c = (i % L::kChunks) * 4;
+    const bool valid = r0 + r < t;
+    cp_async_16(dst + r * L::kStride + c,
+                src + (valid ? static_cast<size_t>(r0 + r) * D + c : 0),
+                valid);
+  }
+}
+
+// an accumulator tile (rows g, g + 8; columns 2t, 2t + 1 of an n8 tile
+// at column c0) into rows [r0, r0 + 16) of a [t, D] fp32 matrix, rows
+// past t skipped
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* dst, const float (&c)[4],
+                                              int r0, int c0, int t,
+                                              int lane) {
+  const int r = r0 + lane / 4, col = c0 + (lane % 4) * 2;
+  if (r < t)
+    *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * D + col) =
+        make_float2(c[0], c[1]);
+  if (r + 8 < t)
+    *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8) * D + col) =
+        make_float2(c[2], c[3]);
 }
 
 }  // namespace tmt

@@ -10,14 +10,18 @@ Each argument names a source (``fwd``: K1 in ``csrc/flash_fwd.cu``,
 lines; a bare name is the source as it stands.  Every variant is
 compiled as ``_build`` compiles (all at once, into
 ``build/theanompi_tpu_torch/tune/``), and its ptxas registers and
-spills of the tensor-core kernels at D = 128 are printed.  fwd and bwd
-variants: bf16 results checked against the plain version in fp32 at
-six shapes (worst error as a fraction of atol = rtol = 1e-2; K2 and K3
-also bitwise across two runs), each kernel timed (median of 20
-launches, cold L2, CUDA events) at the training shape [2, 32, 2048,
-128] and the serving shape [1, 32, 2047, 128], causal, in two passes
-(in order, then reversed), SDPA's forward and backward at the training
-shape last as the yardstick.  paged variants: both dtypes checked
+spills of the tensor-core kernels at D = 128 (bf16, and the fp32 K2
+and K3 in three TF32 passes) are printed.  fwd and bwd variants: bf16
+results checked against the plain version in fp32 at six shapes (worst
+error as a fraction of atol = rtol = 1e-2; K2 and K3 also bitwise
+across two runs), each kernel timed (median of 20 launches, cold L2,
+CUDA events) at the training shape [2, 32, 2048, 128] and the serving
+shape [1, 32, 2047, 128], causal, in two passes (in order, then
+reversed), SDPA's forward and backward at the training shape last as
+the yardstick.  bwd variants also run their fp32 route: checked at the
+same six shapes (atol = rtol = 1e-4, bitwise across two runs) and
+timed at [1, 32, 2047, 128] causal in the same two passes, beside
+SDPA's fp32 backward there.  paged variants: both dtypes checked
 against the gather path (tolerance 1e-4 fp32, 1e-2 bf16; bitwise
 across two runs), bf16 timed the same way at the decode shape (S=8,
 Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and the 16-row verify shape
@@ -73,7 +77,7 @@ def build_variants(variants) -> dict:
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         for blk in log.split("Compiling entry function '")[1:]:
-            kernel = re.search(r"(\w+_tc_kernel)ILi128E",
+            kernel = re.search(r"(\w+_(?:tc|tf32x3)_kernel)ILi128E",
                                blk.split("'", 1)[0])
             if kernel:
                 regs = re.search(r"Used (\d+) registers", blk).group(1)
@@ -115,18 +119,20 @@ def frac(got, ref, tol=1e-2):
 
 
 def tune_flash(libs, kinds, dev, flush) -> None:
-    """Check and time the fwd (K1) and bwd (K2 and K3) variants."""
+    """Check and time the fwd (K1, bf16) and bwd (K2 and K3, bf16 and
+    fp32) variants."""
     import torch
     import torch.nn.functional as F
 
     from theanompi_tpu_torch.ops import attention as A
 
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    bf16, f32 = torch.bfloat16, torch.float32
 
     def call(name, q, k, v, do, lse, delta, causal, fn_name=None):
-        """The variant's kernel on bf16 [B, H, T, D] inputs: (o, lse)
-        for K1, (dk, dv) for K2 (``tm_flash_bwd_dkv``), (dq,) for K3
-        (``tm_flash_bwd_dq``)."""
+        """The variant's kernel on [B, H, T, D] inputs of q's dtype:
+        (o, lse) for K1, (dk, dv) for K2 (``tm_flash_bwd_dkv``), (dq,)
+        for K3 (``tm_flash_bwd_dq``)."""
         b, h, t, d = q.shape
         stream = torch.cuda.current_stream().cuda_stream
         if kinds[name] == "fwd":
@@ -142,29 +148,36 @@ def tune_flash(libs, kinds, dev, flush) -> None:
         ptrs = [x.data_ptr() for x in (*ins, *outs)]
         fn.argtypes = [p_] * len(ptrs) + [i_] * 4 + [f_, i_, i_, p_]
         err = fn(*ptrs, b * h, t, k.shape[2], d, d ** -0.5, int(causal),
-                 A.KERNEL_DTYPES[torch.bfloat16], stream)
+                 A.KERNEL_DTYPES[q.dtype], stream)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err}")
         return outs
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = []
-    for shape, causal in SHAPES:
-        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
-                       .to(torch.bfloat16) for _ in range(4))
-        o, lse = A.mha_reference_fwd(q.float(), k.float(), v.float(),
-                                     causal=causal)
-        delta = (do.float() * o).sum(-1)
-        ref = A.flash_bwd_reference(q.float(), k.float(), v.float(),
-                                    do.float(), lse, delta, causal=causal)
-        cases.append(((q, k, v, do, lse, delta, causal), (o, lse), ref))
-    # (variant, entry point): K2 and K3 of a bwd variant are timed apart
-    runs = [(name, fn) for name in libs
-            for fn in ((None,) if kinds[name] == "fwd" else
-                       ("tm_flash_bwd_dkv", "tm_flash_bwd_dq"))]
-    for name, fn in runs:
-        worst = 0.0
-        for args, (o, lse), (dq, dk, dv) in cases:
+    cases = {bf16: [], f32: []}
+    for dtype in cases:
+        for shape, causal in SHAPES:
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                           .to(dtype) for _ in range(4))
+            o, lse = A.mha_reference_fwd(q.float(), k.float(), v.float(),
+                                         causal=causal)
+            delta = (do.float() * o).sum(-1)
+            ref = A.flash_bwd_reference(q.float(), k.float(), v.float(),
+                                        do.float(), lse, delta,
+                                        causal=causal)
+            cases[dtype].append(((q, k, v, do, lse, delta, causal),
+                                 (o, lse), ref))
+    # (variant, entry point, dtype): K2 and K3 of a bwd variant are timed
+    # apart, in both dtypes
+    runs = [(name, fn, dtype) for name in libs
+            for fn, dtype in (((None, bf16),) if kinds[name] == "fwd" else
+                              (("tm_flash_bwd_dkv", bf16),
+                               ("tm_flash_bwd_dq", bf16),
+                               ("tm_flash_bwd_dkv", f32),
+                               ("tm_flash_bwd_dq", f32)))]
+    for name, fn, dtype in runs:
+        worst, err, tol = 0.0, 0.0, 1e-2 if dtype is bf16 else 1e-4
+        for args, (o, lse), (dq, dk, dv) in cases[dtype]:
             got = call(name, *args, fn_name=fn)
             if kinds[name] == "fwd":
                 worst = max(worst, frac(got[0], o),
@@ -172,31 +185,45 @@ def tune_flash(libs, kinds, dev, flush) -> None:
                 continue
             again = call(name, *args, fn_name=fn)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{name} {fn}: two runs differ")
+                raise AssertionError(f"{name} {fn} {dtype}: two runs "
+                                     f"differ")
             want = (dq,) if fn == "tm_flash_bwd_dq" else (dk, dv)
-            worst = max([worst] + [frac(a, b) for a, b in zip(got, want)])
-        print(f"{name} {fn or ''}: worst error / tolerance {worst:.3f}",
-              flush=True)
+            worst = max([worst] + [frac(a, b, tol)
+                                   for a, b in zip(got, want)])
+            err = max([err] + [(a.float() - b).abs().max().item()
+                               for a, b in zip(got, want)])
+        print(f"{name} {fn or ''} {dtype}: worst error / tolerance "
+              f"{worst:.3f} (atol = rtol = {tol}), max abs error "
+              f"{err:.3e}", flush=True)
+    # bf16 at the training and serving shapes, fp32 at the serving shape
+    timed = {bf16: cases[bf16][:2], f32: cases[f32][1:2]}
     times = {run: [] for run in runs}
     for order in (runs, runs[::-1]):
-        for name, fn in order:
-            for args, _, _ in cases[:2]:
-                times[name, fn].append(time_ms(
+        for name, fn, dtype in order:
+            for args, _, _ in timed[dtype]:
+                times[name, fn, dtype].append(time_ms(
                     lambda: call(name, *args, fn_name=fn), flush))
-    for (name, fn), ts in times.items():
-        print(f"{name} {fn or ''}: ms at the training shape {ts[0]:.4f}, "
-              f"{ts[2]:.4f}; at the serving shape {ts[1]:.4f}, {ts[3]:.4f} "
-              f"(passes 1, 2)")
-    q, k, v, do = cases[0][0][:4]
-    fwd_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        flush)
-    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), do,
-                                                 retain_graph=True), flush)
-    print(f"sdpa at the training shape: forward {fwd_ms:.4f} ms, backward "
-          f"(dq, dk, dv) {bwd_ms:.4f} ms")
+    for (name, fn, dtype), ts in times.items():
+        if dtype is bf16:
+            print(f"{name} {fn or ''} {dtype}: ms at the training shape "
+                  f"{ts[0]:.4f}, {ts[2]:.4f}; at the serving shape "
+                  f"{ts[1]:.4f}, {ts[3]:.4f} (passes 1, 2)")
+        else:
+            print(f"{name} {fn} {dtype}: ms at the serving shape "
+                  f"{ts[0]:.4f}, {ts[1]:.4f} (passes 1, 2)")
+    for dtype, (args, _, _) in ((bf16, cases[bf16][0]),
+                                (f32, cases[f32][1])):
+        q, k, v, do = args[:4]
+        fwd_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            flush)
+        qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), do,
+                                                     retain_graph=True),
+                         flush)
+        print(f"sdpa {dtype} {list(q.shape)}: forward {fwd_ms:.4f} ms, "
+              f"backward (dq, dk, dv) {bwd_ms:.4f} ms")
 
 
 def paged_inputs(dev, dtype, gen, nq, *, s=8, hkv=8, rep=4, hd=128, bs=16,
