@@ -27,15 +27,17 @@ phase's seconds are printed at the end):
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
    source, all at once), with the build time; ptxas's report
    (registers, spills) and the shared memory and CTAs per SM of the
-   flash tensor-core kernels (bf16, and fp32 K2/K3);
+   flash tensor-core kernels (bf16, and fp32 K1-K3);
 2. kernels — each kernel against its plain PyTorch version on the
    card, at the shapes the serving and training paths give it, with
    its error, tolerance and times (kernel, plain version, and the one
    PyTorch call computing the same function, where there is one): K1,
-   K2 and K3 on both routes (bf16 on the tensor cores; fp32 K1 on the
-   SIMT kernel, fp32 K2 and K3 on the tensor cores in three TF32
-   passes, each launch's route checked and two launches bitwise), K4
-   (split and merge) at the decode shape, the 16-row verify shape and past one row group (20, 32, 64 rows), the serving
+   K2 and K3 on both routes (bf16 on the tensor cores; fp32 on the
+   tensor cores in three TF32 passes, each launch's route checked, two
+   launches bitwise, and fp32 K1 at a tp = 2 rank's heads bitwise those
+   rows of the whole launch), K4 (split and merge) at the decode shape,
+   the 16-row verify shape and past one row group (20, 32, 64 rows;
+   fp32 also timed at the decode and 16-row verify shapes), the serving
    RMS norm kernel also at [32, 16384] (not a TPU kernel: every
    norm of the serving decoder, one CTA a row) at 8, 32 and 64 rows
    within one bf16 ulp or 1e-6 in fp32 (64 rows: every paged decode and
@@ -186,7 +188,7 @@ phase's seconds are printed at the end):
    (``chip_smoke.py --pt-rank r``) that run in turn tp = 2, sp = 2 with
    ring attention and sp = 2 with Ulysses, then four that run tp = 2 x
    sp = 2 (ring); each layout first at the small width in fp32 (SGD at
-   lr 0.5; K1 on the SIMT kernel, K2 and K3 in three TF32 passes),
+   lr 0.5; K1, K2 and K3 in three TF32 passes),
    then at Llama-3-8B widths,
    ``PT_LAYERS`` deep, seq 8192, batch 1, bf16, Adam, remat, the
    chunked head (the tensor cores), ``PT_STEPS`` steps from the same
@@ -362,8 +364,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (dense): bytes/s, and ops/s by the
-# route's arithmetic: bf16 and fp32 (CUDA cores, fp32 K1) at their
-# peaks; fp32 K2/K3 three TF32 passes on the tensor cores (495 TF/s),
+# route's arithmetic: bf16 and fp32 (CUDA cores: fp32 K4) at their
+# peaks; fp32 K1-K3 three TF32 passes on the tensor cores (495 TF/s),
 # so a third of the TF32 rate in fp32 operations
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
@@ -631,36 +633,38 @@ def bound(ops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def route(dtype_name: str, kernel: str = "fwd") -> str:
-    """Which kernel of K1 (``"fwd"``), K2 or K3 a dtype takes on the
-    card."""
+def route(dtype_name: str) -> str:
+    """Which kernel of K1, K2 or K3 a dtype takes on the card."""
     if dtype_name == "bfloat16":
         return "tensor cores"
-    return "SIMT" if kernel == "fwd" else "tensor cores, three TF32 passes"
+    return "tensor cores, three TF32 passes"
 
 
 def route_counts(fn) -> list:
     """A K1-K3 wrapper's [launches, bf16 tensor-core launches, three-pass
-    TF32 launches]; K1 has no three-pass route."""
-    return [fn.launches, fn.tc_launches, getattr(fn, "tf32x3_launches", 0)]
+    TF32 launches]."""
+    return [fn.launches, fn.tc_launches, fn.tf32x3_launches]
 
 
 def routes_want(dtype_name: str, launches: dict) -> dict:
     """The ``route_counts`` K1-K3 (keys "K1", "K2", "K3") must show after
-    ``launches`` of each in ``dtype_name``: bf16 all on the tensor
-    cores; fp32 K1 on its SIMT kernel, K2 and K3 in three TF32 passes."""
+    ``launches`` of each in ``dtype_name``: bf16 all on the bf16 tensor
+    cores, fp32 all in three TF32 passes."""
     if dtype_name == "bfloat16":
         return {k: [n, n, 0] for k, n in launches.items()}
-    return {k: [n, 0, 0 if k == "K1" else n] for k, n in launches.items()}
+    return {k: [n, 0, n] for k, n in launches.items()}
 
 
 def check_flash(dev, flush) -> dict:
     """K1 against ``mha_reference_fwd`` evaluated in fp32 on both routes
-    (fp32: SIMT, bf16: tensor cores) at the serving shapes, each launch
-    checked to take its dtype's route; times at T = 2047 for both, and
-    at the training shape [2, 32, 2048, 128] bf16; both dtypes also at
-    a tp = 2 rank's 16 heads (``tp_rank_shape``).  Returns the records
-    of the two routes, keyed "K1" (bf16) and "K1 fp32"."""
+    (bf16: the bf16 tensor-core kernel, fp32: three TF32 passes) at the
+    serving shapes, each launch checked to take its dtype's route, the
+    fp32 route at T = 2047 twice and bitwise; times at T = 2047 for
+    both, and at the training shape [2, 32, 2048, 128] bf16; both dtypes
+    also at a tp = 2 rank's 16 heads (``tp_rank_shape``: the second half
+    of the 32-head inputs' heads, fp32 bitwise those rows of the 32-head
+    launch).  Returns the records of the two routes, keyed "K1" (bf16)
+    and "K1 fp32"."""
     import torch
     import torch.nn.functional as F
 
@@ -671,16 +675,16 @@ def check_flash(dev, flush) -> dict:
     )
 
     def run(q, k, v, name):
-        before = flash_fwd_cuda.tc_launches
+        before = route_counts(flash_fwd_cuda)
         out = flash_fwd_cuda(q, k, v, True, q.shape[-1] ** -0.5)
-        took = flash_fwd_cuda.tc_launches - before
-        if took != (name == "bfloat16"):
+        took = [a - b for a, b in zip(route_counts(flash_fwd_cuda), before)]
+        if took != routes_want(name, {"K1": 1})["K1"]:
             raise AssertionError(f"K1 {name}: launch took the wrong route")
         return out
 
     gen = torch.Generator(device=dev).manual_seed(1)
     h, hd = 32, 128
-    records = {}
+    records, full = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for t in (16, 512, 2047):
@@ -689,6 +693,7 @@ def check_flash(dev, flush) -> dict:
                 .to(dtype) for _ in range(3)
             )
             o, lse = run(q, k, v, name)
+            full[name, t] = (q, k, v, o, lse)
             o_ref, lse_ref = mha_reference_fwd(
                 q.float(), k.float(), v.float(), causal=True
             )
@@ -705,6 +710,16 @@ def check_flash(dev, flush) -> dict:
                                      f"at {name} T={t}")
             if t != 2047:
                 continue
+            tc = name == "bfloat16"
+            if not tc:
+                # one owner per output row, no atomics: a second launch
+                # is bitwise the first
+                same = all(torch.equal(a, b) for a, b in
+                           zip((o, lse), run(q, k, v, name)))
+                log(f"K1 flash_fwd {name} [1,{h},{t},{hd}]: two launches "
+                    f"{'bitwise' if same else 'DIFFER'}")
+                if not same:
+                    raise AssertionError(f"K1 {name}: two launches differ")
             ms = time_ms(lambda: run(q, k, v, name), flush=flush)
             plain = time_ms(lambda: mha_reference(q, k, v, causal=True),
                             flush=flush)
@@ -712,10 +727,10 @@ def check_flash(dev, flush) -> dict:
                 q, k, v, is_causal=True), flush=flush)
             b_ms, b_by = bound(
                 flash_ops("fwd", q.shape),
-                4 * q.numel() * q.element_size() + lse.numel() * 4, name)
-            tc = name == "bfloat16"
+                4 * q.numel() * q.element_size() + lse.numel() * 4,
+                name if tc else "tf32x3")
             records["K1" if tc else "K1 fp32"] = {
-                "name": "flash_fwd_tc" if tc else "flash_fwd_simt",
+                "name": "flash_fwd_tc" if tc else "flash_fwd_tf32x3",
                 "route": "cuda",
                 "source": "theanompi_tpu_torch/csrc/flash_fwd.cu",
                 "replaces": "theanompi_tpu/ops/attention.py:146",
@@ -727,27 +742,38 @@ def check_flash(dev, flush) -> dict:
             log(f"K1 times {name} ({route(name)}) T={t}: kernel {ms:.4f} "
                 f"ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by})")
-    # serving_tp's v1 prefill at tp = 2: 16 q heads a rank
+    # serving_tp's v1 prefill at tp = 2: rank 1's 16 q heads of the
+    # 32-head inputs
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         rank = records["K1" if name == "bfloat16" else "K1 fp32"][
             "tp_rank_shape"] = {}
         for t in (16, 512, 2047):
-            q, k, v = (torch.randn((1, h // 2, t, hd), generator=gen,
-                                   device=dev).to(dtype) for _ in range(3))
+            q, k, v, o32, lse32 = full[name, t]
+            q, k, v = (x[:, h // 2:].contiguous() for x in (q, k, v))
             o, lse = run(q, k, v, name)
             o_ref, lse_ref = mha_reference_fwd(
                 q.float(), k.float(), v.float(), causal=True)
             err, ok_o = compare(o, o_ref, name)
             lerr, ok_l = compare(lse, lse_ref, "float32")
-            ok = ok_o and ok_l
+            # fp32: bitwise the 32-head launch's rows of these heads
+            same = name == "bfloat16" or (
+                torch.equal(o, o32[:, h // 2:])
+                and torch.equal(lse, lse32[:, h // 2:]))
+            ok = ok_o and ok_l and same
             rank[f"[1,{h // 2},{t},{hd}]"] = max(err, lerr)
             log(f"K1 flash_fwd {name} ({route(name)}) [1,{h // 2},{t},{hd}] "
                 f"causal (a tp = 2 rank): max_abs_err o {err:.3e}, lse "
-                f"{lerr:.3e} -> {'ok' if ok else 'FAIL'}")
+                f"{lerr:.3e}"
+                + ("" if name == "bfloat16" else
+                   f", {'bitwise' if same else 'NOT bitwise'} the 32-head "
+                   f"launch's rows")
+                + f" -> {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"K1 disagrees with mha_reference at "
-                                     f"{name} [1,{h // 2},{t},{hd}]")
+                raise AssertionError(f"K1 disagrees with mha_reference or "
+                                     f"the 32-head launch at {name} "
+                                     f"[1,{h // 2},{t},{hd}]")
+    del full
     # the training path's shape: two sequences of 2048, bf16, causal
     q, k, v = (torch.randn((2, h, 2048, hd), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -853,7 +879,7 @@ def check_flash_bwd(dev, flush) -> dict:
                                  ("dv", dv, ref[2])):
             errs[kname] = compare(got, want, name)
         ok = all(e[1] for e in errs.values()) and same
-        log(f"K2/K3 flash_bwd {name} ({route(name, 'bwd')}) {list(shape)} "
+        log(f"K2/K3 flash_bwd {name} ({route(name)}) {list(shape)} "
             f"{'causal' if causal else 'full'}: max_abs_err "
             + ", ".join(f"{k} {e[0]:.3e}" for k, e in errs.items())
             + f" (atol, rtol {TOL[name]})"
@@ -946,12 +972,12 @@ def check_paged(dev, flush) -> dict:
     decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128), the
     16-row verify shape (Q=4) and past one row group of 16: 20, 32 and
     64 rows (Q = 5, 8, 16; ``speculate_k`` 8 gives 32), and at a tp = 2
-    rank's 4 kv heads (Q = 1 and 4); bf16 timed at 1, 16 and 32 rows.
-    At the decode
-    shape the record also holds the split length the built library
-    reports and the CTAs its split kernel counted on the card in one
-    call: launched, and live (not exited early).  Returns K4's
-    record."""
+    rank's 4 kv heads (Q = 1 and 4); bf16 timed at 1, 16 and 32 rows,
+    fp32 (the CUDA-core split kernel, each launch checked to take it) at
+    1 and 16.  At the decode shape the bf16 record also holds the split
+    length the built library reports and the CTAs its split kernel
+    counted on the card in one call: launched, and live (not exited
+    early).  Returns the records keyed "K4" (bf16) and "K4 fp32"."""
     import torch
 
     from theanompi_tpu_torch.kernels.tune import paged_inputs
@@ -962,7 +988,7 @@ def check_paged(dev, flush) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    record, wide = {}, {}
+    record, fp32, wide = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for nq in (1, 4, 5, 8, 16):
@@ -980,7 +1006,33 @@ def check_paged(dev, flush) -> dict:
                                      f"at {name} Q={nq}")
             if nq > 4:
                 wide.setdefault(f"{4 * nq} rows", {})[name] = err
-            if dtype is not torch.bfloat16 or nq in (5, 16):
+            if nq in (5, 16) or (dtype is torch.float32 and nq == 8):
+                continue
+            if dtype is torch.float32:
+                tc = paged_attend_cuda.tc_launches
+                ms = time_ms(lambda: paged_attend_cuda(*args), flush=flush)
+                if paged_attend_cuda.tc_launches != tc:
+                    raise AssertionError("K4 float32: a launch took the "
+                                         "tensor-core route")
+                plain = time_ms(lambda: paged_attend_reference(*args),
+                                flush=flush)
+                b_ms, b_by, walked = paged_bound(args)
+                log(f"K4 times float32 Q={nq} ({4 * nq} rows): kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} "
+                    f"ms ({b_by}, {walked} walked positions)")
+                at = {"shape": f"S=8 Q={nq} Hkv=8 rep=4 hd=128 bs=16 "
+                               f"MB=128 float32 ({4 * nq} rows)",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "bound_ms": b_ms, "bound_by": b_by}
+                if nq == 4:
+                    fp32["verify_shape"] = at
+                else:
+                    fp32.update(at, name="paged_attend_simt", route="cuda",
+                                source="theanompi_tpu_torch/csrc/"
+                                       "paged_attend.cu",
+                                replaces="theanompi_tpu/serving/"
+                                         "paged_attention.py:67",
+                                launches=None, library_ms=None)
                 continue
             ms = time_ms(lambda: paged_attend_cuda(*args), flush=flush)
             plain = time_ms(lambda: paged_attend_reference(*args),
@@ -1035,7 +1087,7 @@ def check_paged(dev, flush) -> dict:
                 raise AssertionError(f"K4 disagrees with the gather path "
                                      f"at {name} Q={nq} Hkv=4")
     log(f"K4 past one row group of 16: {json.dumps(wide)}")
-    return record
+    return {"K4": record, "K4 fp32": fp32}
 
 
 def ulp_bf16(ref):
@@ -1275,6 +1327,21 @@ def reset_counts(*wrappers) -> None:
             fn.tf32x3_launches = 0
         if hasattr(fn, "launches_by_rows"):
             fn.launches_by_rows = {}
+
+
+def count_fp32_k4(records: dict, path: str, run, dev) -> None:
+    """``run(dev)``, a small fp32 model's path, with K4's counts reset
+    just before: every launch must take the CUDA-core route, and their
+    count goes to the "K4 fp32" record under ``path``."""
+    from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
+
+    reset_counts(paged_attend_cuda)
+    run(dev)
+    n, tc = paged_attend_cuda.launches, paged_attend_cuda.tc_launches
+    if tc or not n:
+        raise AssertionError(f"{path}: fp32 K4 launches {n}, {tc} of them "
+                             f"on the tensor cores")
+    add_launches(records.setdefault("K4 fp32", {}), **{path: n})
 
 
 def check_tc_route(what: str, fn) -> None:
@@ -2270,7 +2337,7 @@ class FleetCounts:
                "decode_calls_by_replica": [dc.n for _, dc, _ in self.calls],
                "prefill_calls_by_replica": [pc.n for _, _, pc in self.calls]}
         want = (layers * decode, (2 * layers + 1) * (decode + prefill))
-        # bf16 takes K4's tensor-core kernel, fp32 its SIMT one
+        # bf16 takes K4's tensor-core kernel, fp32 its CUDA-core one
         tc = out["k4_launches"] if self.calls[0][0].model.compute_dtype \
             == torch.bfloat16 else 0
         if (out["k4_launches"], out["rms_norm_launches"]) != want \
@@ -3135,12 +3202,14 @@ def run_serving_tp(dev, n_layers: int, records: dict) -> None:
         f"step {json.dumps(step)} (rank 0; tp=2 over gloo staging through "
         f"the host); sessions {sessions_s:.1f} s on {card}")
     out["tcp"] = tp_tcp_arm(dev, reqs)
-    # the v1 sessions are fp32: their K1 launches took the SIMT route
-    for k, key in (("K1 fp32", "K1"), ("K4", "K4"),
-                   ("rms_norm", "rms_norm")):
+    # the v1 sessions are fp32 (K1 in three TF32 passes); K4 by dtype
+    for k, key, dtype in (("K1 fp32", "K1", ""), ("K4", "K4", "bfloat16"),
+                          ("K4 fp32", "K4", "float32"),
+                          ("rms_norm", "rms_norm", "")):
         if k in records:
             add_launches(records[k], **{
-                f"serving_tp_{r}": sum(c[key] for c in counts.values())
+                f"serving_tp_{r}": sum(c[key] for sess, c in counts.items()
+                                       if sess.startswith(dtype))
                 for r, counts in per_rank.items()})
 
 
@@ -3713,7 +3782,7 @@ def kernel_kind(name: str) -> str:
     for key, kind in (("flash_fwd_tc_kernel", "K1 flash_fwd_tc"),
                       ("flash_bwd_dkv_tc_kernel", "K2 flash_bwd_dkv_tc"),
                       ("flash_bwd_dq_tc_kernel", "K3 flash_bwd_dq_tc"),
-                      ("flash_fwd_kernel", "K1 flash_fwd (SIMT)"),
+                      ("flash_fwd_tf32x3_kernel", "K1 flash_fwd_tf32x3"),
                       ("flash_bwd_dkv_tf32x3_kernel",
                        "K2 flash_bwd_dkv_tf32x3"),
                       ("flash_bwd_dq_tf32x3_kernel", "K3 flash_bwd_dq_tf32x3"),
@@ -5304,8 +5373,8 @@ def exchange_layout_arm(dev, records: dict) -> dict:
         fails.append("wide: zero1 losses differ from ici32's")
     res["wide"] = wide
     log(f"[exchange layout] {json.dumps(res)} on {card_line()}")
-    # the small fp32 arms on the card: K1 on its SIMT kernel, K2 and K3
-    # in three TF32 passes
+    # the small fp32 arms on the card: K1, K2 and K3 in three TF32
+    # passes
     fp32_jobs = [j for name, _, *o in quad
                  if not name.startswith("wide") and not (
                      o and o[0].get("device") == "cpu")
@@ -6444,8 +6513,8 @@ def kernels_vs_plain(got: dict, q, k, v, do, lse, delta, causal: bool,
 def pt_kernel_checks(dev, records: dict, *, shapes=None,
                      phase: str = "parallel_train") -> dict:
     """K1, K2 and K3 against their plain versions at every shape of
-    ``pt_path_shapes`` in bf16 (the tensor cores) and fp32 (K1 SIMT,
-    K2/K3 three TF32 passes), and
+    ``pt_path_shapes`` in bf16 (the tensor cores) and fp32 (three TF32
+    passes), and
     K2/K3 against a GLOBAL (lse, delta): a ring rank's queries over two
     blocks (its diagonal causal, an earlier one full), the lse and o of
     their merge fed to K2/K3 for each block, as the ring's backward
@@ -6804,6 +6873,8 @@ def ptxas_kernels(report: str) -> list[dict]:
 
 TC_OCCUPANCY = {"flash_fwd_tc_kernel": ("flash_fwd",
                                         "tm_flash_fwd_tc_occupancy"),
+                "flash_fwd_tf32x3_kernel": (
+                    "flash_fwd", "tm_flash_fwd_tf32x3_occupancy"),
                 "flash_bwd_dkv_tc_kernel": ("flash_bwd",
                                             "tm_flash_bwd_dkv_tc_occupancy"),
                 "flash_bwd_dq_tc_kernel": ("flash_bwd",
@@ -6815,7 +6886,7 @@ TC_OCCUPANCY = {"flash_fwd_tc_kernel": ("flash_fwd",
 
 
 def tc_report(reports: dict) -> dict:
-    """Per tensor-core kernel (bf16, and the fp32 K2/K3 in three TF32
+    """Per tensor-core kernel (bf16, and the fp32 K1-K3 in three TF32
     passes) and head dim: ptxas's registers and spills, the dynamic
     shared memory and the CTAs the runtime fits on one SM."""
     import ctypes
@@ -6991,13 +7062,14 @@ def main(argv=None) -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.int32, device=dev)
         records.update(check_flash(dev, flush))
         records.update(check_flash_bwd(dev, flush))
-        records["K4"] = check_paged(dev, flush)
+        records.update(check_paged(dev, flush))
         records["rms_norm"] = check_rms_norm(dev, flush)
         del flush
         torch.cuda.empty_cache()
         for k, kernel in (("K1", "flash_fwd_tc_kernel"),
                           ("K2", "flash_bwd_dkv_tc_kernel"),
                           ("K3", "flash_bwd_dq_tc_kernel"),
+                          ("K1 fp32", "flash_fwd_tf32x3_kernel"),
                           ("K2 fp32", "flash_bwd_dkv_tf32x3_kernel"),
                           ("K3 fp32", "flash_bwd_dq_tf32x3_kernel")):
             records[k]["ptxas_d128"] = tc.get(kernel, {}).get(128)
@@ -7005,11 +7077,11 @@ def main(argv=None) -> int:
         fp32_routes = {"K1 fp32": flash_fwd_cuda,
                        "K2 fp32": flash_bwd_dkv_cuda,
                        "K3 fp32": flash_bwd_dq_cuda}
-        by_path = {k: {} for k in fp32_routes}
+        by_path = {k: {} for k in (*fp32_routes, "K4 fp32")}
         for path, run in (("reference_serving_fp32", check_reference),
                           ("reference_training_fp32",
                            check_training_reference)):
-            reset_counts(*fp32_routes.values())
+            reset_counts(*fp32_routes.values(), paged_attend_cuda)
             run(dev)
             for k, fn in fp32_routes.items():
                 key = k.split()[0]
@@ -7021,6 +7093,11 @@ def main(argv=None) -> int:
                                          f"{route_counts(fn)}")
                 if fn.launches:
                     by_path[k][path] = fn.launches
+            if paged_attend_cuda.tc_launches:
+                raise AssertionError(f"{path}: fp32 K4 launches took the "
+                                     f"tensor-core route")
+            if paged_attend_cuda.launches:
+                by_path["K4 fp32"][path] = paged_attend_cuda.launches
         for k, paths in by_path.items():
             if not paths:
                 raise AssertionError(f"{k}: never launched by the fp32 "
@@ -7085,7 +7162,8 @@ def main(argv=None) -> int:
     if "serving_ext" in ns.phases:
         phase_start("serving_ext", t_start)
         # phase 5: speculation, handoffs, tracing, the tokenizer
-        check_serving_ext_reference(dev)
+        count_fp32_k4(records, "serving_ext_reference",
+                      check_serving_ext_reference, dev)
         ext_rate = run_serving_ext(dev, ns.layers, records)
         log(f"peak device memory (serving_ext) "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -7093,7 +7171,8 @@ def main(argv=None) -> int:
     if "serving_fleet" in ns.phases:
         phase_start("serving_fleet", t_start)
         # phase 6: the router, the replicas, the autoscaler
-        check_fleet_reference(dev)
+        count_fp32_k4(records, "serving_fleet_reference",
+                      check_fleet_reference, dev)
         torch.cuda.reset_peak_memory_stats()
         run_serving_fleet(dev, ns.layers, records, ext_rate)
         log(f"peak device memory (serving_fleet) "
@@ -7180,7 +7259,7 @@ def main(argv=None) -> int:
     # phase 12: the kernels line, the card, the result
     log(json.dumps({"kernels": [
         records[k] for k in ("K1", "K2", "K1 fp32", "K2 fp32", "K3",
-                             "K3 fp32", "K4", "rms_norm")
+                             "K3 fp32", "K4", "K4 fp32", "rms_norm")
         if k in records and "name" in records[k]]}))
     phase_start("end", t_start)
     PHASE_S.pop("end")

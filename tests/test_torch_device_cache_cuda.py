@@ -3,9 +3,8 @@
 imports no jax, so it runs where the card is: ``python3 -m pytest
 --noconftest tests/test_torch_device_cache_cuda.py``.
 
-A small fp32 Llama (K1 on its SIMT kernel, K2 and K3 in three TF32
-passes) trained by the BSP worker on card 0 from one initial
-checkpoint:
+A small fp32 Llama (K1, K2 and K3 in three TF32 passes) trained by the
+BSP worker on card 0 from one initial checkpoint:
 
 - with the train set on the card and ``steps_per_call=4`` (6 batches:
   a chunk of 4, then a tail of 2 a step at a time) against the staged

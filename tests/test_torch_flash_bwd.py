@@ -15,13 +15,15 @@ dQ = dS K), held to the fp32 plain versions and to the Pallas kernels in
 interpret mode within the tolerance the card's kernels are held to
 (atol = rtol = 1e-2).
 
-And the fp32 K2 and K3, which take every product on the tensor cores as
-three TF32 passes: the split (hi rounded as cvt.rna rounds, done with
-integer bit operations; lo = x - hi truncated to TF32) and the three
-products emulated on the plain path, held to the fp32 plain version and
-the Pallas kernels within the card's fp32 tolerance (atol = rtol =
-1e-4), and one pass shown to miss a float64 backward by at least 50
-times what three passes miss."""
+And the fp32 K1, K2 and K3, which take every product on the tensor
+cores as three TF32 passes: the split (hi rounded as cvt.rna rounds,
+done with integer bit operations; lo = x - hi truncated to TF32) and
+the three products emulated on the plain path (K1 with its online
+softmax over the kernel's kv tiles, each tile's P V summed from zero
+and then added in fp32), held to the fp32 plain versions and the
+Pallas kernels within the card's fp32 tolerance (atol = rtol = 1e-4),
+and one pass shown to miss a float64 forward and backward by at least
+50 times what three passes miss."""
 
 import jax
 import jax.numpy as jnp
@@ -330,25 +332,28 @@ def test_k3_bf16_ds_rounding_fits_the_card_tolerance(t, causal):
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def tf32_split(x):
+def tf32_split(x, trunc=False):
     """(hi, lo) of fp32 ``x`` as ``split_tf32`` in csrc/mma_sm90.cuh
     takes them: hi rounded to a 10-bit mantissa to nearest, ties away
     from zero, as cvt.rna.tf32.f32 rounds (half a TF32 ulp added to the
     bits, the 13 low bits cleared); lo = x - hi in fp32 with its 13 low
-    bits cleared (truncated to TF32)."""
+    bits cleared (truncated to TF32).  ``trunc``: as the fp32 K1 takes
+    them (``split_tf32_trunc``), hi truncated (the 13 low bits cleared)
+    and lo = x - hi, truncated as the tensor cores read it."""
     bits = x.contiguous().numpy().view(np.uint32)
-    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
-        np.float32)
+    hi = ((bits + np.uint32(0 if trunc else 0x1000))
+          & np.uint32(0xffffe000)).view(np.float32)
     lo = ((x.numpy() - hi).view(np.uint32) & np.uint32(0xffffe000)).view(
         np.float32)
     return torch.from_numpy(hi), torch.from_numpy(lo)
 
 
-def tf32_product(eq, a, b, passes):
+def tf32_product(eq, a, b, passes, trunc=False):
     """``einsum(eq, a, b)`` as the fp32 kernels take it on the tensor
     cores: three passes sum lo*hi, hi*lo and hi*hi (TF32 products are
-    exact in fp32, the sums fp32); one pass is hi*hi alone."""
-    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    exact in fp32, the sums fp32); one pass is hi*hi alone.  ``trunc``:
+    the operands split as the fp32 K1 splits them."""
+    (ah, al), (bh, bl) = tf32_split(a, trunc), tf32_split(b, trunc)
     if passes == 1:
         return torch.einsum(eq, ah, bh)
     return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
@@ -454,3 +459,99 @@ def test_one_tf32_pass_is_why_there_are_three(causal):
         err3 = (a.double() - want).abs().max().item()
         err1 = (b.double() - want).abs().max().item()
         assert err1 >= 50 * err3, (name, err1, err3)
+
+
+# -- the fp32 K1: three TF32 passes on the tensor cores ------------------------
+
+XF_BK = 32        # the fp32 K1's kv tile (kXfBK in csrc/flash_fwd.cu)
+
+
+def tf32_fwd_emulated(q, k, v, causal, sm_scale, passes=3):
+    """K1 in fp32 as the three-pass kernel takes it: S = Q K^T and each
+    kv tile's P V through ``tf32_product`` with the truncated split of
+    ``split_tf32_trunc``, the online softmax over
+    XF_BK-key tiles with masked entries exactly 0, each tile's P V
+    summed from zero and then added in fp32 (acc = acc*alpha + tile);
+    O = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))."""
+    b, h, tq, _ = q.shape
+    m = torch.full((b, h, tq), port_attn.NEG_INF)
+    l = torch.zeros((b, h, tq))
+    acc = torch.zeros(q.shape)
+    rows = torch.arange(tq)
+    for k0 in range(0, k.shape[2], XF_BK):
+        kt, vt = k[:, :, k0:k0 + XF_BK], v[:, :, k0:k0 + XF_BK]
+        s = tf32_product("bhqd,bhkd->bhqk", q, kt, passes, True) * sm_scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])
+            s = torch.where(cols[None, :] <= rows[:, None], s,
+                            port_attn.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(s == port_attn.NEG_INF, 0.0,
+                        torch.exp(s - m_new[..., None]))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + tf32_product(
+            "bhqk,bhkd->bhqd", p, vt, passes, True)
+        m = m_new
+    den = torch.clamp(l, min=1e-30)
+    return acc / den[..., None], m + torch.log(den)
+
+
+def fp32_qkv(seed, tq, tk=None):
+    """fp32 q [1, 2, tq, 32] and k, v [1, 2, tk, 32] from a seed."""
+    rng = np.random.default_rng(seed)
+    tk = tq if tk is None else tk
+    return [torch.from_numpy(normal(rng, 1, 2, t, 32)) for t in (tq, tk, tk)]
+
+
+def check_k1_fp32(q, k, v, causal):
+    """The three-pass K1 against ``mha_reference_fwd`` in fp32 and the
+    Pallas forward (fp32, one full-axis block each side, interpret
+    mode), O and lse, within the card's fp32 tolerance."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = tf32_fwd_emulated(q, k, v, causal, scale)
+    o_ref, lse_ref = port_attn.mha_reference_fwd(q, k, v, causal=causal)
+    want_o, want_lse = jax_attn._flash_fwd_call(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal, scale,
+        q.shape[2], k.shape[2], True)
+    for got, want, what in ((o, o_ref, "o vs fp32 plain"),
+                            (lse, lse_ref, "lse vs fp32 plain"),
+                            (o, want_o, "o vs Pallas"),
+                            (lse, np.asarray(want_lse).reshape(lse.shape),
+                             "lse vs Pallas")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=what, **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [15, 64, 65, 130])
+def test_k1_fp32_tf32x3_fits_the_card_tolerance(t, causal):
+    """K1's three TF32 passes (S and each tile's P V) against the fp32
+    plain version and the Pallas forward, ragged T included."""
+    check_k1_fp32(*fp32_qkv(900 + t, t), causal)
+
+
+@pytest.mark.parametrize("tq, tk", [(40, 100), (100, 40)])
+def test_k1_fp32_tf32x3_cross_lengths_full_attention(tq, tk):
+    """Tq != Tk, full attention (a ring hop off the diagonal): the kv
+    walk ends at Tk, not at the q tile."""
+    check_k1_fp32(*fp32_qkv(950 + tq, tq, tk), False)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_tf32_pass_is_why_there_are_three_in_the_forward(causal):
+    """The forward's O the same way as the backward's gradients: one
+    TF32 pass misses the float64 attention by at least 50 times what
+    three passes miss."""
+    q, k, v = fp32_qkv(980 + causal, 130)
+    scale = 32 ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(130, 130, dtype=torch.bool).tril(),
+                          float("-inf"))
+    exact = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+    three = tf32_fwd_emulated(q, k, v, causal, scale, passes=3)[0]
+    one = tf32_fwd_emulated(q, k, v, causal, scale, passes=1)[0]
+    err3 = (three.double() - exact).abs().max().item()
+    err1 = (one.double() - exact).abs().max().item()
+    assert err1 >= 50 * err3, (err1, err3)

@@ -2,10 +2,10 @@
 card, at shapes the serving and training paths do not reach (ragged
 and tiny T, every supported head dim, full attention, multi-row query
 windows), the tensor-core K1 and K2 (bf16) across their tile edges,
-K2 and K3 in fp32 (three TF32 passes on the tensor cores) at every head
-dim, bitwise from run to run and from a layout's heads to the whole
-launch's, and a small Llama's training steps on the card against the
-CPU.
+K1, K2 and K3 in fp32 (three TF32 passes on the tensor cores) at every
+head dim, bitwise from run to run and from a layout's heads to the
+whole launch's, and a small Llama's training steps on the card against
+the CPU.
 Marked ``cuda``; each test skips where no CUDA device is present.  Run
 on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 
@@ -45,11 +45,13 @@ def test_flash_fwd_matches_reference(dev, dtype, causal, t, d):
     gen = torch.Generator(device=dev).manual_seed(t * d)
     q, k, v = (torch.randn((2, 3, t, d), generator=gen, device=dev)
                .to(dtype) for _ in range(3))
-    before = (flash_fwd_cuda.launches, flash_fwd_cuda.tc_launches)
+    counts = ("launches", "tc_launches", "tf32x3_launches")
+    before = [getattr(flash_fwd_cuda, c) for c in counts]
     o, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5)
-    # bf16 takes the tensor-core kernel, fp32 the SIMT one
-    assert (flash_fwd_cuda.launches, flash_fwd_cuda.tc_launches) == (
-        before[0] + 1, before[1] + (dtype is torch.bfloat16))
+    # bf16 takes the bf16 tensor-core kernel, fp32 the three-pass TF32 one
+    assert [getattr(flash_fwd_cuda, c) for c in counts] == [
+        before[0] + 1, before[1] + (dtype is torch.bfloat16),
+        before[2] + (dtype is torch.float32)]
     o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
                                        causal=causal)
     torch.testing.assert_close(o.float(), o_ref, **TOL[dtype])
@@ -342,6 +344,69 @@ def test_tf32x3_flash_bwd_heads_of_a_layout_rank_are_bitwise(dev, t):
         part = [x[:, h0:h0 + 16].contiguous() for x in whole]
         for x, y in zip(flash_bwd_cuda(*part, True, 128 ** -0.5), full):
             assert torch.equal(x, y[:, h0:h0 + 16])
+
+
+def fp32_fwd_case(dev, h, t, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((1, h, t, 128), generator=gen, device=dev)
+            for _ in range(3)]
+
+
+def test_tf32x3_flash_fwd_is_bitwise_at_the_serving_length(dev):
+    """fp32 K1 at [1, 32, 2047, 128] causal, twice: o and lse bitwise
+    the same (one owner per output row, no atomics)."""
+    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+
+    q, k, v = fp32_fwd_case(dev, 32, 2047, 29)
+    a = flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    b = flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("t", [65, 2047])
+def test_tf32x3_flash_fwd_heads_of_a_layout_rank_are_bitwise(dev, t):
+    """A tp = 2 rank's [1, 16, T, 128] fp32 K1 launch gives bitwise the
+    o and lse rows of the matching 16 heads of the one-rank [1, 32, T,
+    128] launch (serving_tp's fp32 ids and the fp32 layouts rely on
+    it)."""
+    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+
+    whole = fp32_fwd_case(dev, 32, t, 31)
+    full = flash_fwd_cuda(*whole, True, 128 ** -0.5)
+    for h0 in (0, 16):
+        part = [x[:, h0:h0 + 16].contiguous() for x in whole]
+        for x, y in zip(flash_fwd_cuda(*part, True, 128 ** -0.5), full):
+            assert torch.equal(x, y[:, h0:h0 + 16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_flash_fwd_takes_sm_scale_of_either_sign(dev, causal):
+    """fp32 K1 scales each score before the row max, so a negative
+    sm_scale (and zero) gives the plain version's o and lse."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    q, k, v = (x[:, :, :100, :64].contiguous()
+               for x in fp32_fwd_case(dev, 2, 100, 37))
+    for scale in (-0.125, 0.0):
+        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        o_ref, lse_ref = mha_reference_fwd(q, k, v, causal=causal,
+                                           sm_scale=scale)
+        torch.testing.assert_close(o, o_ref, **TOL[torch.float32])
+        torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+
+
+def test_tf32x3_flash_fwd_refuses_unaligned_fp32(dev):
+    """fp32 K1 copies rows 16 bytes at a time: an fp32 view that starts
+    off a 16-byte boundary is refused, not misread."""
+    from theanompi_tpu_torch.ops.attention import flash_fwd_cuda
+
+    x = torch.zeros(2 * 8 * 64 + 1, device=dev)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="aligned float32"):
+        flash_fwd_cuda(x, x, x, True, 0.125)
 
 
 def test_tf32x3_kernels_refuse_unaligned_fp32(dev):

@@ -10,44 +10,75 @@
 // What bounds it on this card: 4*D operations per live (q, k) pair
 // (two products) against reading q, k, v and writing o once, a few
 // hundred operations per byte at D = 128 and T in the thousands, so
-// the tensor cores' bf16 rate (989 TF/s dense) bounds it.
+// the tensor cores bound both routes: bf16 at their bf16 rate (989 TF/s
+// dense), fp32 at max(bytes / 3.35 TB/s, 3 x operations / 495 TF/s)
+// (three TF32 passes, below): 0.208 ms at [1, 32, 2047, 128] causal,
+// where the fp32 cores (67 TF/s) would need 0.513 ms.
 //
-// Two routes, chosen by dtype in `tm_flash_fwd`, each dtype exactly one:
+// Two routes, chosen by dtype in `tm_flash_fwd`, each dtype exactly one,
+// both on the tensor cores (building blocks in mma_sm90.cuh):
 //
-// bf16: `flash_fwd_tc_kernel`, on the tensor cores (mma.sync m16n8k16,
-// bf16 operands, fp32 accumulators; building blocks in mma_sm90.cuh).
-// One CTA of 4 warps per (b*h, 64-row q tile), each warp owning 16 q
-// rows; the TPU's sequential kv grid axis becomes a loop over 64-row
-// kv tiles.  K and V arrive by cp.async into a 2-stage ring of bf16
-// tiles, so the next tile's copy overlaps this tile's products, with
-// one barrier per tile; rows are padded by 16 bytes so ldmatrix reads
-// them without bank conflicts (85 KB of shared memory at D = 128: two
-// CTAs per SM).  Q stays in shared memory and is read by ldmatrix for
-// each tile (measured faster than holding it in registers).  S = Q K^T
-// accumulates in fp32 registers, and the online softmax runs there:
-// row max and sum over the 4 lanes sharing a row, sm_scale*log2(e)
-// applied to the row max and folded into one FFMA before each
-// ex2.approx, the causal and ragged-edge masks applied only on tiles
-// that cross the diagonal or the end of T.  On this card the kernel is
-// bound by that per-score arithmetic beside the mma.sync stream, not by
-// copies: trimming it was the largest gain, while deeper rings and
-// more warps per SM made it slower (PERF.md).  P is rounded to bf16 in
-// registers and is directly the A operand of P V (the accumulator and
-// A fragment layouts coincide), with V's B fragments from
-// ldmatrix.trans: P never touches shared memory.  Rounding P to the
-// input dtype before P V is what the TPU kernel does
+// bf16: `flash_fwd_tc_kernel` (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators).  One CTA of 4 warps per (b*h, 64-row q tile), each warp
+// owning 16 q rows; the TPU's sequential kv grid axis becomes a loop
+// over 64-row kv tiles.  K and V arrive by cp.async into a 2-stage ring
+// of bf16 tiles, so the next tile's copy overlaps this tile's products,
+// with one barrier per tile; rows are padded by 16 bytes so ldmatrix
+// reads them without bank conflicts (85 KB of shared memory at D = 128:
+// two CTAs per SM).  Q stays in shared memory and is read by ldmatrix
+// for each tile (measured faster than holding it in registers).  S =
+// Q K^T accumulates in fp32 registers, and the online softmax runs
+// there: row max and sum over the 4 lanes sharing a row,
+// sm_scale*log2(e) applied to the row max and folded into one FFMA
+// before each ex2.approx, the causal and ragged-edge masks applied only
+// on tiles that cross the diagonal or the end of T.  On this card the
+// kernel is bound by that per-score arithmetic beside the mma.sync
+// stream, not by copies: trimming it was the largest gain, while deeper
+// rings and more warps per SM made it slower (PERF.md).  P is rounded
+// to bf16 in registers and is directly the A operand of P V (the
+// accumulator and A fragment layouts coincide), with V's B fragments
+// from ldmatrix.trans: P never touches shared memory.  Rounding P to
+// the input dtype before P V is what the TPU kernel does
 // (`p.astype(v_blk.dtype)`, attention.py:193); l sums the unrounded P
 // in fp32, as there.  Causal q tiles launch longest first.  O leaves
 // through the warp's own Q rows in shared memory, 16 bytes a store.
 // sm_scale must be positive (the wrapper checks).
 //
-// fp32: `flash_fwd_kernel<float, D>`, on the fp32 CUDA cores.  The
-// tensor cores' only fp32 input is TF32 (about three decimal digits),
-// which cannot meet the fp32 tolerance of 1e-4 against the plain
-// version, so fp32 keeps this kernel: one CTA per (b*h, 64-row q tile),
-// K then V staged as fp32 through one shared buffer (rows padded by
-// one float), a 16 x 16 thread grid owning 4 rows x D/16 columns each,
-// the carry in fp32 (m, l in shared memory, acc in registers).
+// fp32: `flash_fwd_tf32x3_kernel` (mma.sync m16n8k8 with TF32 operands
+// in three passes: each operand split into hi and lo, each product
+// lo*hi + hi*lo + hi*hi into fp32, which keeps about fp32's accuracy
+// where one pass keeps three digits).  The bf16 kernel's shape with
+// fp32 tiles, as the fp32 K3 in flash_bwd.cu: one CTA of 4 warps per
+// (b*h, 64-row q tile), each warp owning 16 q rows as the mma M
+// dimension, causal q tiles launched longest first; Q arrives once, K
+// and V of each 32-row kv tile by cp.async into a 2-stage ring of fp32
+// rows padded by 4 floats, one barrier a tile: 101 KB of shared memory
+// at D = 128, two CTAs an SM.
+//
+// The split's instructions, not the tensor cores, set the pace, so
+// they are cut where shared memory allows (kernels/tune.py; PERF.md):
+// each operand is split as its fragment is read, hi truncated
+// and lo = x - hi left for the tensor cores to truncate
+// (`split_tf32_trunc`: two instructions, not four), Q's and K's
+// fragments by one ldmatrix each (fp32 read as b16 pairs), V's and P's
+// by scalar reads free of bank conflicts.  Splitting Q once as it lands
+// (its lo beside it), or K and V too, doubles those tiles in shared
+// memory, which then holds one CTA an SM, and ran slower.
+//
+// The scores are scaled by sm_scale*log2(e) one by one before the row
+// max (so sm_scale may have either sign), the masks apply only on tiles
+// that cross the diagonal or the end of the keys, and the online
+// softmax stays in registers (quad max and sum, ex2.approx).  P is
+// split from the accumulators into the A operand of P V, whose B
+// fragments read V's rows in the same k order (`acc_to_a_tf32x3`): no P
+// tile goes through shared memory.  The tensor cores round each
+// accumulation toward zero, so a sum carried through every tile would
+// drift by about an ulp of itself a tile: each tile's P V is summed
+// from zero on the tensor cores and then added in fp32
+// (acc = acc*alpha + tile).  O = acc / max(l, 1e-30) is stored from fp32 registers and
+// lse from lane 0 of each quad.  Each output row has one owner and no
+// atomics, so two launches agree bitwise, and a head's rows do not
+// depend on the other heads of the launch.
 //
 // Rows and columns past T are masked on both routes, so any T runs
 // (the TPU's block-divisibility rule does not apply), and Tq may
@@ -57,172 +88,7 @@
 
 namespace {
 
-using tmt::from_f;
 using tmt::kNegInf;
-using tmt::to_f;
-using tmt::warp_max;
-using tmt::warp_sum;
-
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // kv rows per tile
-constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
-constexpr int kRowsPerWarp = kBQ / (kThreads / 32);
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBQ * (kBK + 1) + 3 * kBQ);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int tq, int tk,
-                     float sm_scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;                  // [kBQ][D+1]
-  float* sKV = sQ + kBQ * (D + 1);   // [kBK][D+1]: K, then V
-  float* sS = sKV + kBK * (D + 1);   // [kBQ][kBK+1]: scores, then p
-  float* sM = sS + kBQ * (kBK + 1);  // [kBQ] running max
-  float* sL = sM + kBQ;              // [kBQ] running sum
-  float* sA = sL + kBQ;              // [kBQ] this tile's rescale
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const size_t qbase = static_cast<size_t>(bh) * tq * D;
-  const size_t kbase = static_cast<size_t>(bh) * tk * D;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    sQ[r * (D + 1) + c] =
-        q0 + r < tq ? to_f(q[qbase + static_cast<size_t>(q0 + r) * D + c])
-                    : 0.f;
-  }
-  if (tid < kBQ) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
-
-  constexpr int DC = D / 16;
-  float acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-
-  // causal: kv tiles wholly above the diagonal fold in nothing
-  const int k_end = causal ? min(tk, q0 + kBQ) : tk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // last tile's readers of sKV / sS are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      sKV[r * (D + 1) + c] =
-          k0 + r < tk ? to_f(k[kbase + static_cast<size_t>(k0 + r) * D + c])
-                      : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T * scale for rows ty+16a, cols tx+16b
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = sQ[(ty + 16 * a) * (D + 1) + d];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kv[b] = sKV[(tx + 16 * b) * (D + 1) + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qv[a], kv[b], s[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b;
-        const int qi = q0 + r, kj = k0 + c;
-        const bool ok = kj < tk && (!causal || kj <= qi);
-        sS[r * (kBK + 1) + c] = ok ? s[a][b] * sm_scale : kNegInf;
-      }
-    __syncthreads();
-
-    // online softmax: each warp owns kRowsPerWarp rows, lanes own
-    // columns lane and lane+32; masked entries contribute exact zeros
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      float* row = sS + r * (kBK + 1);
-      const float x0 = row[lane], x1 = row[lane + 32];
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      const float p0 = x0 == kNegInf ? 0.f : expf(x0 - m_new);
-      const float p1 = x1 == kNegInf ? 0.f : expf(x1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      const float psum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = alpha * sL[r] + psum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      sKV[r * (D + 1) + c] =
-          k0 + r < tk ? to_f(v[kbase + static_cast<size_t>(k0 + r) * D + c])
-                      : 0.f;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V for rows ty+16a, cols tx+16c
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float alpha = sA[ty + 16 * a];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float p[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) p[a] = sS[(ty + 16 * a) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = sKV[j * (D + 1) + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(p[a], vv, acc[a][c]);
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-    const int qi = q0 + r;
-    if (qi < tq) {
-      const float l = fmaxf(sL[r], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < DC; ++c)
-        o[qbase + static_cast<size_t>(qi) * D + tx + 16 * c] =
-            from_f<T>(acc[a][c] / l);
-    }
-  }
-  if (tid < kBQ && q0 + tid < tq)
-    lse[static_cast<size_t>(bh) * tq + q0 + tid] =
-        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
-}
 
 // -- bf16: the tensor-core kernel ---------------------------------------
 
@@ -430,6 +296,185 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// -- fp32: three TF32 passes on the tensor cores ------------------------
+
+constexpr int kXfWarps = 4;           // each owns 16 q rows
+constexpr int kXfBQ = 16 * kXfWarps;  // q rows per CTA
+constexpr int kXfBK = 32;             // kv rows per tile
+constexpr int kXfStages = 2;          // K/V tiles in the ring
+constexpr int kXfThreads = 32 * kXfWarps;
+
+template <int D>
+constexpr size_t xf_smem_bytes() {  // Q, then the ring of K and V tiles
+  return sizeof(float) * tmt::F32Tile<D>::kStride *
+         (kXfBQ + 2 * kXfStages * kXfBK);
+}
+
+// (kXfThreads, 1) lets ptxas take the registers it wants (207 at D =
+// 128): 8 warps with no minimum took 164 and ran slower (PERF.md)
+template <int D>
+__global__ void __launch_bounds__(kXfThreads, 1)
+    flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int tq, int tk, float scale_log2, int causal) {
+  constexpr int S = tmt::F32Tile<D>::kStride;
+  constexpr int NK = kXfBK / 8;  // accumulator tiles across a kv tile
+  constexpr int ND = D / 8;      // accumulator tiles across D
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* sQ = reinterpret_cast<float*>(tc_smem);  // [kXfBQ][S]
+  float* sK = sQ + kXfBQ * S;                     // [kXfStages][kXfBK][S]
+  float* sV = sK + kXfStages * kXfBK * S;         // [kXfStages][kXfBK][S]
+
+  const int bh = blockIdx.y;
+  // causal: the q tiles with the most kv tiles launch first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kXfBQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wq0 = q0 + warp * 16;  // this warp's first q row
+  const float* sQw = sQ + warp * 16 * S;
+  const size_t qbase = static_cast<size_t>(bh) * tq * D;
+  const float* kg = k + static_cast<size_t>(bh) * tk * D;
+  const float* vg = v + static_cast<size_t>(bh) * tk * D;
+
+  // causal: kv tiles wholly above the diagonal fold in nothing
+  const int k_end = causal ? min(tk, q0 + kXfBQ) : tk;
+  const int n_tiles = (k_end + kXfBK - 1) / kXfBK;
+
+  // kv tile j into stage j % kXfStages, as one cp.async group (empty
+  // past the last tile, so group j always holds tile j)
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      const int st = j % kXfStages;
+      tmt::load_f32_tile_async<D, kXfBK, kXfThreads>(sK + st * kXfBK * S, kg,
+                                                     j * kXfBK, tk, tid);
+      tmt::load_f32_tile_async<D, kXfBK, kXfThreads>(sV + st * kXfBK * S, vg,
+                                                     j * kXfBK, tk, tid);
+    }
+    tmt::cp_async_commit();
+  };
+  tmt::load_f32_tile_async<D, kXfBQ, kXfThreads>(sQ, q + qbase, q0, tq, tid);
+  for (int j = 0; j < kXfStages - 1; ++j) load_kv(j);  // Q joins group 0
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows wq0 + g (index 0) and wq0 + g + 8 (index 1): the running max
+  // of the scores times sm_scale*log2(e), and this lane's share of the
+  // running sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kXfBK;
+    // tile j (and, first time, Q) has landed, for every thread; and
+    // every warp is done with tile j - 1, whose stage the copy started
+    // next refills while this tile is computed on
+    tmt::cp_async_wait<kXfStages - 2>();
+    __syncthreads();
+    load_kv(j + kXfStages - 1);
+    // rows all past the queries, or all before this tile's keys
+    if (wq0 >= tq || (causal && k0 > wq0 + 15)) continue;
+    const float* sKj = sK + (j % kXfStages) * kXfBK * S;
+    const float* sVj = sV + (j % kXfStages) * kXfBK * S;
+
+    // S = Q K^T, Q's and K's fragments by ldmatrix
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t qh[4], ql[4];
+      tmt::ldmatrix_a_tf32x3(qh, ql, sQw, S, kk, lane);
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b0[4], b1[4];
+        tmt::ldmatrix_b_rows_tf32x3(b0, b1, sKj, S, np * 16, kk, lane);
+        tmt::mma_tf32x3(s[2 * np], qh, ql, b0);
+        tmt::mma_tf32x3(s[2 * np + 1], qh, ql, b1);
+      }
+    }
+
+    // scores in log2 units, each scaled before the max; masks only
+    // where the tile crosses the diagonal or the end of the keys
+    const bool edge = (causal && k0 + kXfBK - 1 > wq0) || k0 + kXfBK > tk;
+    float mx[2] = {kNegInf, kNegInf}, alpha[2];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int col = k0 + n * 8 + t4 * 2 + (e & 1);
+          const int row = wq0 + g + (e >> 1) * 8;
+          if (col >= tk || (causal && col > row)) x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = tmt::exp2_approx(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+    // Every row sees key 0 in its first tile, so its max is finite from
+    // then on and a masked score gives exp2 of about -1e30: exactly 0,
+    // as the TPU kernel's where(mask, p, 0).  P, split, is the A operand
+    // of P V
+    uint32_t ph[NK][4], pl[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = tmt::exp2_approx(s[n][e] - mx[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+      tmt::acc_to_a_tf32x3<true>(ph[n], pl[n], s[n]);
+    }
+
+    // acc = acc*alpha + P V, the tile's P V summed from zero on the
+    // tensor cores, one 8-column slice of D at a time
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kq = 0; kq < NK; ++kq) {
+        uint32_t b[4];
+        tmt::load_b_cols_tf32x3<true>(b, sVj, S, kq * 8, n * 8, lane);
+        tmt::mma_tf32x3(t, ph[kq], pl[kq], b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], t[e]);
+    }
+  }
+  tmt::cp_async_wait<0>();  // no copy is left in flight at exit
+
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) den[i] = fmaxf(quad_sum(l[i]), 1e-30f);
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const float c[4] = {acc[n][0] / den[0], acc[n][1] / den[0],
+                        acc[n][2] / den[1], acc[n][3] / den[1]};
+    tmt::store_acc_f32<D>(o + qbase, c, wq0, n * 8, tq, lane);
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wq0 + g + 8 * i;
+      if (r < tq)
+        lse[static_cast<size_t>(bh) * tq + r] = m[i] * kLn2 + logf(den[i]);
+    }
+  }
+}
+
 // -- launch and dispatch -------------------------------------------------
 
 struct Args {
@@ -442,97 +487,115 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-cudaError_t launch_simt(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<float, D>;
+// `kernel` at `smem` bytes of dynamic shared memory (above the 48 KB
+// default: the limit is raised first) over `grid` x `threads`; the
+// launch's error
+template <typename Kernel, typename... KArgs>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, KArgs... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.tq + kBQ - 1) / kBQ, a.bh);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.tq,
-      a.tk, a.sm_scale, a.causal);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// K1 at head dim D: bf16 on its tensor-core kernel, fp32 in three TF32
+// passes
 template <int D>
-cudaError_t launch_tc(const Args& a) {
-  constexpr size_t smem = tc_smem_bytes<D>();
-  auto kernel = flash_fwd_tc_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.tq + kTcBQ - 1) / kTcBQ, a.bh);
-  kernel<<<grid, kTcThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.tq,
-      a.tk, a.sm_scale * kLog2e, a.causal);
-  return cudaGetLastError();
+cudaError_t launch_d(const Args& a, bool bf16_in) {
+  if (bf16_in)
+    return launch(flash_fwd_tc_kernel<D>,
+                  dim3((a.tq + kTcBQ - 1) / kTcBQ, a.bh), kTcThreads,
+                  tc_smem_bytes<D>(), a.stream, static_cast<const bf16*>(a.q),
+                  static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+                  static_cast<bf16*>(a.o), a.lse, a.tq, a.tk,
+                  a.sm_scale * kLog2e, a.causal);
+  return launch(flash_fwd_tf32x3_kernel<D>,
+                dim3((a.tq + kXfBQ - 1) / kXfBQ, a.bh), kXfThreads,
+                xf_smem_bytes<D>(), a.stream, static_cast<const float*>(a.q),
+                static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+                static_cast<float*>(a.o), a.lse, a.tq, a.tk,
+                a.sm_scale * kLog2e, a.causal);
 }
 
-template <bool kTc>
-cudaError_t dispatch_d(const Args& a, int d) {
-  switch (d) {
-    case 16:
-      return kTc ? launch_tc<16>(a) : launch_simt<16>(a);
-    case 32:
-      return kTc ? launch_tc<32>(a) : launch_simt<32>(a);
-    case 64:
-      return kTc ? launch_tc<64>(a) : launch_simt<64>(a);
-    case 128:
-      return kTc ? launch_tc<128>(a) : launch_simt<128>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// The tensor-core kernel's dynamic shared memory at head dim d and how
-// many of its CTAs the runtime fits on one SM.
-template <int D>
-cudaError_t tc_occupancy(int* smem_bytes, int* ctas_per_sm) {
-  constexpr size_t smem = tc_smem_bytes<D>();
-  auto kernel = flash_fwd_tc_kernel<D>;
+// A kernel's dynamic shared memory and how many of its CTAs the
+// runtime fits on one SM.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t smem,
+                      int* smem_bytes, int* ctas_per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *smem_bytes = static_cast<int>(smem);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
-                                                       kTcThreads, smem);
+                                                       threads, smem);
+}
+
+// the kernel of K1 for bf16 (kBf16) or fp32 at head dim D
+template <bool kBf16, int D>
+cudaError_t kernel_occupancy(int* smem_bytes, int* ctas_per_sm) {
+  if constexpr (kBf16)
+    return occupancy(flash_fwd_tc_kernel<D>, kTcThreads, tc_smem_bytes<D>(),
+                     smem_bytes, ctas_per_sm);
+  return occupancy(flash_fwd_tf32x3_kernel<D>, kXfThreads,
+                   xf_smem_bytes<D>(), smem_bytes, ctas_per_sm);
+}
+
+template <bool kBf16>
+cudaError_t occupancy_d(int d, int* smem_bytes, int* ctas_per_sm) {
+  switch (d) {
+    case 16:
+      return kernel_occupancy<kBf16, 16>(smem_bytes, ctas_per_sm);
+    case 32:
+      return kernel_occupancy<kBf16, 32>(smem_bytes, ctas_per_sm);
+    case 64:
+      return kernel_occupancy<kBf16, 64>(smem_bytes, ctas_per_sm);
+    case 128:
+      return kernel_occupancy<kBf16, 128>(smem_bytes, ctas_per_sm);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q [bh, tq, d], k/v [bh, tk, d], o [bh, tq, d] in the dtype `dtype`
-// names; lse [bh, tq] f32.  bf16 launches the tensor-core kernel, f32
-// the SIMT one.  Returns the launch's cudaError_t.
+// names; lse [bh, tq] f32.  bf16 launches the bf16 tensor-core kernel,
+// f32 the three-pass TF32 one.  Returns the launch's cudaError_t.
 extern "C" int tm_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int tq, int tk,
                             int d, float sm_scale, int causal, int dtype,
                             void* stream) {
   const Args a{q, k, v, o, static_cast<float*>(lse), bh, tq, tk, sm_scale,
                causal, static_cast<cudaStream_t>(stream)};
-  if (dtype == tmt::kF32) return dispatch_d<false>(a, d);
-  if (dtype == tmt::kBF16) return dispatch_d<true>(a, d);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" int tm_flash_fwd_tc_occupancy(int d, int* smem_bytes,
-                                         int* ctas_per_sm) {
+  const bool bf16_in = dtype == tmt::kBF16;
+  if (!bf16_in && dtype != tmt::kF32) return cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return tc_occupancy<16>(smem_bytes, ctas_per_sm);
+      return launch_d<16>(a, bf16_in);
     case 32:
-      return tc_occupancy<32>(smem_bytes, ctas_per_sm);
+      return launch_d<32>(a, bf16_in);
     case 64:
-      return tc_occupancy<64>(smem_bytes, ctas_per_sm);
+      return launch_d<64>(a, bf16_in);
     case 128:
-      return tc_occupancy<128>(smem_bytes, ctas_per_sm);
+      return launch_d<128>(a, bf16_in);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 tensor-core kernel's dynamic shared memory at head dim d and
+// how many of its CTAs the runtime fits on one SM.
+extern "C" int tm_flash_fwd_tc_occupancy(int d, int* smem_bytes,
+                                         int* ctas_per_sm) {
+  return occupancy_d<true>(d, smem_bytes, ctas_per_sm);
+}
+
+// The same for the fp32 kernel (three TF32 passes).
+extern "C" int tm_flash_fwd_tf32x3_occupancy(int d, int* smem_bytes,
+                                             int* ctas_per_sm) {
+  return occupancy_d<false>(d, smem_bytes, ctas_per_sm);
 }

@@ -3,8 +3,8 @@
 // product with an fp32 accumulator, ldmatrix (plain and transposed),
 // cp.async with zero fill (contiguous rows, or rows through a block
 // table), and the padded bf16 tile layout they share; and those of the
-// fp32 K2 and K3: the m16n8k8 TF32 product in three passes and its
-// padded fp32 tiles.
+// fp32 K1, K2 and K3: the m16n8k8 TF32 product in three passes, its
+// padded fp32 tiles and their split into hi and lo.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4;
 // each 32-bit register holds two bf16, the lower column in the low
@@ -17,12 +17,13 @@
 // are exactly one A fragment (`acc_to_a`), so a product's result feeds
 // the next product without leaving registers.
 //
-// The fp32 kernels (K2 and K3 at fp32) run on the tensor cores through
-// TF32 in three passes: each operand x is split into hi = tf32(x) (to
-// nearest, ties away from zero, as cvt.rna rounds) and lo = tf32(x - hi)
-// (truncated), and a product is lo*hi + hi*lo + hi*hi into one fp32
-// accumulator (the dropped lo*lo and lo's truncation are each at most
-// about 2^-21 of a term).  Fragment layouts of
+// The fp32 kernels (K1, K2 and K3 at fp32) run on the tensor cores
+// through TF32 in three passes: each operand x is split into hi =
+// tf32(x) (K2, K3: to nearest, ties away from zero, as cvt.rna rounds;
+// K1: truncated, `split_tf32_trunc`) and lo = tf32(x - hi) (truncated),
+// and a product is lo*hi + hi*lo + hi*hi into one fp32 accumulator (the
+// dropped lo*lo and lo's truncation are each at most about 2^-21 of a
+// term, 2^-20 for K1).  Fragment layouts of
 // mma.sync.m16n8k8 with tf32 (one value a 32-bit register):
 //   A 16x8 (row):  a0 (g, t)   a1 (g+8, t)   a2 (g, t+4)   a3 (g+8, t+4)
 //   B 8x8  (col):  b0 (k t, n g)   b1 (k t+4, n g)
@@ -266,6 +267,29 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
+// x as hi = x truncated to TF32 (its 13 low bits cleared) and lo = x -
+// hi, exact in fp32, its 13 low bits left as they are: the tensor cores
+// take a TF32 operand's 19 high bits, so lo enters the products
+// truncated as split_tf32 truncates it (the fp32 K1's errors on the
+// card match that, PERF.md).  Two instructions where split_tf32 takes
+// four, for a lo up to twice as large: about 2^-20 of a term dropped,
+// not 2^-21.  The fp32 K1 takes this split.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// split_tf32 (kTrunc false) or split_tf32_trunc
+template <bool kTrunc>
+__device__ __forceinline__ void split_tf32_as(float x, uint32_t& hi,
+                                              uint32_t& lo) {
+  if constexpr (kTrunc)
+    split_tf32_trunc(x, hi, lo);
+  else
+    split_tf32(x, hi, lo);
+}
+
 // d += a * b on the tensor cores (tf32 operands, fp32 accumulator)
 __device__ __forceinline__ void mma_tf32(float (&d)[4],
                                          const uint32_t (&a)[4],
@@ -316,25 +340,69 @@ __device__ __forceinline__ void load_b_rows_tf32x3(uint32_t (&b)[4],
 
 // The B fragment {hi0, hi1, lo0, lo1} of a product X * Y, Y a row-major
 // fp32 tile whose rows are the k dimension, k in the order of
-// `acc_to_a_tf32x3`: k rows [k0, k0 + 8) x n columns [n0, n0 + 8)
+// `acc_to_a_tf32x3`: k rows [k0, k0 + 8) x n columns [n0, n0 + 8);
+// kTrunc splits with split_tf32_trunc
+template <bool kTrunc = false>
 __device__ __forceinline__ void load_b_cols_tf32x3(uint32_t (&b)[4],
                                                    const float* tile,
                                                    int stride, int k0,
                                                    int n0, int lane) {
   const float* p = tile + (k0 + 2 * (lane % 4)) * stride + n0 + lane / 4;
-  split_tf32(p[0], b[0], b[2]);
-  split_tf32(p[stride], b[1], b[3]);
+  split_tf32_as<kTrunc>(p[0], b[0], b[2]);
+  split_tf32_as<kTrunc>(p[stride], b[1], b[3]);
 }
 
 // An accumulator tile (16 x 8) as the A fragment (hi, lo) of the next
-// product, k = t from column 2t and k = t + 4 from column 2t + 1
+// product, k = t from column 2t and k = t + 4 from column 2t + 1; kTrunc
+// splits with split_tf32_trunc
+template <bool kTrunc = false>
 __device__ __forceinline__ void acc_to_a_tf32x3(uint32_t (&hi)[4],
                                                 uint32_t (&lo)[4],
                                                 const float (&c)[4]) {
-  split_tf32(c[0], hi[0], lo[0]);
-  split_tf32(c[2], hi[1], lo[1]);
-  split_tf32(c[1], hi[2], lo[2]);
-  split_tf32(c[3], hi[3], lo[3]);
+  split_tf32_as<kTrunc>(c[0], hi[0], lo[0]);
+  split_tf32_as<kTrunc>(c[2], hi[1], lo[1]);
+  split_tf32_as<kTrunc>(c[1], hi[2], lo[2]);
+  split_tf32_as<kTrunc>(c[3], hi[3], lo[3]);
+}
+
+// ldmatrix reads fp32 as pairs of b16: in an 8 x 4 fp32 matrix lane l
+// gets row l / 4, column l % 4, which is where m16n8k8's tf32 A and B
+// fragments want it.  The A fragment (hi, lo) of rows [0, 16) x columns
+// [k0, k0 + 8) of a row-major fp32 tile in one ldmatrix (matrices rows
+// 0-7 | 8-15 x columns k0 | k0 + 4, in a0..a3 order), split with
+// split_tf32_trunc; rows padded to D + 4 floats put the 8 rows of each
+// matrix in 8 distinct 16-byte bank groups
+__device__ __forceinline__ void ldmatrix_a_tf32x3(uint32_t (&hi)[4],
+                                                  uint32_t (&lo)[4],
+                                                  const float* tile,
+                                                  int stride, int k0,
+                                                  int lane) {
+  const int m = lane / 8;
+  uint32_t r[4];
+  ldmatrix_x4(r,
+              tile + (lane % 8 + (m & 1) * 8) * stride + k0 + (m >> 1) * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32_trunc(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+
+// The B fragments {hi0, hi1, lo0, lo1} of n tiles n0 (b0) and n0 + 8
+// (b1) of a product X * Y^T, Y a row-major fp32 tile whose rows are the
+// n dimension, k columns [k0, k0 + 8), in one ldmatrix (matrices rows
+// n0 | n0 + 8 x columns k0 | k0 + 4), split with split_tf32_trunc
+__device__ __forceinline__ void ldmatrix_b_rows_tf32x3(uint32_t (&b0)[4],
+                                                       uint32_t (&b1)[4],
+                                                       const float* tile,
+                                                       int stride, int n0,
+                                                       int k0, int lane) {
+  const int m = lane / 8;
+  uint32_t r[4];
+  ldmatrix_x4(r, tile + (n0 + lane % 8 + (m >> 1) * 8) * stride + k0 +
+                     (m & 1) * 4);
+  split_tf32_trunc(__uint_as_float(r[0]), b0[0], b0[2]);
+  split_tf32_trunc(__uint_as_float(r[1]), b0[1], b0[3]);
+  split_tf32_trunc(__uint_as_float(r[2]), b1[0], b1[2]);
+  split_tf32_trunc(__uint_as_float(r[3]), b1[1], b1[3]);
 }
 
 // rows [r0, r0 + R) of a [t, D] fp32 matrix into a padded tile by

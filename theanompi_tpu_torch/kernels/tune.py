@@ -10,18 +10,18 @@ Each argument names a source (``fwd``: K1 in ``csrc/flash_fwd.cu``,
 lines; a bare name is the source as it stands.  Every variant is
 compiled as ``_build`` compiles (all at once, into
 ``build/theanompi_tpu_torch/tune/``), and its ptxas registers and
-spills of the tensor-core kernels at D = 128 (bf16, and the fp32 K2
-and K3 in three TF32 passes) are printed.  fwd and bwd variants: bf16
-results checked against the plain version in fp32 at six shapes (worst
-error as a fraction of atol = rtol = 1e-2; K2 and K3 also bitwise
-across two runs), each kernel timed (median of 20 launches, cold L2,
-CUDA events) at the training shape [2, 32, 2048, 128] and the serving
-shape [1, 32, 2047, 128], causal, in two passes (in order, then
-reversed), SDPA's forward and backward at the training shape last as
-the yardstick.  bwd variants also run their fp32 route: checked at the
-same six shapes (atol = rtol = 1e-4, bitwise across two runs) and
-timed at [1, 32, 2047, 128] causal in the same two passes, beside
-SDPA's fp32 backward there.  paged variants: both dtypes checked
+spills of the tensor-core kernels at D = 128 (bf16, and the fp32 K1,
+K2 and K3 in three TF32 passes) are printed.  fwd and bwd variants:
+bf16 results checked against the plain version in fp32 at six shapes
+(worst error as a fraction of atol = rtol = 1e-2; bitwise across two
+runs), each kernel timed (median of 20 launches, cold L2, CUDA events)
+at the training shape [2, 32, 2048, 128] and the serving shape [1, 32,
+2047, 128], causal, in two passes (in order, then reversed), SDPA's
+forward and backward at the training shape last as the yardstick.
+Both also run their fp32 route: checked at the same six shapes (atol =
+rtol = 1e-4, bitwise across two runs) and timed at [1, 32, 2047, 128]
+causal in the same two passes, beside SDPA's fp32 forward and backward
+there.  paged variants: both dtypes checked
 against the gather path (tolerance 1e-4 fp32, 1e-2 bf16; bitwise
 across two runs), bf16 timed the same way at the decode shape (S=8,
 Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and the 16-row verify shape
@@ -119,8 +119,8 @@ def frac(got, ref, tol=1e-2):
 
 
 def tune_flash(libs, kinds, dev, flush) -> None:
-    """Check and time the fwd (K1, bf16) and bwd (K2 and K3, bf16 and
-    fp32) variants."""
+    """Check and time the fwd (K1) and bwd (K2 and K3) variants, bf16
+    and fp32."""
     import torch
     import torch.nn.functional as F
 
@@ -168,9 +168,10 @@ def tune_flash(libs, kinds, dev, flush) -> None:
             cases[dtype].append(((q, k, v, do, lse, delta, causal),
                                  (o, lse), ref))
     # (variant, entry point, dtype): K2 and K3 of a bwd variant are timed
-    # apart, in both dtypes
+    # apart; every kernel in both dtypes
     runs = [(name, fn, dtype) for name in libs
-            for fn, dtype in (((None, bf16),) if kinds[name] == "fwd" else
+            for fn, dtype in (((None, bf16), (None, f32))
+                              if kinds[name] == "fwd" else
                               (("tm_flash_bwd_dkv", bf16),
                                ("tm_flash_bwd_dq", bf16),
                                ("tm_flash_bwd_dkv", f32),
@@ -179,17 +180,18 @@ def tune_flash(libs, kinds, dev, flush) -> None:
         worst, err, tol = 0.0, 0.0, 1e-2 if dtype is bf16 else 1e-4
         for args, (o, lse), (dq, dk, dv) in cases[dtype]:
             got = call(name, *args, fn_name=fn)
-            if kinds[name] == "fwd":
-                worst = max(worst, frac(got[0], o),
-                            (got[1] - lse).abs().max().item() / 1e-4)
-                continue
             again = call(name, *args, fn_name=fn)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name} {fn} {dtype}: two runs "
                                      f"differ")
-            want = (dq,) if fn == "tm_flash_bwd_dq" else (dk, dv)
-            worst = max([worst] + [frac(a, b, tol)
-                                   for a, b in zip(got, want)])
+            if kinds[name] == "fwd":
+                worst = max(worst, frac(got[0], o, tol),
+                            (got[1] - lse).abs().max().item() / 1e-4)
+                want = (o, lse)
+            else:
+                want = (dq,) if fn == "tm_flash_bwd_dq" else (dk, dv)
+                worst = max([worst] + [frac(a, b, tol)
+                                       for a, b in zip(got, want)])
             err = max([err] + [(a.float() - b).abs().max().item()
                                for a, b in zip(got, want)])
         print(f"{name} {fn or ''} {dtype}: worst error / tolerance "
@@ -209,7 +211,7 @@ def tune_flash(libs, kinds, dev, flush) -> None:
                   f"{ts[0]:.4f}, {ts[2]:.4f}; at the serving shape "
                   f"{ts[1]:.4f}, {ts[3]:.4f} (passes 1, 2)")
         else:
-            print(f"{name} {fn} {dtype}: ms at the serving shape "
+            print(f"{name} {fn or ''} {dtype}: ms at the serving shape "
                   f"{ts[0]:.4f}, {ts[1]:.4f} (passes 1, 2)")
     for dtype, (args, _, _) in ((bf16, cases[bf16][0]),
                                 (f32, cases[f32][1])):

@@ -25,13 +25,12 @@ Port of ``theanompi_tpu/ops/attention.py``.  Shapes follow
 Dispatch is by device: a CPU tensor gets the plain math, a CUDA tensor
 always gets the hand-written kernels ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` (or an error).  On the card the dtype picks the
-kernel, one per dtype: bf16 runs K1, K2 and K3 on the tensor cores;
-fp32 runs K1 on its SIMT kernel and K2 and K3 on the tensor cores in
-three TF32 passes (each operand split into a TF32 high and low part,
-three products into one fp32 sum).  The kernels mask the
-ragged edge of T themselves, so unlike the TPU dispatch (whose
-block-divisibility rule sent ragged lengths to the dense path) every
-length runs through them.
+kernel, one per dtype, all on the tensor cores: bf16 runs K1, K2 and K3
+in bf16; fp32 runs them in three TF32 passes (each operand split into
+a TF32 high and low part, three products into one fp32 sum).  The
+kernels mask the ragged edge of T themselves, so unlike the TPU
+dispatch (whose block-divisibility rule sent ragged lengths to the
+dense path) every length runs through them.
 """
 
 from __future__ import annotations
@@ -46,15 +45,14 @@ NEG_INF = -1e30  # finite "-inf": keeps exp() NaN-free in masked blocks
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the dtype csrc/ sends to the bf16 tensor-core kernels of K1, K2 and K3
 TC_DTYPE = torch.bfloat16
-# the dtype csrc/ sends to K2 and K3 in three TF32 passes
+# the dtype csrc/ sends to K1, K2 and K3 in three TF32 passes
 TF32X3_DTYPE = torch.float32
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
 
-def _check_tc_aligned(name, *ts, dtypes=(TC_DTYPE,)):
-    """The tensor-core kernels copy rows 16 bytes at a time: K1 in
-    bf16, K2 and K3 in both dtypes (``dtypes``)."""
-    if ts[0].dtype in dtypes and any(t.data_ptr() % 16 for t in ts):
+def _check_tc_aligned(name, *ts):
+    """K1, K2 and K3 copy rows 16 bytes at a time, in both dtypes."""
+    if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name} needs 16-byte aligned "
                          f"{str(ts[0].dtype).split('.')[1]} inputs")
 
@@ -175,8 +173,9 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     """Launch ``csrc/flash_fwd.cu`` on contiguous CUDA tensors
     q [B, H, Tq, D], k/v [B, H, Tk, D] (f32 or bf16).  Returns
     (o [B, H, Tq, D], lse [B, H, Tq] f32).  ``flash_fwd_cuda.launches``
-    counts its launches, ``.tc_launches`` those of the tensor-core
-    kernel (bf16)."""
+    counts its launches, ``.tc_launches`` those of the bf16 tensor-core
+    kernel, ``.tf32x3_launches`` those of the fp32 one (three TF32
+    passes)."""
     from theanompi_tpu_torch.kernels import _build
 
     if q.device.type != "cuda":
@@ -220,12 +219,14 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     _build.check(lib, err, "flash_fwd")
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.tc_launches += int(q.dtype == TC_DTYPE)
+    flash_fwd_cuda.tf32x3_launches += int(q.dtype == TF32X3_DTYPE)
     _tally("fwd", q, tk, causal)
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.tc_launches = 0
+flash_fwd_cuda.tf32x3_launches = 0
 
 
 def _flash_lib():
@@ -339,8 +340,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
     its launches, ``.tc_launches`` those of the bf16 tensor-core kernel,
     ``.tf32x3_launches`` those of the fp32 one (three TF32 passes)."""
     _check_bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
-    _check_tc_aligned("flash_bwd_dkv_cuda", q, k, v, do,
-                      dtypes=KERNEL_DTYPES)
+    _check_tc_aligned("flash_bwd_dkv_cuda", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_call("tm_flash_bwd_dkv", "flash_bwd_dkv", q, k, v, do, lse, delta,
               (dk, dv), causal, sm_scale)
@@ -363,8 +363,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
     launches, ``.tc_launches`` those of the bf16 tensor-core kernel,
     ``.tf32x3_launches`` those of the fp32 one (three TF32 passes)."""
     _check_bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
-    _check_tc_aligned("flash_bwd_dq_cuda", q, k, v, do,
-                      dtypes=KERNEL_DTYPES)
+    _check_tc_aligned("flash_bwd_dq_cuda", q, k, v, do)
     dq = torch.empty_like(q)
     _bwd_call("tm_flash_bwd_dq", "flash_bwd_dq", q, k, v, do, lse, delta,
               (dq,), causal, sm_scale)
