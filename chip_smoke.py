@@ -27,7 +27,7 @@ phase's seconds are printed at the end):
    every kernel built from ``theanompi_tpu_torch/csrc`` (one nvcc per
    source, all at once), with the build time; ptxas's report
    (registers, spills) and the shared memory and CTAs per SM of the
-   flash tensor-core kernels (bf16, and fp32 K1-K3);
+   tensor-core kernels (bf16, and fp32 K1-K4);
 2. kernels — each kernel against its plain PyTorch version on the
    card, at the shapes the serving and training paths give it, with
    its error, tolerance and times (kernel, plain version, and the one
@@ -35,9 +35,13 @@ phase's seconds are printed at the end):
    K2 and K3 on both routes (bf16 on the tensor cores; fp32 on the
    tensor cores in three TF32 passes, each launch's route checked, two
    launches bitwise, and fp32 K1 at a tp = 2 rank's heads bitwise those
-   rows of the whole launch), K4 (split and merge) at the decode shape,
-   the 16-row verify shape and past one row group (20, 32, 64 rows;
-   fp32 also timed at the decode and 16-row verify shapes), the serving
+   rows of the whole launch; bf16 K1-K3 at sm_scale -0.125 and 0), K4
+   (split and merge; bf16 on the tensor cores, fp32 on the tensor cores
+   in three TF32 passes, each launch's route checked) at the decode
+   shape, the 16-row verify shape and past one row group (20, 32, 64
+   rows), both timed at 4, 16 and 32 rows, fp32 bitwise across two
+   launches, a slot alone and batched, a row in 16- and 32-row launches
+   and a tp = 2 rank's heads against the 8-head launch's, the serving
    RMS norm kernel also at [32, 16384] (not a TPU kernel: every
    norm of the serving decoder, one CTA a row) at 8, 32 and 64 rows
    within one bf16 ulp or 1e-6 in fp32 (64 rows: every paged decode and
@@ -364,9 +368,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (dense): bytes/s, and ops/s by the
-# route's arithmetic: bf16 and fp32 (CUDA cores: fp32 K4) at their
-# peaks; fp32 K1-K3 three TF32 passes on the tensor cores (495 TF/s),
-# so a third of the TF32 rate in fp32 operations
+# route's arithmetic: bf16 and fp32 (CUDA cores: the fp32 RMS norm) at
+# their peaks; fp32 K1-K4 three TF32 passes on the tensor cores (495
+# TF/s), so a third of the TF32 rate in fp32 operations
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 # (atol, rtol) of a kernel against its plain version evaluated in fp32
@@ -641,13 +645,13 @@ def route(dtype_name: str) -> str:
 
 
 def route_counts(fn) -> list:
-    """A K1-K3 wrapper's [launches, bf16 tensor-core launches, three-pass
+    """A K1-K4 wrapper's [launches, bf16 tensor-core launches, three-pass
     TF32 launches]."""
     return [fn.launches, fn.tc_launches, fn.tf32x3_launches]
 
 
 def routes_want(dtype_name: str, launches: dict) -> dict:
-    """The ``route_counts`` K1-K3 (keys "K1", "K2", "K3") must show after
+    """The ``route_counts`` K1-K4 (keys "K1" to "K4") must show after
     ``launches`` of each in ``dtype_name``: bf16 all on the bf16 tensor
     cores, fp32 all in three TF32 passes."""
     if dtype_name == "bfloat16":
@@ -950,11 +954,69 @@ def check_flash_bwd(dev, flush) -> dict:
     return records
 
 
+def check_sm_scale(dev) -> dict:
+    """bf16 K1, K2 and K3 at sm_scale -0.125 and 0, causal and full, at
+    [1, 32, 512, 128] against their plain versions evaluated in fp32
+    (K1 launches -Q at 0.125 and Q = 0 at 1; K2 and K3 take the scale
+    as it is), each launch on the bf16 tensor-core route.  Returns the
+    max abs errors by scale and mask."""
+    import torch
+
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((1, 32, 512, 128), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    fns = {"K1": flash_fwd_cuda, "K2": flash_bwd_dkv_cuda,
+           "K3": flash_bwd_dq_cuda}
+    out = {}
+    for scale in (-0.125, 0.0):
+        for causal in (True, False):
+            before = {k_: route_counts(f) for k_, f in fns.items()}
+            o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+            delta = (do.float() * o.float()).sum(-1)
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                        scale)
+            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+            took = {k_: [a - b for a, b in zip(route_counts(f), before[k_])]
+                    for k_, f in fns.items()}
+            o_ref, lse_ref = mha_reference_fwd(
+                q.float(), k.float(), v.float(), causal=causal,
+                sm_scale=scale)
+            want = flash_bwd_reference(q.float(), k.float(), v.float(),
+                                       do.float(), lse, delta,
+                                       causal=causal, sm_scale=scale)
+            errs = {"o": compare(o, o_ref, "bfloat16"),
+                    "lse": compare(lse, lse_ref, "float32"),
+                    **{n: compare(g, w, "bfloat16")
+                       for n, g, w in zip(("dq", "dk", "dv"),
+                                          (dq, dk, dv), want)}}
+            ok = all(e[1] for e in errs.values()) and took == routes_want(
+                "bfloat16", {k_: 1 for k_ in fns})
+            key = f"sm_scale {scale} {'causal' if causal else 'full'}"
+            out[key] = {n: e[0] for n, e in errs.items()}
+            log(f"K1/K2/K3 bfloat16 [1,32,512,128] {key}: max_abs_err "
+                + ", ".join(f"{n} {e[0]:.3e}" for n, e in errs.items())
+                + f" -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"bf16 K1-K3 at {key}: disagree with "
+                                     f"the plain versions or took the "
+                                     f"wrong route {took}")
+    return out
+
+
 def paged_bound(args) -> tuple[float, str, int]:
     """(bound ms, what bounds it, walked positions) of K4 on ``args``:
     the K/V bytes of every slot's blocks up to its last position, q and
     the output, tables and positions against 4*hd operations per walked
-    position and query row."""
+    position and query row (bf16 at its tensor-core rate, fp32 in three
+    TF32 passes)."""
     q, kp, _, tables, pos = args
     s, nq, hkv, rep, hd = q.shape
     bs = kp.shape[2]
@@ -962,38 +1024,69 @@ def paged_bound(args) -> tuple[float, str, int]:
     isz = q.element_size()
     nbytes = (2 * walked * hkv * hd * isz + 2 * q.numel() * isz
               + tables.numel() * 4 + pos.numel() * 4)
+    name = str(q.dtype).split(".")[1]
     b_ms, b_by = bound(4 * walked * hkv * rep * nq * hd, nbytes,
-                       str(q.dtype).split(".")[1])
+                       "tf32x3" if name == "float32" else name)
     return b_ms, b_by, walked
+
+
+def paged_route(args, ctas=None):
+    """K4 on ``args``, checked to take its dtype's split kernel (bf16:
+    ``.tc_launches``, fp32: ``.tf32x3_launches``)."""
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+    )
+
+    before = route_counts(paged_attend_cuda)
+    out = paged_attend_cuda(*args, ctas=ctas)
+    took = [a - b for a, b in zip(route_counts(paged_attend_cuda), before)]
+    name = str(args[0].dtype).split(".")[1]
+    if took != routes_want(name, {"K4": 1})["K4"]:
+        raise AssertionError(f"K4 {name}: launch took the wrong route")
+    return out
 
 
 def check_paged(dev, flush) -> dict:
     """K4 against the gather path evaluated in fp32, both dtypes, at the
     decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128), the
     16-row verify shape (Q=4) and past one row group of 16: 20, 32 and
-    64 rows (Q = 5, 8, 16; ``speculate_k`` 8 gives 32), and at a tp = 2
-    rank's 4 kv heads (Q = 1 and 4); bf16 timed at 1, 16 and 32 rows,
-    fp32 (the CUDA-core split kernel, each launch checked to take it) at
-    1 and 16.  At the decode shape the bf16 record also holds the split
-    length the built library reports and the CTAs its split kernel
-    counted on the card in one call: launched, and live (not exited
-    early).  Returns the records keyed "K4" (bf16) and "K4 fp32"."""
+    64 rows (Q = 5, 8, 16; ``speculate_k`` 8 gives 32), each launch
+    checked to take its dtype's split kernel (bf16: tensor cores, fp32:
+    three TF32 passes); both timed at 4, 16 and 32 rows.  At a tp = 2
+    rank's 4 kv heads (Q = 1 and 4): the 8-head inputs' heads 4-7, fp32
+    bitwise those heads of the 8-head launch.  fp32 also: a second
+    launch bitwise the first, each slot alone bitwise its batched
+    output, and a 32-row launch whose rows 16-31 repeat rows 0-15's
+    positions bitwise the 16-row launch in rows 0-15.  At the decode
+    shape each record also holds the split length the built library
+    reports and the CTAs its split kernel counted on the card in one
+    call: launched, and live (not exited early).  Returns the records
+    keyed "K4" (bf16) and "K4 fp32"."""
     import torch
 
     from theanompi_tpu_torch.kernels.tune import paged_inputs
     from theanompi_tpu_torch.serving.paged_attention import (
-        paged_attend_cuda,
         paged_attend_reference,
         split_len,
     )
 
+    def bitwise(what, a, b):
+        same = torch.equal(a, b)
+        log(f"K4 float32 {what}: {'bitwise' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"K4 float32: {what} differ")
+
     gen = torch.Generator(device=dev).manual_seed(2)
-    record, fp32, wide = {}, {}, {}
+    records = {"K4": {}, "K4 fp32": {}}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
+        fp32 = dtype is torch.float32
+        record = records["K4 fp32" if fp32 else "K4"]
+        wide = record["past_16_rows"] = {}
+        full = {}
         for nq in (1, 4, 5, 8, 16):
-            args = paged_inputs(dev, dtype, gen, nq)
-            out = paged_attend_cuda(*args)
+            args = full[nq] = paged_inputs(dev, dtype, gen, nq)
+            out = paged_route(args)
             ref = paged_attend_reference(
                 *(a.float() if a.is_floating_point() else a for a in args))
             torch.cuda.synchronize()
@@ -1004,90 +1097,83 @@ def check_paged(dev, flush) -> dict:
             if not ok:
                 raise AssertionError(f"K4 disagrees with the gather path "
                                      f"at {name} Q={nq}")
+            if fp32 and nq in (1, 4):
+                bitwise(f"Q={nq} two launches", out, paged_route(args))
+            if fp32 and nq == 1:
+                q, kp, vp, tables, pos = args
+                alone = torch.cat([
+                    paged_route((q[i:i + 1], kp, vp, tables[i:i + 1],
+                                 pos[i:i + 1])) for i in range(q.shape[0])])
+                bitwise("each slot alone and batched", alone, out)
             if nq > 4:
-                wide.setdefault(f"{4 * nq} rows", {})[name] = err
-            if nq in (5, 16) or (dtype is torch.float32 and nq == 8):
+                wide.setdefault(f"{4 * nq} rows", {})["max_abs_err"] = err
+            if nq in (5, 16):
                 continue
-            if dtype is torch.float32:
-                tc = paged_attend_cuda.tc_launches
-                ms = time_ms(lambda: paged_attend_cuda(*args), flush=flush)
-                if paged_attend_cuda.tc_launches != tc:
-                    raise AssertionError("K4 float32: a launch took the "
-                                         "tensor-core route")
-                plain = time_ms(lambda: paged_attend_reference(*args),
-                                flush=flush)
-                b_ms, b_by, walked = paged_bound(args)
-                log(f"K4 times float32 Q={nq} ({4 * nq} rows): kernel "
-                    f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} "
-                    f"ms ({b_by}, {walked} walked positions)")
-                at = {"shape": f"S=8 Q={nq} Hkv=8 rep=4 hd=128 bs=16 "
-                               f"MB=128 float32 ({4 * nq} rows)",
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "bound_ms": b_ms, "bound_by": b_by}
-                if nq == 4:
-                    fp32["verify_shape"] = at
-                else:
-                    fp32.update(at, name="paged_attend_simt", route="cuda",
-                                source="theanompi_tpu_torch/csrc/"
-                                       "paged_attend.cu",
-                                replaces="theanompi_tpu/serving/"
-                                         "paged_attention.py:67",
-                                launches=None, library_ms=None)
-                continue
-            ms = time_ms(lambda: paged_attend_cuda(*args), flush=flush)
+            ms = time_ms(lambda: paged_route(args), flush=flush)
             plain = time_ms(lambda: paged_attend_reference(*args),
                             flush=flush)
             b_ms, b_by, walked = paged_bound(args)
-            log(f"K4 times bf16 Q={nq} ({4 * nq} rows): kernel {ms:.4f} "
+            log(f"K4 times {name} Q={nq} ({4 * nq} rows): kernel {ms:.4f} "
                 f"ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                 f"{walked} walked positions)")
+            at = {"shape": f"S=8 Q={nq} Hkv=8 rep=4 hd=128 bs=16 MB=128 "
+                           f"{name} ({4 * nq} rows)",
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                  "bound_ms": b_ms, "bound_by": b_by}
             if nq == 8:
-                wide["32 rows"].update(ms=ms, plain_ms=plain,
-                                       bound_ms=b_ms, bound_by=b_by)
+                wide["32 rows"].update(at)
                 continue
             if nq == 4:
-                record["verify_shape"] = {
-                    "shape": "S=8 Q=4 Hkv=8 rep=4 hd=128 bs=16 MB=128 bf16 "
-                             "(16 rows)",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": b_ms, "bound_by": b_by}
+                record["verify_shape"] = at
                 continue
             counted = torch.zeros(2, dtype=torch.int32, device=dev)
-            paged_attend_cuda(*args, ctas=counted)
+            paged_route(args, ctas=counted)
             launched, live = counted.tolist()
-            record.update({
-                "name": "paged_attend", "route": "cuda",
+            record.update(at, **{
+                "name": "paged_split_tf32x3" if fp32 else "paged_attend",
+                "route": "cuda",
                 "source": "theanompi_tpu_torch/csrc/paged_attend.cu",
                 "replaces": "theanompi_tpu/serving/paged_attention.py:67",
-                "shape": "S=8 Q=1 Hkv=8 rep=4 hd=128 bs=16 MB=128 bf16",
-                "launches": None, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None, "split_len": split_len(),
-                "ctas": {"launched": launched, "live": live},
-            })
-            log(f"K4 splits of {record['split_len']} positions: "
+                "launches": None, "library_ms": None,
+                "split_len": split_len(),
+                "ctas": {"launched": launched, "live": live}})
+            log(f"K4 {name} splits of {record['split_len']} positions: "
                 f"{launched} CTAs launched, {live} live (counted on the "
                 f"card)")
-    record["past_16_rows"] = wide
-    # serving_tp at tp = 2: 4 kv heads a rank, decode and 16-row verify
-    rank = record["tp_rank_shape"] = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
+        if fp32:
+            # rows 16-31 at rows 0-15's positions: the same splits live
+            q, kp, vp, tables, pos = full[8]
+            pos = pos.clone()
+            pos[:, 4:] = pos[:, :4]
+            both = paged_route((q, kp, vp, tables, pos))
+            half = paged_route((q[:, :4].contiguous(), kp, vp, tables,
+                                pos[:, :4].contiguous()))
+            bitwise("rows 0-15 of a 32-row launch and the 16-row launch",
+                    both[:, :4], half)
+        log(f"K4 {name} past one row group of 16: {json.dumps(wide)}")
+        # serving_tp at tp = 2: a rank's 4 of the 8 kv heads
+        rank = record["tp_rank_shape"] = {}
         for nq in (1, 4):
-            args = paged_inputs(dev, dtype, gen, nq, hkv=4)
-            out = paged_attend_cuda(*args)
+            q, kp, vp, tables, pos = full[nq]
+            whole = paged_route(full[nq])
+            args = (q[:, :, 4:].contiguous(), kp[:, 4:].contiguous(),
+                    vp[:, 4:].contiguous(), tables, pos)
+            out = paged_route(args)
             ref = paged_attend_reference(
                 *(a.float() if a.is_floating_point() else a for a in args))
             err, ok = compare(out, ref, name)
+            same = torch.equal(out, whole[:, :, 4:])
             rank[f"S=8 Q={nq} Hkv=4 rep=4 {name}"] = err
             log(f"K4 paged_attend {name} S=8 Q={nq} Hkv=4 rep=4 hd=128 "
-                f"bs=16 MB=128 (a tp = 2 rank): max_abs_err {err:.3e} -> "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
+                f"bs=16 MB=128 (a tp = 2 rank): max_abs_err {err:.3e}, "
+                f"{'bitwise' if same else 'not bitwise'} the 8-head "
+                f"launch's heads 4-7 -> {'ok' if ok else 'FAIL'}")
+            if not ok or (fp32 and not same):
                 raise AssertionError(f"K4 disagrees with the gather path "
-                                     f"at {name} Q={nq} Hkv=4")
-    log(f"K4 past one row group of 16: {json.dumps(wide)}")
-    return {"K4": record, "K4 fp32": fp32}
+                                     f"or the 8-head launch at {name} "
+                                     f"Q={nq} Hkv=4")
+        del full
+    return records
 
 
 def ulp_bf16(ref):
@@ -1331,16 +1417,18 @@ def reset_counts(*wrappers) -> None:
 
 def count_fp32_k4(records: dict, path: str, run, dev) -> None:
     """``run(dev)``, a small fp32 model's path, with K4's counts reset
-    just before: every launch must take the CUDA-core route, and their
-    count goes to the "K4 fp32" record under ``path``."""
+    just before: every launch must take the three-pass TF32 route, and
+    their count goes to the "K4 fp32" record under ``path``."""
     from theanompi_tpu_torch.serving.paged_attention import paged_attend_cuda
 
     reset_counts(paged_attend_cuda)
     run(dev)
-    n, tc = paged_attend_cuda.launches, paged_attend_cuda.tc_launches
-    if tc or not n:
-        raise AssertionError(f"{path}: fp32 K4 launches {n}, {tc} of them "
-                             f"on the tensor cores")
+    n = paged_attend_cuda.launches
+    if not n or route_counts(paged_attend_cuda) != routes_want(
+            "float32", {"K4": n})["K4"]:
+        raise AssertionError(f"{path}: fp32 K4 launches, bf16 tensor-core, "
+                             f"three-pass TF32 "
+                             f"{route_counts(paged_attend_cuda)}")
     add_launches(records.setdefault("K4 fp32", {}), **{path: n})
 
 
@@ -2333,18 +2421,22 @@ class FleetCounts:
         prefill = sum(pc.n for _, _, pc in self.calls)
         out = {"k4_launches": self.k4.launches,
                "k4_tensor_cores": self.k4.tc_launches,
+               "k4_tf32x3": self.k4.tf32x3_launches,
                "rms_norm_launches": self.norm.launches,
                "decode_calls_by_replica": [dc.n for _, dc, _ in self.calls],
                "prefill_calls_by_replica": [pc.n for _, _, pc in self.calls]}
         want = (layers * decode, (2 * layers + 1) * (decode + prefill))
-        # bf16 takes K4's tensor-core kernel, fp32 its CUDA-core one
-        tc = out["k4_launches"] if self.calls[0][0].model.compute_dtype \
-            == torch.bfloat16 else 0
-        if (out["k4_launches"], out["rms_norm_launches"]) != want \
-                or out["k4_tensor_cores"] != tc:
+        # bf16 takes K4's bf16 tensor-core kernel, fp32 its three-pass
+        # TF32 one
+        bf16 = self.calls[0][0].model.compute_dtype == torch.bfloat16
+        n = out["k4_launches"]
+        if (n, out["rms_norm_launches"]) != want \
+                or out["k4_tensor_cores"] != (n if bf16 else 0) \
+                or out["k4_tf32x3"] != (0 if bf16 else n):
             raise AssertionError(
-                f"serving_fleet {name}: K4 {out['k4_launches']} (tensor "
-                f"cores {out['k4_tensor_cores']}), rms_norm "
+                f"serving_fleet {name}: K4 {n} (bf16 tensor cores "
+                f"{out['k4_tensor_cores']}, three-pass TF32 "
+                f"{out['k4_tf32x3']}), rms_norm "
                 f"{out['rms_norm_launches']}; want {want[0]} = {layers} x "
                 f"{decode} decode calls, {want[1]} = {2 * layers + 1} x "
                 f"{decode + prefill} decoder calls")
@@ -3008,6 +3100,7 @@ def tp_rank_sessions(dev, group, n_layers: int, before=None,
             counts[f"{dtype} {name}"] = {
                 "K1": flash_fwd_cuda.launches,
                 "K4": paged_attend_cuda.launches,
+                "K4_route": route_counts(paged_attend_cuda),
                 "rms_norm": rms_norm_cuda.launches}
             del dec
         del model
@@ -3188,9 +3281,12 @@ def run_serving_tp(dev, n_layers: int, records: dict) -> None:
     for name, c0 in per_rank["rank0"].items():
         c1 = per_rank["rank1"][name]
         want_k1 = " v1" in name
+        # each K4 launch on its session's dtype's route
+        k4_route = routes_want(name.split()[0], {"K4": c0["K4"]})["K4"]
         if c0["rms_norm"] != c1["rms_norm"] or not c0["rms_norm"] \
                 or bool(c0["K1"]) != want_k1 or bool(c1["K1"]) != want_k1 \
-                or bool(c0["K4"]) == want_k1 or c0["K4"] != c1["K4"]:
+                or bool(c0["K4"]) == want_k1 or c0["K4"] != c1["K4"] \
+                or c0["K4_route"] != k4_route or c1["K4_route"] != k4_route:
             raise AssertionError(f"serving_tp {name}: launches {c0} / {c1}")
     rates = {"tp1": ref["bfloat16"]["tokens_per_s"],
              "tp2": out["bfloat16 paged"]["tokens_per_s"]}
@@ -6882,13 +6978,18 @@ TC_OCCUPANCY = {"flash_fwd_tc_kernel": ("flash_fwd",
                 "flash_bwd_dkv_tf32x3_kernel": (
                     "flash_bwd", "tm_flash_bwd_dkv_tf32x3_occupancy"),
                 "flash_bwd_dq_tf32x3_kernel": (
-                    "flash_bwd", "tm_flash_bwd_dq_tf32x3_occupancy")}
+                    "flash_bwd", "tm_flash_bwd_dq_tf32x3_occupancy"),
+                "paged_split_tc_kernel": (
+                    "paged_attend", "tm_paged_split_tc_occupancy"),
+                "paged_split_tf32x3_kernel": (
+                    "paged_attend", "tm_paged_split_tf32x3_occupancy")}
 
 
 def tc_report(reports: dict) -> dict:
-    """Per tensor-core kernel (bf16, and the fp32 K1-K3 in three TF32
-    passes) and head dim: ptxas's registers and spills, the dynamic
-    shared memory and the CTAs the runtime fits on one SM."""
+    """Per tensor-core kernel (bf16, and the fp32 K1-K4 in three TF32
+    passes; K4's split kernels) and head dim: ptxas's registers and
+    spills, the dynamic shared memory and the CTAs the runtime fits on
+    one SM."""
     import ctypes
 
     from theanompi_tpu_torch.kernels import _build
@@ -6896,8 +6997,8 @@ def tc_report(reports: dict) -> dict:
     out = {}
     for rep in reports.values():
         for e in ptxas_kernels(rep):
-            m = re.search(r"(flash_[a-z_]+_(?:tc|tf32x3)_kernel)ILi(\d+)E",
-                          e["name"])
+            m = re.search(r"((?:flash|paged)_[a-z_]+_(?:tc|tf32x3)_kernel)"
+                          r"ILi(\d+)E", e["name"])
             if m is None:
                 continue
             kernel, d = m.group(1), int(m.group(2))
@@ -7062,6 +7163,7 @@ def main(argv=None) -> int:
         flush = torch.empty(256 * 2**20, dtype=torch.int32, device=dev)
         records.update(check_flash(dev, flush))
         records.update(check_flash_bwd(dev, flush))
+        records["K1"]["sm_scale_signs"] = check_sm_scale(dev)
         records.update(check_paged(dev, flush))
         records["rms_norm"] = check_rms_norm(dev, flush)
         del flush
@@ -7071,7 +7173,9 @@ def main(argv=None) -> int:
                           ("K3", "flash_bwd_dq_tc_kernel"),
                           ("K1 fp32", "flash_fwd_tf32x3_kernel"),
                           ("K2 fp32", "flash_bwd_dkv_tf32x3_kernel"),
-                          ("K3 fp32", "flash_bwd_dq_tf32x3_kernel")):
+                          ("K3 fp32", "flash_bwd_dq_tf32x3_kernel"),
+                          ("K4", "paged_split_tc_kernel"),
+                          ("K4 fp32", "paged_split_tf32x3_kernel")):
             records[k]["ptxas_d128"] = tc.get(kernel, {}).get(128)
         # the fp32 routes run on the small fp32 models: count them there
         fp32_routes = {"K1 fp32": flash_fwd_cuda,
@@ -7093,9 +7197,11 @@ def main(argv=None) -> int:
                                          f"{route_counts(fn)}")
                 if fn.launches:
                     by_path[k][path] = fn.launches
-            if paged_attend_cuda.tc_launches:
-                raise AssertionError(f"{path}: fp32 K4 launches took the "
-                                     f"tensor-core route")
+            if route_counts(paged_attend_cuda) != routes_want(
+                    "float32", {"K4": paged_attend_cuda.launches})["K4"]:
+                raise AssertionError(f"{path}: fp32 K4 launches, bf16 "
+                                     f"tensor-core, three-pass TF32 "
+                                     f"{route_counts(paged_attend_cuda)}")
             if paged_attend_cuda.launches:
                 by_path["K4 fp32"][path] = paged_attend_cuda.launches
         for k, paths in by_path.items():

@@ -428,8 +428,7 @@ def test_tf32x3_kernels_refuse_unaligned_fp32(dev):
 
 def test_tc_kernels_refuse_what_they_cannot_take(dev):
     """The tensor-core kernels copy 16-byte chunks: a bf16 view that
-    starts off a 16-byte boundary is refused, not misread; K1 applies
-    sm_scale to the row max, so it must be positive."""
+    starts off a 16-byte boundary is refused, not misread."""
     from theanompi_tpu_torch.ops.attention import (
         flash_bwd_cuda,
         flash_bwd_dq_cuda,
@@ -446,9 +445,44 @@ def test_tc_kernels_refuse_what_they_cannot_take(dev):
         flash_bwd_cuda(x, x, x, x, r, r, True, 1.0)
     with pytest.raises(ValueError, match="aligned"):
         flash_bwd_dq_cuda(x, x, x, x, r, r, True, 1.0)
-    y = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="sm_scale > 0"):
-        flash_fwd_cuda(y, y, y, True, -0.125)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_kernels_take_sm_scale_of_either_sign(dev, causal):
+    """bf16 K1 at sm_scale -0.125 and 0 (launched as -Q at 0.125 and as
+    Q = 0 at 1: the same S*scale) gives the plain version's o and lse;
+    K2 and K3 read lse and mask P after the scale, so they take both
+    scales as they are.  Each launch on the bf16 tensor-core route."""
+    from theanompi_tpu_torch.ops.attention import (
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_reference,
+        flash_fwd_cuda,
+        mha_reference_fwd,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(38)
+    q, k, v, do = (torch.randn((1, 2, 100, 64), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    fns = (flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    for scale in (-0.125, 0.0):
+        before = [(f.launches, f.tc_launches) for f in fns]
+        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        o_ref, lse_ref = mha_reference_fwd(q.float(), k.float(), v.float(),
+                                           causal=causal, sm_scale=scale)
+        torch.testing.assert_close(o.float(), o_ref, **TOL[torch.bfloat16])
+        torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+        assert [(f.launches, f.tc_launches) for f in fns] == [
+            (n + 1, c + 1) for n, c in before]
+        want = flash_bwd_reference(q.float(), k.float(), v.float(),
+                                   do.float(), lse, delta, causal=causal,
+                                   sm_scale=scale)
+        for got, ref in zip((dq, dk, dv), want):
+            torch.testing.assert_close(got.float(), ref,
+                                       **TOL[torch.bfloat16])
 
 def test_llama_training_on_the_card_matches_the_cpu(dev, tmp_path):
     """Three BSP steps of a small fp32 Llama on the card (K1-K3, cuBLAS,
@@ -528,9 +562,14 @@ def test_paged_attend_matches_gather_path(dev, dtype, nq, rep, hkv, hd,
         dev, dtype, s=3, nq=nq, hkv=hkv, rep=rep, hd=hd, bs=bs, mb=mb,
         seed=nq * 100 + hd,
     )
-    before = paged_attend_cuda.launches
+    counts = ("launches", "tc_launches", "tf32x3_launches")
+    before = [getattr(paged_attend_cuda, c) for c in counts]
     out = paged_attend_cuda(q, kp, vp, tables, pos)
-    assert paged_attend_cuda.launches == before + 1
+    # bf16 takes the bf16 tensor-core split kernel, fp32 the three-pass
+    # TF32 one
+    assert [getattr(paged_attend_cuda, c) for c in counts] == [
+        before[0] + 1, before[1] + (dtype is torch.bfloat16),
+        before[2] + (dtype is torch.float32)]
     ref = paged_attend_reference(q.float(), kp.float(), vp.float(),
                                  tables, pos)
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
@@ -576,6 +615,26 @@ def test_paged_attend_groups_are_independent_rows(dev, dtype):
     half = paged_attend_cuda(q[:, :4].contiguous(), kp, vp, tables,
                              pos[:, :4].contiguous())
     assert torch.equal(full[:, :4], half)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 4])
+def test_paged_attend_heads_of_a_tp_rank_are_bitwise(dev, dtype, nq):
+    """A tp = 2 rank's 4 kv heads (its halves of q and the pools) give
+    bitwise the 8-head launch's outputs of those heads: a CTA reads one
+    kv head, whatever the others."""
+    from theanompi_tpu_torch.serving.paged_attention import (
+        paged_attend_cuda,
+    )
+
+    (q, kp, vp, tables, pos), out = paged_check(
+        dev, dtype, s=4, nq=nq, hkv=8, rep=4, hd=128, bs=16, mb=40,
+        seed=11)
+    for h0 in (0, 4):
+        rank = paged_attend_cuda(
+            q[:, :, h0:h0 + 4].contiguous(), kp[:, h0:h0 + 4].contiguous(),
+            vp[:, h0:h0 + 4].contiguous(), tables, pos)
+        assert torch.equal(rank, out[:, :, h0:h0 + 4])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,10 +7,11 @@ windows (Q > 1) and the degenerate single-head shape.  fp32, atol 1e-5
 
 Last, the card's split-and-combine arithmetic (flash-decoding: per
 split an online softmax over tiles, for bf16 pools P rounded to bf16
-before P V, the splits merged in order), emulated with torch ops and
-held to the same two JAX references within the card's tolerances
-(atol = rtol = 1e-4 fp32, 1e-2 bf16): the split changes the softmax's
-association, so the emulation states how far that moves the result."""
+before P V, for fp32 pools every product in three TF32 passes, the
+splits merged in order), emulated with torch ops and held to the same
+two JAX references within the card's tolerances (atol = rtol = 1e-4
+fp32, 1e-2 bf16): the split and the TF32 passes change the result, so
+the emulation states how far."""
 
 import numpy as np
 import pytest
@@ -24,9 +25,11 @@ from theanompi_tpu_torch.serving.paged_attention import (
     gather_blocks,
     paged_attend,
     paged_attend_cuda,
+    paged_attend_reference,
 )
 
 from test_paged_attention import gather_oracle, make_case
+from test_torch_flash_bwd import tf32_product
 
 pytestmark = pytest.mark.serving
 
@@ -122,9 +125,10 @@ def test_jax_tables_dtype_is_accepted():
 
 SPLIT = 256            # positions per split (kSplit in csrc/paged_attend.cu)
 # (positions per tile, positions per warp and tile, warps): bf16 runs 4
-# warps of 16 positions on each 64-position tile; fp32 one softmax per
-# CTA over 32-position tiles
-WALK = {torch.bfloat16: (64, 16, 4), torch.float32: (32, 32, 1)}
+# warps of 16 positions on each 64-position tile, fp32 (three TF32
+# passes) 4 warps of 8 positions on each 32-position tile (kXTile, kXPos
+# and kXWarps in csrc/paged_attend.cu)
+WALK = {torch.bfloat16: (64, 16, 4), torch.float32: (32, 8, 4)}
 LOG2E = 1.4426950408889634
 CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
             torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -144,19 +148,25 @@ def merge(states):
     return o, big, l
 
 
-def k4_emulated(q, kp, vp, tables, pos):
+def k4_emulated(q, kp, vp, tables, pos, passes=3):
     """K4's arithmetic on the card for q [S, Q, Hkv, rep, hd] and pools of
     one dtype: scores in log2 units (scale*log2e) in fp32, masked entries'
     P exactly 0; each split of SPLIT positions walks its tiles with an
     online softmax per warp slice, rounding P to the pool dtype before
-    P V; the warps merge in order, then the splits; out = o / l in the
-    pool dtype."""
+    P V for bf16; fp32 takes S = Q K^T and each tile's P V (summed from
+    zero, then added to the rescaled sum) through ``tf32_product`` with
+    the truncated split, in ``passes`` passes; the warps merge in order,
+    then the splits; out = o / l in the pool dtype."""
     tile, width, warps = WALK[q.dtype]
+    tf32 = q.dtype is torch.float32
     t_pad = tables.shape[1] * kp.shape[2]
     kg = gather_blocks(kp, tables).float()          # [S, Hkv, T, hd]
     vg = gather_blocks(vp, tables).float()
-    x = torch.einsum("sjkrd,sktd->sjkrt", q.float(), kg) * (
-        torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=torch.float32))
+    scale = torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=torch.float32)
+    if tf32:
+        x = tf32_product("sjkrd,sktd->sjkrt", q, kg, passes, True) * scale
+    else:
+        x = torch.einsum("sjkrd,sktd->sjkrt", q.float(), kg) * scale
     valid = (torch.arange(t_pad)[None, None, :]
              <= pos[:, :, None].long())[:, :, None, None, :]
     x = torch.where(valid, x, NEG_INF)
@@ -174,9 +184,11 @@ def k4_emulated(q, kp, vp, tables, pos):
                 p = torch.where(xs == NEG_INF, 0.0,
                                 torch.exp2(xs - mx[..., None]))
                 l = l * alpha + p.sum(-1)
-                pv = torch.einsum("sjkrt,sktd->sjkrd",
-                                  p.to(q.dtype).float(),
-                                  vg[:, :, a:a + width])
+                vt = vg[:, :, a:a + width]
+                pv = (tf32_product("sjkrt,sktd->sjkrd", p, vt, passes, True)
+                      if tf32 else
+                      torch.einsum("sjkrt,sktd->sjkrd",
+                                   p.to(q.dtype).float(), vt))
                 o = o * alpha[..., None] + pv
                 m = mx
             states.append((o, m, l))
@@ -239,10 +251,26 @@ def test_k4_split_emulation_trash_padded_tables(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("nq,rep,hkv", [(1, 4, 2), (4, 4, 1), (3, 2, 2)])
+@pytest.mark.parametrize("nq,rep,hkv", [(1, 4, 2), (4, 4, 1), (3, 2, 2),
+                                        (8, 4, 1)])
 def test_k4_split_emulation_query_windows(dtype, nq, rep, hkv):
     """Q = 1 decode at the 8B grouping and Q > 1 verify windows up to the
-    kernel's 16 rows, over windows that span several splits."""
+    kernel's 16 rows and past them (32 rows: two row groups, each row
+    computed alone), over windows that span several splits."""
     case = make_case(np.random.default_rng(30 + nq * rep), nq=nq, rep=rep,
                      hkv=hkv, hd=16, bs=16, mb=20, n_blocks=60)
     assert_k4_parity(case, dtype)
+
+
+def test_one_tf32_pass_is_why_k4_takes_three():
+    """fp32 K4's products the way the fp32 K1-K3 tests hold theirs: one
+    TF32 pass (hi*hi) misses the float64 gather path by at least 50
+    times what three passes miss, over a window of several splits."""
+    case = make_case(np.random.default_rng(40), nq=4, rep=4, hkv=1, hd=16,
+                     bs=16, mb=20, n_blocks=60)
+    args = [torch.tensor(np.asarray(a)) for a in case]
+    exact = paged_attend_reference(*(a.double() if a.is_floating_point()
+                                     else a for a in args))
+    errs = [(k4_emulated(*args, passes=n).double() - exact).abs().max()
+            .item() for n in (3, 1)]
+    assert errs[1] >= 50 * errs[0], errs

@@ -368,25 +368,32 @@ def test_disaggregated_fleet_gives_the_unified_ids(port_llama):
 
 
 def test_kernel_launch_counts_survive_replica_threads():
-    """Replica threads count their kernel launches at once: K4's and the
-    RMS norm's counters lose no update under heavy thread switching."""
+    """Replica threads count their kernel launches at once: K4's (by
+    route: bf16 on the tensor cores, fp32 in three TF32 passes, and by
+    rows) and the RMS norm's counters lose no update under heavy thread
+    switching."""
     import sys
     import threading
+
+    import torch
 
     from theanompi_tpu_torch.ops import norm
     from theanompi_tpu_torch.serving import paged_attention as pa
 
     saved = (pa.paged_attend_cuda.launches, pa.paged_attend_cuda.tc_launches,
+             pa.paged_attend_cuda.tf32x3_launches,
              dict(pa.paged_attend_cuda.launches_by_rows),
              norm.rms_norm_cuda.launches)
     pa.paged_attend_cuda.launches = pa.paged_attend_cuda.tc_launches = 0
+    pa.paged_attend_cuda.tf32x3_launches = 0
     pa.paged_attend_cuda.launches_by_rows = {}
     norm.rms_norm_cuda.launches = 0
     n_threads, n = 12, 3000
 
     def work(i):
+        dtype = torch.bfloat16 if i % 2 == 0 else torch.float32
         for _ in range(n):
-            pa._count_launch(4 * (1 + i % 4), i % 2 == 0)
+            pa._count_launch(4 * (1 + i % 4), dtype)
             norm._count_launch()
 
     switch = sys.getswitchinterval()
@@ -401,11 +408,13 @@ def test_kernel_launch_counts_survive_replica_threads():
         assert not any(t.is_alive() for t in threads)
         assert pa.paged_attend_cuda.launches == n_threads * n
         assert pa.paged_attend_cuda.tc_launches == n_threads * n // 2
+        assert pa.paged_attend_cuda.tf32x3_launches == n_threads * n // 2
         assert pa.paged_attend_cuda.launches_by_rows == {
             r: 3 * n for r in (4, 8, 12, 16)}
         assert norm.rms_norm_cuda.launches == n_threads * n
     finally:
         sys.setswitchinterval(switch)
         (pa.paged_attend_cuda.launches, pa.paged_attend_cuda.tc_launches,
+         pa.paged_attend_cuda.tf32x3_launches,
          pa.paged_attend_cuda.launches_by_rows,
          norm.rms_norm_cuda.launches) = saved

@@ -42,7 +42,8 @@
 // (`p.astype(v_blk.dtype)`, attention.py:193); l sums the unrounded P
 // in fp32, as there.  Causal q tiles launch longest first.  O leaves
 // through the warp's own Q rows in shared memory, 16 bytes a store.
-// sm_scale must be positive (the wrapper checks).
+// sm_scale must be positive: the wrapper launches a negative one as -Q
+// at -sm_scale and a zero one as Q = 0 at 1 (ops/attention.py).
 //
 // fp32: `flash_fwd_tf32x3_kernel` (mma.sync m16n8k8 with TF32 operands
 // in three passes: each operand split into hi and lo, each product

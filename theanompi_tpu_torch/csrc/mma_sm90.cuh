@@ -3,7 +3,7 @@
 // product with an fp32 accumulator, ldmatrix (plain and transposed),
 // cp.async with zero fill (contiguous rows, or rows through a block
 // table), and the padded bf16 tile layout they share; and those of the
-// fp32 K1, K2 and K3: the m16n8k8 TF32 product in three passes, its
+// fp32 K1, K2, K3 and K4: the m16n8k8 TF32 product in three passes, its
 // padded fp32 tiles and their split into hi and lo.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4;
@@ -17,13 +17,13 @@
 // are exactly one A fragment (`acc_to_a`), so a product's result feeds
 // the next product without leaving registers.
 //
-// The fp32 kernels (K1, K2 and K3 at fp32) run on the tensor cores
+// The fp32 kernels (K1, K2, K3 and K4 at fp32) run on the tensor cores
 // through TF32 in three passes: each operand x is split into hi =
 // tf32(x) (K2, K3: to nearest, ties away from zero, as cvt.rna rounds;
-// K1: truncated, `split_tf32_trunc`) and lo = tf32(x - hi) (truncated),
-// and a product is lo*hi + hi*lo + hi*hi into one fp32 accumulator (the
-// dropped lo*lo and lo's truncation are each at most about 2^-21 of a
-// term, 2^-20 for K1).  Fragment layouts of
+// K1 and K4: truncated, `split_tf32_trunc`) and lo = tf32(x - hi)
+// (truncated), and a product is lo*hi + hi*lo + hi*hi into one fp32
+// accumulator (the dropped lo*lo and lo's truncation are each at most
+// about 2^-21 of a term, 2^-20 for K1 and K4).  Fragment layouts of
 // mma.sync.m16n8k8 with tf32 (one value a 32-bit register):
 //   A 16x8 (row):  a0 (g, t)   a1 (g+8, t)   a2 (g, t+4)   a3 (g+8, t+4)
 //   B 8x8  (col):  b0 (k t, n g)   b1 (k t+4, n g)
@@ -399,6 +399,22 @@ __device__ __forceinline__ void ldmatrix_b_rows_tf32x3(uint32_t (&b0)[4],
   uint32_t r[4];
   ldmatrix_x4(r, tile + (n0 + lane % 8 + (m >> 1) * 8) * stride + k0 +
                      (m & 1) * 4);
+  split_tf32_trunc(__uint_as_float(r[0]), b0[0], b0[2]);
+  split_tf32_trunc(__uint_as_float(r[1]), b0[1], b0[3]);
+  split_tf32_trunc(__uint_as_float(r[2]), b1[0], b1[2]);
+  split_tf32_trunc(__uint_as_float(r[3]), b1[1], b1[3]);
+}
+
+// The B fragments {hi0, hi1, lo0, lo1} of n tile n0 at k steps k0 (b0)
+// and k0 + 8 (b1) of a product X * Y^T, Y a row-major fp32 tile whose
+// rows are the n dimension, in one ldmatrix (matrices rows n0 x columns
+// k0 | k0 + 4 | k0 + 8 | k0 + 12), split with split_tf32_trunc: for a
+// warp that owns one n tile (the fp32 K4's 8 positions)
+__device__ __forceinline__ void ldmatrix_b_rows_k16_tf32x3(
+    uint32_t (&b0)[4], uint32_t (&b1)[4], const float* tile, int stride,
+    int n0, int k0, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, tile + (n0 + lane % 8) * stride + k0 + (lane / 8) * 4);
   split_tf32_trunc(__uint_as_float(r[0]), b0[0], b0[2]);
   split_tf32_trunc(__uint_as_float(r[1]), b0[1], b0[3]);
   split_tf32_trunc(__uint_as_float(r[2]), b1[0], b1[2]);

@@ -56,17 +56,46 @@
 // TB/s on the fp32 CUDA cores would take ~54 of their 67 TF/s, on the
 // tensor cores a few percent of theirs.
 //
-// fp32 (the small test models): `paged_split_simt_kernel` on the CUDA
-// cores, with the same splits, ring and partials.  Each position of a
-// 32-position tile belongs to a group of 4 lanes that each hold a
-// quarter of its K row, so a score costs a 2-step shuffle reduction;
-// one warp per row takes the softmax over the tile's scores in shared
-// memory, and each thread accumulates P V for one column of D.
+// fp32 (the small fp32 serving models and the fp32 tp = 2 sessions):
+// `paged_split_tf32x3_kernel`, on the tensor cores in three TF32 passes
+// (mma.sync m16n8k8: each operand split into hi, truncated, and lo = x -
+// hi, each product lo*hi + hi*lo + hi*hi into fp32, as the fp32 K1 takes
+// them).  What bounds it: the bytes, the window's K and V (twice bf16's)
+// at 3.35 TB/s; at 16 rows three passes at 165 TF/s of fp32 work take a
+// sixth of that time.  On the CUDA cores the 16-row
+// verify shape needs ~27 TF/s of fp32 work beside the stream, and a
+// score a 4-lane dot product and a shuffle per row, so time grew with
+// the rows while the bytes did not; on the tensor cores the group's <=
+// 16 rows, zero-padded, are the M dimension of every product and cost
+// no more than 4.  Design: the bf16 kernel's walk with fp32 tiles: the
+// same splits, groups, partials and merge; kXWarps = 4 warps, each
+// taking kXPos = 8 positions (one n8 tile) of every 32-position tile of
+// a 3-deep cp.async ring of fp32 rows padded by 4 floats (conflict free
+// for ldmatrix and the scalar reads): 110 KB of shared memory at hd =
+// 128, two CTAs an SM, 2 tiles (64 KB of K and V) in flight per CTA.
+// What set the pace on the card was instruction issue, not the tensor
+// cores (kernels/tune.py; PERF.md): a CTA computes each position's pool
+// offset once (the copies' block lookup divides by bs), and sums S over
+// hd in kXAcc accumulators, so no chain of dependent mma.sync is longer
+// than one k pair's six.  S = Q K^T with Q's and K's fragments by
+// ldmatrix (fp32 read as b16 pairs, one ldmatrix giving K's fragments of
+// two k steps) and split as read; the online softmax in the accumulator
+// layout, each score scaled into log2 units before the row max and
+// masked entries' P exactly 0; P is not rounded: it is split from the
+// accumulators into the A operand of P V (`acc_to_a_tf32x3`), with V's B
+// fragments read in the same k order.  The tensor cores round each
+// accumulation toward zero, so a sum carried through every tile would
+// drift: each tile's P V is summed from zero and then added in fp32
+// (acc = acc*alpha + tile), as the fp32 K1-K3 do.  Each output row has
+// one owner and no atomics, and a row's products never see another
+// row's values, so two launches agree bitwise and a row's bits do not
+// depend on the rows, slots or kv heads launched beside it.
 //
 // Numerics: the split changes the softmax's association (per-split max
-// and sum, merged with exp2(m_j - M) weights) and bf16 also rounds P
-// before P V; against the gather path evaluated in fp32 the bar is
-// atol = rtol = 1e-4 for fp32 and 1e-2 for bf16.
+// and sum, merged with exp2(m_j - M) weights), bf16 also rounds P
+// before P V, and fp32 takes its products in three TF32 passes (about
+// 2^-20 of a term); against the gather path evaluated in fp32 the bar
+// is atol = rtol = 1e-4 for fp32 and 1e-2 for bf16.
 #include "common.cuh"
 #include "mma_sm90.cuh"
 
@@ -82,11 +111,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16;                 // query rows per row group
 constexpr int kTcTile = 16 * kWarps;      // bf16: positions per tile
-constexpr int kSimtTile = kThreads / 4;   // fp32: one position per 4 lanes
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kSplit % kTcTile == 0 && kSplit % kSimtTile == 0,
-              "a split is a whole number of tiles");
-static_assert(kSimtTile == 32, "the fp32 softmax gives a lane a position");
+static_assert(kSplit % kTcTile == 0, "a split is a whole number of tiles");
 static_assert(kStages >= 2, "the ring holds the tile computed on and more");
 
 // The largest position any query row of slot s attends, clamped to the
@@ -125,6 +151,7 @@ struct Split {
   int t0, t_end, b0, pmin;
 };
 
+template <int kNThreads = kThreads>
 __device__ __forceinline__ bool split_setup(Split& sp, int* sTab, int* sPos,
                                             const int* tables,
                                             const int* pos, int s, int nq,
@@ -140,7 +167,7 @@ __device__ __forceinline__ bool split_setup(Split& sp, int* sTab, int* sPos,
   sp.t_end = min(sp.t0 + kSplit, last + 1);
   sp.b0 = sp.t0 / bs;
   const int n_blk = (sp.t_end - 1) / bs - sp.b0 + 1;
-  for (int i = threadIdx.x; i < n_blk; i += kThreads)
+  for (int i = threadIdx.x; i < n_blk; i += kNThreads)
     sTab[i] = tables[static_cast<size_t>(s) * mb + sp.b0 + i];
   sp.pmin = last;
   for (int r = 0; r < kRows; ++r) {
@@ -389,163 +416,255 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// -- fp32: the SIMT split kernel -------------------------------------------
+// -- fp32: three TF32 passes on the tensor cores ----------------------------
 
-// fp32 tile rows are padded by 4 floats: 16-byte aligned for cp.async
-constexpr int kSimtPad = 4;
+constexpr int kXWarps = 4;   // fp32: warps per CTA
+constexpr int kXPos = 8;     // fp32: positions a warp takes of each tile
+constexpr int kXStages = 3;  // fp32: K/V tiles in the ring
+// fp32: S = Q K^T summed over hd in this many accumulators (its k steps
+// dealt out in turn, two a turn), added in fp32 at the end: shorter
+// chains of dependent mma.sync
+constexpr int kXAcc = 8;
+constexpr int kXThreads = 32 * kXWarps;
+constexpr int kXTile = kXPos * kXWarps;  // fp32: positions per tile
+static_assert(kSplit % kXTile == 0, "a split is a whole number of tiles");
+static_assert(kXPos == 8 || kXPos == 16, "a warp takes 1 or 2 n8 tiles");
+static_assert(kXStages >= 2, "the ring holds the tile computed on and more");
+static_assert(kXThreads >= kRows, "a thread for each row's last position");
 
 template <int HD>
-constexpr size_t simt_smem_bytes() {  // Q, the K/V ring, scores, m, l, alpha
-  return sizeof(float) *
-         ((kRows + 2 * kStages * kSimtTile) * (HD + kSimtPad) +
-          kRows * (kSimtTile + 1) + 3 * kRows);
+constexpr size_t xf_smem_bytes() {  // Q, then the K/V ring
+  return sizeof(float) * tmt::F32Tile<HD>::kStride *
+         (kRows + 2 * kXStages * kXTile);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    paged_split_simt_kernel(const float* __restrict__ q,
-                            const float* __restrict__ kp,
-                            const float* __restrict__ vp,
-                            const int* __restrict__ tables,
-                            const int* __restrict__ pos,
-                            float* __restrict__ o_part,
-                            float* __restrict__ ml_part,
-                            int* __restrict__ ctas, int nq, int hkv,
-                            int rep, int bs, int mb, float scale_log2) {
-  constexpr int FS = HD + kSimtPad;
-  constexpr int SS = kSimtTile + 1;       // score row stride
-  constexpr int kPerLane = HD / 4;        // K elements per lane of a group
-  constexpr int kRowStep = kThreads / HD;  // P V: rows apart per thread
-  constexpr int kAccRows = kRows / kRowStep;
-  static_assert(kThreads % HD == 0, "P V: whole columns per thread");
+__global__ void __launch_bounds__(kXThreads)
+    paged_split_tf32x3_kernel(const float* __restrict__ q,
+                              const float* __restrict__ kp,
+                              const float* __restrict__ vp,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ pos,
+                              float* __restrict__ o_part,
+                              float* __restrict__ ml_part,
+                              int* __restrict__ ctas, int nq, int hkv,
+                              int rep, int bs, int mb, float scale_log2) {
+  using L = tmt::F32Tile<HD>;
+  constexpr int S = L::kStride;
+  constexpr int ND = HD / 8;     // accumulator tiles across hd
+  constexpr int NP = kXPos / 8;  // accumulator tiles across a warp's share
+  static_assert(kXWarps * kRows * (HD + 2) <= 2 * kXStages * kXTile * S,
+                "the warps' merge fits in the ring");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sTab[kSplit + 1];
   __shared__ int sPos[kRows];
-  float* sQ = reinterpret_cast<float*>(smem);  // [kRows][FS]
-  float* sK = sQ + kRows * FS;                 // [kStages][kSimtTile][FS]
-  float* sV = sK + kStages * kSimtTile * FS;   // [kStages][kSimtTile][FS]
-  float* sS = sV + kStages * kSimtTile * FS;   // [kRows][SS]: scores, P
-  float* sM = sS + kRows * SS;                 // [kRows] running max
-  float* sL = sM + kRows;                      // [kRows] running sum
-  float* sA = sL + kRows;                      // [kRows] tile's rescale
+  __shared__ size_t sOff[kSplit];  // a position's offset in a pool head
+  float* sQ = reinterpret_cast<float*>(smem);  // [kRows][S]
+  float* sK = sQ + kRows * S;                  // [kXStages][kXTile][S]
+  float* sV = sK + kXStages * kXTile * S;      // [kXStages][kXTile][S]
 
   const int s = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Group gr = row_group(nq * rep);
-  const int h = gr.h, rows = gr.n;  // this CTA's rows: the group's
+  const int g = lane / 4, t4 = lane % 4;
+  const int rows = nq * rep;
+  const Group gr = row_group(rows);
+  const int h = gr.h;
   Split sp;
-  if (!split_setup(sp, sTab, sPos, tables, pos, s, nq, rep, bs, mb, gr,
-                   ctas))
+  if (!split_setup<kXThreads>(sp, sTab, sPos, tables, pos, s, nq, rep, bs,
+                              mb, gr, ctas))
     return;
 
-  for (int i = tid; i < kRows * (HD / 4); i += kThreads) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    const bool valid = r < rows;
-    tmt::cp_async_16(sQ + r * FS + c,
+  // the group's Q rows (zeros past its last) join the first ring group
+  for (int i = tid; i < kRows * L::kChunks; i += kXThreads) {
+    const int r = i / L::kChunks, c = (i % L::kChunks) * 4;
+    const bool valid = r < gr.n;
+    tmt::cp_async_16(sQ + r * S + c,
                      q + (valid ? row_offset(s, gr.r0 + r, nq, hkv, h, rep,
                                              HD) + c
                                 : 0),
                      valid);
   }
-  if (tid < kRows) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
-  __syncthreads();  // sTab, sPos, sM, sL
+  __syncthreads();  // sTab, sPos
 
-  const int n_tiles = (sp.t_end - sp.t0 + kSimtTile - 1) / kSimtTile;
-  const size_t blk = static_cast<size_t>(hkv) * bs * HD;
+  const int n_tiles = (sp.t_end - sp.t0 + kXTile - 1) / kXTile;
+  const size_t blk = static_cast<size_t>(hkv) * bs * HD;  // block stride
   const float* kh = kp + static_cast<size_t>(h) * bs * HD;
   const float* vh = vp + static_cast<size_t>(h) * bs * HD;
+  // each position's block looked up once: the copies' address arithmetic
+  // (a division by bs each) set the pace otherwise
+  for (int i = tid; i < sp.t_end - sp.t0; i += kXThreads) {
+    const int t = sp.t0 + i;
+    sOff[i] = sTab[t / bs - sp.b0] * blk + static_cast<size_t>(t % bs) * HD;
+  }
+  __syncthreads();
+  // tile j into stage j % kXStages, K and V of a position from one offset,
+  // as one cp.async group (empty past the last tile, so group j always
+  // holds tile j); rows past t_end are zero-filled
   auto load_kv = [&](int j) {
     if (j < n_tiles) {
-      const int st = j % kStages, t = sp.t0 + j * kSimtTile;
-      tmt::load_paged_tile_async<float, HD, kSimtTile, kThreads>(
-          sK + st * kSimtTile * FS, FS, kh, blk, sTab, sp.b0, bs, t,
-          sp.t_end, tid);
-      tmt::load_paged_tile_async<float, HD, kSimtTile, kThreads>(
-          sV + st * kSimtTile * FS, FS, vh, blk, sTab, sp.b0, bs, t,
-          sp.t_end, tid);
+      const int st = j % kXStages, r0 = j * kXTile;
+      for (int i = tid; i < kXTile * L::kChunks; i += kXThreads) {
+        const int r = i / L::kChunks, c = (i % L::kChunks) * 4;
+        const bool valid = sp.t0 + r0 + r < sp.t_end;
+        const size_t off = valid ? sOff[r0 + r] + c : 0;
+        tmt::cp_async_16(sK + (st * kXTile + r) * S + c, kh + off, valid);
+        tmt::cp_async_16(sV + (st * kXTile + r) * S + c, vh + off, valid);
+      }
     }
     tmt::cp_async_commit();
   };
-  for (int j = 0; j < kStages - 1; ++j) load_kv(j);  // Q joins group 0
+  for (int j = 0; j < kXStages - 1; ++j) load_kv(j);
 
-  // P V: this thread owns column c of rows r0 + k * kRowStep
-  const int c = tid % HD, r0 = tid / HD;
-  float acc[kAccRows];
+  // rows g (index 0) and g + 8 (index 1): last positions, running max
+  // in log2 units and this lane's share of the running sum
+  const int rpos[2] = {sPos[g], sPos[g + 8]};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
 #pragma unroll
-  for (int k = 0; k < kAccRows; ++k) acc[k] = 0.f;
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    tmt::cp_async_wait<kStages - 2>();
+    // tile j has landed, for every thread; and every warp is done with
+    // tile j - 1, whose stage the copy started next refills
+    tmt::cp_async_wait<kXStages - 2>();
     __syncthreads();
-    load_kv(j + kStages - 1);
-    const float* sKj = sK + (j % kStages) * kSimtTile * FS;
-    const float* sVj = sV + (j % kStages) * kSimtTile * FS;
+    load_kv(j + kXStages - 1);
+    const int w0 = sp.t0 + j * kXTile + warp * kXPos;  // this warp's first
+    if (w0 >= sp.t_end) continue;                       // all masked
+    const float* sKw = sK + ((j % kXStages) * kXTile + warp * kXPos) * S;
+    const float* sVw = sV + ((j % kXStages) * kXTile + warp * kXPos) * S;
 
-    // scores: the 4 lanes of group pg share position t0 + pg, lane li
-    // holding elements li + 4x of its K row
-    {
-      const int pg = tid / 4, li = tid % 4;
-      const int t = sp.t0 + j * kSimtTile + pg;
-      float kr[kPerLane];
+    // S = Q K^T over this warp's positions: Q's fragments by ldmatrix,
+    // split as read (splitting Q once, into shared memory or registers,
+    // was no faster), K's of two k steps by one ldmatrix
+    float sa[kXAcc][NP][4];
 #pragma unroll
-      for (int x = 0; x < kPerLane; ++x) kr[x] = sKj[pg * FS + li + 4 * x];
-      for (int r = 0; r < rows; ++r) {
-        float d = 0.f;
+    for (int a = 0; a < kXAcc; ++a)
 #pragma unroll
-        for (int x = 0; x < kPerLane; ++x)
-          d = fmaf(sQ[r * FS + li + 4 * x], kr[x], d);
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        if (li == 0) sS[r * SS + pg] = t <= sPos[r] ? d * scale_log2 : kNegInf;
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[a][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; kk += 2) {
+      uint32_t qh0[4], ql0[4], qh1[4], ql1[4];
+      tmt::ldmatrix_a_tf32x3(qh0, ql0, sQ, S, kk * 8, lane);
+      tmt::ldmatrix_a_tf32x3(qh1, ql1, sQ, S, kk * 8 + 8, lane);
+      float (&sc)[NP][4] = sa[(kk / 2) % kXAcc];
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        uint32_t b0[4], b1[4];
+        tmt::ldmatrix_b_rows_k16_tf32x3(b0, b1, sKw, S, n * 8, kk * 8, lane);
+        tmt::mma_tf32x3(sc[n], qh0, ql0, b0);
+        tmt::mma_tf32x3(sc[n], qh1, ql1, b1);
       }
     }
-    __syncthreads();
-
-    // online softmax, one warp per row, lane = position
-    for (int r = warp; r < rows; r += kWarps) {
-      const float x = sS[r * SS + lane];
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, tmt::warp_max(x));
-      const float p = x == kNegInf ? 0.f : exp2f(x - m_new);
-      sS[r * SS + lane] = p;
-      const float psum = tmt::warp_sum(p);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = alpha * sL[r] + psum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V
+    float (&sc)[NP][4] = sa[0];
 #pragma unroll
-    for (int k = 0; k < kAccRows; ++k) {
-      const int r = r0 + k * kRowStep;
-      if (r < rows) {
-        float a = acc[k] * sA[r];
-#pragma unroll 8
-        for (int t = 0; t < kSimtTile; ++t)
-          a = fmaf(sS[r * SS + t], sVj[t * FS + c], a);
-        acc[k] = a;
+    for (int a = 1; a < kXAcc; ++a)
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += sa[a][n][e];
+
+    // online softmax in log2 units, each score scaled before the max;
+    // masks only where a position passes some row's last position
+    const bool edge = w0 + kXPos - 1 > sp.pmin;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (edge && w0 + n * 8 + t4 * 2 + (e & 1) > rpos[e >> 1])
+          x = kNegInf;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = tmt::exp2_approx(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+    // P in fp32 (a masked entry exactly 0), split, is the A operand of
+    // P V
+    uint32_t ph[NP][4], pl[NP][4];
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[n][e];
+        const float p =
+            x == kNegInf ? 0.f : tmt::exp2_approx(x - mx[e >> 1]);
+        sc[n][e] = p;
+        l[e >> 1] += p;
+      }
+      tmt::acc_to_a_tf32x3<true>(ph[n], pl[n], sc[n]);
+    }
+
+    // acc = acc*alpha + P V, the tile's P V summed from zero on the
+    // tensor cores, one 8-column slice of hd at a time
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        uint32_t b[4];
+        tmt::load_b_cols_tf32x3<true>(b, sVw, S, n * 8, d * 8, lane);
+        tmt::mma_tf32x3(t, ph[n], pl[n], b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[d][e] = fmaf(acc[d][e], alpha[e >> 1], t[e]);
     }
   }
   tmt::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it holds the merge
 
-  const size_t c0 =
-      cell(s, h, blockIdx.x, hkv, gridDim.x) * (nq * rep) + gr.r0;
+  float* sAcc = sK;                        // [kXWarps][kRows][HD]
+  float* sM = sAcc + kXWarps * kRows * HD;  // [kXWarps][kRows]
+  float* sL = sM + kXWarps * kRows;         // [kXWarps][kRows]
 #pragma unroll
-  for (int k = 0; k < kAccRows; ++k) {
-    const int r = r0 + k * kRowStep;
-    if (r < rows) o_part[(c0 + r) * HD + c] = acc[k];
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    if (t4 == 0) {
+      sM[warp * kRows + g + 8 * i] = m[i];
+      sL[warp * kRows + g + 8 * i] = l[i];
+    }
   }
-  if (tid < rows) {
-    ml_part[(c0 + tid) * 2] = sM[tid];
-    ml_part[(c0 + tid) * 2 + 1] = sL[tid];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sAcc[(warp * kRows + g + 8 * (e >> 1)) * HD + n * 8 + t4 * 2 +
+           (e & 1)] = acc[n][e];
+  __syncthreads();
+
+  // the split's partial of the group's rows, the warps merged in warp
+  // order
+  const size_t c0 = cell(s, h, blockIdx.x, hkv, gridDim.x) * rows + gr.r0;
+  for (int i = tid; i < gr.n * HD; i += kXThreads) {
+    const int r = i / HD, c = i % HD;
+    float mr = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kXWarps; ++w) mr = fmaxf(mr, sM[w * kRows + r]);
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kXWarps; ++w)
+      o += exp2f(sM[w * kRows + r] - mr) * sAcc[(w * kRows + r) * HD + c];
+    o_part[(c0 + r) * HD + c] = o;
+    if (c == 0) {
+      float lr = 0.f;
+#pragma unroll
+      for (int w = 0; w < kXWarps; ++w)
+        lr += exp2f(sM[w * kRows + r] - mr) * sL[w * kRows + r];
+      ml_part[(c0 + r) * 2] = mr;
+      ml_part[(c0 + r) * 2 + 1] = lr;
+    }
   }
 }
 
@@ -595,35 +714,37 @@ struct Args {
 
 int n_splits(const Args& a) { return (a.mb * a.bs + kSplit - 1) / kSplit; }
 
+// The split kernel of element type T at head dim HD (bf16: tensor
+// cores; fp32: tensor cores, three TF32 passes), its threads and its
+// dynamic shared memory
+template <typename T, int HD>
+struct SplitKernel {
+  static constexpr bool kTc = sizeof(T) == 2;
+  static constexpr int threads = kTc ? kThreads : kXThreads;
+  static constexpr size_t smem =
+      kTc ? tc_smem_bytes<HD>() : xf_smem_bytes<HD>();
+  static auto kernel() {
+    if constexpr (kTc)
+      return paged_split_tc_kernel<HD>;
+    else
+      return paged_split_tf32x3_kernel<HD>;
+  }
+};
+
 template <typename T, int HD>
 cudaError_t launch(const Args& a) {
-  constexpr bool kTc = sizeof(T) == 2;
-  constexpr size_t smem = kTc ? tc_smem_bytes<HD>() : simt_smem_bytes<HD>();
+  using K = SplitKernel<T, HD>;
   const int groups = (a.nq * a.rep + kRows - 1) / kRows;
   const dim3 grid(n_splits(a), a.hkv * groups, a.s);
-  const float scale_log2 = a.scale * kLog2e;
-  cudaError_t err;
-  if constexpr (kTc) {
-    auto kernel = paged_split_tc_kernel<HD>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.kp),
-        static_cast<const bf16*>(a.vp), a.tables, a.pos, a.o_part,
-        a.ml_part, a.ctas, a.nq, a.hkv, a.rep, a.bs, a.mb, scale_log2);
-  } else {
-    auto kernel = paged_split_simt_kernel<HD>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.kp),
-        static_cast<const float*>(a.vp), a.tables, a.pos, a.o_part,
-        a.ml_part, a.ctas, a.nq, a.hkv, a.rep, a.bs, a.mb, scale_log2);
-  }
+  const auto kernel = K::kernel();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(K::smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, K::threads, K::smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), a.tables, a.pos, a.o_part, a.ml_part,
+      a.ctas, a.nq, a.hkv, a.rep, a.bs, a.mb, a.scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<T><<<dim3(a.nq * a.rep, a.hkv, a.s), kThreads, 0,
@@ -647,7 +768,46 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
   }
 }
 
+// The split kernel's dynamic shared memory at head dim hd and how many
+// of its CTAs the runtime fits on one SM
+template <typename T>
+cudaError_t occupancy(int hd, int* smem_bytes, int* ctas_per_sm) {
+  auto at = [&](auto k) -> cudaError_t {
+    const auto kernel = k.kernel();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(k.smem));
+    if (err != cudaSuccess) return err;
+    *smem_bytes = static_cast<int>(k.smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, kernel, k.threads, k.smem);
+  };
+  switch (hd) {
+    case 32:
+      return at(SplitKernel<T, 32>{});
+    case 64:
+      return at(SplitKernel<T, 64>{});
+    case 128:
+      return at(SplitKernel<T, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// The bf16 split kernel's dynamic shared memory at head dim hd and how
+// many of its CTAs the runtime fits on one SM.
+extern "C" int tm_paged_split_tc_occupancy(int hd, int* smem_bytes,
+                                           int* ctas_per_sm) {
+  return occupancy<bf16>(hd, smem_bytes, ctas_per_sm);
+}
+
+// The same for the fp32 split kernel (three TF32 passes).
+extern "C" int tm_paged_split_tf32x3_occupancy(int hd, int* smem_bytes,
+                                               int* ctas_per_sm) {
+  return occupancy<float>(hd, smem_bytes, ctas_per_sm);
+}
 
 // Positions per split: the wrapper sizes the partials' scratch with it.
 extern "C" int tm_paged_attend_split_len() { return kSplit; }

@@ -23,9 +23,12 @@ rtol = 1e-4, bitwise across two runs) and timed at [1, 32, 2047, 128]
 causal in the same two passes, beside SDPA's fp32 forward and backward
 there.  paged variants: both dtypes checked
 against the gather path (tolerance 1e-4 fp32, 1e-2 bf16; bitwise
-across two runs), bf16 timed the same way at the decode shape (S=8,
-Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and the 16-row verify shape
-(Q=4).  Needs a CUDA card.
+across two runs) at the decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128,
+bs=16, MB=128), the 16-row verify shape (Q=4) and 32 rows (Q=8), and
+timed the same way: bf16 at the first two, fp32 (three TF32 passes;
+``kXWarps`` warps of ``kXPos`` positions a tile, ``kXStages`` tiles in
+the ring, S summed in ``kXAcc`` accumulators) at all three.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -258,9 +261,11 @@ def paged_inputs(dev, dtype, gen, nq, *, s=8, hkv=8, rep=4, hd=128, bs=16,
 
 def tune_paged(libs, dev, flush) -> None:
     """Check the paged (K4) variants in both dtypes against the gather
-    path (bitwise across two runs too) and time them in bf16 at the
-    decode shape (S=8, Q=1, Hkv=8, rep=4, hd=128, bs=16, MB=128) and
-    the 16-row verify shape (Q=4)."""
+    path (bitwise across two runs too) at the decode shape (S=8, Q=1,
+    Hkv=8, rep=4, hd=128, bs=16, MB=128), the 16-row verify shape (Q=4)
+    and 32 rows (Q=8, two row groups), and time each dtype there: bf16
+    at the decode and 16-row shapes, fp32 (three TF32 passes) at all
+    three."""
     import torch
 
     from theanompi_tpu_torch.serving.paged_attention import (
@@ -271,30 +276,41 @@ def tune_paged(libs, dev, flush) -> None:
     def call(name, *args):
         return launch_with(libs[name], *args)
 
+    bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = {(dtype, nq): paged_inputs(dev, dtype, gen, nq)
-             for dtype in (torch.float32, torch.bfloat16) for nq in (1, 4)}
+             for dtype in (f32, bf16) for nq in (1, 4, 8)}
     for name in libs:
-        worst = 0.0
+        worst = {f32: 0.0, bf16: 0.0}
+        err = 0.0
         for (dtype, _), args in cases.items():
             ref = paged_attend_reference(*(a.float() if a.is_floating_point()
                                            else a for a in args))
             got = call(name, *args)
             if not torch.equal(got, call(name, *args)):
                 raise AssertionError(f"{name}: two runs differ")
-            tol = 1e-2 if dtype is torch.bfloat16 else 1e-4
-            worst = max(worst, frac(got, ref, tol))
-        print(f"{name}: worst error / tolerance {worst:.3f}", flush=True)
-    times = {name: [] for name in libs}
+            tol = 1e-2 if dtype is bf16 else 1e-4
+            worst[dtype] = max(worst[dtype], frac(got, ref, tol))
+            if dtype is f32:
+                err = max(err, (got - ref).abs().max().item())
+        print(f"{name}: worst error / tolerance bf16 {worst[bf16]:.3f}, "
+              f"fp32 {worst[f32]:.3f} (max abs error {err:.3e})",
+              flush=True)
+    timed = [(bf16, 1), (bf16, 4), (f32, 1), (f32, 4), (f32, 8)]
+    times = {(name, at): [] for name in libs for at in timed}
     for order in (list(libs), list(libs)[::-1]):
         for name in order:
-            for nq in (1, 4):
-                args = cases[torch.bfloat16, nq]
-                times[name].append(time_ms(lambda: call(name, *args), flush))
-    for name, ts in times.items():
-        print(f"{name}: bf16 ms at the decode shape {ts[0]:.4f}, {ts[2]:.4f}"
-              f"; at the 16-row verify shape {ts[1]:.4f}, {ts[3]:.4f} "
-              f"(passes 1, 2)")
+            for at in timed:
+                args = cases[at]
+                times[name, at].append(
+                    time_ms(lambda: call(name, *args), flush))
+    for name in libs:
+        for dtype in (bf16, f32):
+            print(f"{name}: {str(dtype).split('.')[1]} ms "
+                  + "; ".join(f"{4 * nq} rows {ts[0]:.4f}, {ts[1]:.4f}"
+                              for (n, (dt, nq)), ts in times.items()
+                              if n == name and dt is dtype)
+                  + " (passes 1, 2)", flush=True)
 
 
 def main(argv=None) -> int:

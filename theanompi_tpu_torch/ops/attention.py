@@ -202,10 +202,13 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     if q.device != k.device or q.device != v.device:
         raise ValueError("flash_fwd_cuda: q, k, v on different devices")
     _check_tc_aligned("flash_fwd_cuda", q, k, v)
-    if q.dtype == TC_DTYPE and not sm_scale > 0:
-        # the tensor-core kernel scales the row max, not each score
-        raise ValueError(f"flash_fwd_cuda needs sm_scale > 0 for bf16, "
-                         f"got {sm_scale}")
+    if q.dtype == TC_DTYPE and sm_scale <= 0:
+        # the bf16 kernel folds sm_scale into the row max, which takes a
+        # positive scale: -Q at -sm_scale gives the same S*scale (bf16
+        # negation is exact), and at 0 every score is 0, as Q = 0 gives
+        # at scale 1
+        q, sm_scale = ((-q, -sm_scale) if sm_scale < 0
+                       else (torch.zeros_like(q), 1.0))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     lib = _flash_lib()

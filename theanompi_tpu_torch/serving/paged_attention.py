@@ -18,9 +18,10 @@ kernels of ``csrc/paged_attend.cu``, which stream the blocks from the
 pools and never build the gathered window: the window is split into
 fixed runs of positions, and the Q * rep query rows of a (slot, kv
 head) into groups of 16, one CTA each (flash-decoding), and a second
-kernel merges the splits' partial softmax states.  Any number of kv
-heads and query rows runs (a tensor-parallel rank passes its local
-heads).
+kernel merges the splits' partial softmax states.  The split kernel
+runs on the tensor cores in both dtypes: bf16 products in bf16, fp32
+products in three TF32 passes.  Any number of kv heads and query rows
+runs (a tensor-parallel rank passes its local heads).
 """
 
 from __future__ import annotations
@@ -30,7 +31,12 @@ import threading
 
 import torch
 
-from theanompi_tpu_torch.ops.attention import KERNEL_DTYPES, NEG_INF
+from theanompi_tpu_torch.ops.attention import (
+    KERNEL_DTYPES,
+    NEG_INF,
+    TC_DTYPE,
+    TF32X3_DTYPE,
+)
 
 PAGED_HEAD_DIMS = (32, 64, 128)
 
@@ -69,9 +75,10 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
     pools f32 or bf16 of one dtype, 16-byte aligned; tables/pos int32):
     the split kernel, then the merge (see ``launch_with``).
     ``paged_attend_cuda.launches`` counts its calls (one per
-    split-and-merge pair), ``.tc_launches`` those on the tensor-core
-    route (bf16) and ``.launches_by_rows`` them by query rows per (slot,
-    kv head), Q * rep."""
+    split-and-merge pair), ``.tc_launches`` those of the bf16
+    tensor-core split kernel, ``.tf32x3_launches`` those of the fp32 one
+    (three TF32 passes on the tensor cores), and ``.launches_by_rows``
+    them by query rows per (slot, kv head), Q * rep."""
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_attend_cuda needs CUDA tensors, got {q.device}"
@@ -120,22 +127,25 @@ def paged_attend_cuda(q, k_pool, v_pool, tables, pos, *, ctas=None):
                          "pools (it copies rows 16 bytes at a time)")
     out = launch_with(_paged_lib(), q, k_pool, v_pool, tables, pos,
                       ctas=ctas)
-    _count_launch(nq * rep, q.dtype == torch.bfloat16)
+    _count_launch(nq * rep, q.dtype)
     return out
 
 
-def _count_launch(rows: int, tensor_cores: bool) -> None:
-    """Count one launch of K4 on ``paged_attend_cuda``'s attributes,
-    under a lock: the fleet's replica threads launch it at once."""
+def _count_launch(rows: int, dtype: torch.dtype) -> None:
+    """Count one launch of K4 in ``dtype`` on ``paged_attend_cuda``'s
+    attributes, by route and by rows, under a lock: the fleet's replica
+    threads launch it at once."""
     with _count_lock:
         paged_attend_cuda.launches += 1
-        paged_attend_cuda.tc_launches += bool(tensor_cores)
+        paged_attend_cuda.tc_launches += dtype == TC_DTYPE
+        paged_attend_cuda.tf32x3_launches += dtype == TF32X3_DTYPE
         by_rows = paged_attend_cuda.launches_by_rows
         by_rows[rows] = by_rows.get(rows, 0) + 1
 
 
 paged_attend_cuda.launches = 0
 paged_attend_cuda.tc_launches = 0
+paged_attend_cuda.tf32x3_launches = 0
 paged_attend_cuda.launches_by_rows = {}
 
 
